@@ -1,0 +1,142 @@
+"""Build ``csrc/*.cu`` into one shared library and bind it with ctypes.
+
+The kernels have a plain C interface (pointers, ints, a stream), so they
+build with ``nvcc`` alone in seconds; ``torch.utils.cpp_extension.load``
+would compile PyTorch's headers and take minutes.  Each source compiles in
+its own ``nvcc`` process, all started together, and the objects link into
+``build/repro_torch_kernels/librepro_torch_kernels-<hash>.so``.  The hash
+covers the sources and flags, so a stale library is never loaded and a
+finished build is reused by later processes.
+
+Nothing builds at import: ``library()`` runs at the first kernel launch.
+A failed build raises with ``nvcc``'s stderr.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+# C entry points: name -> argtypes.  Every entry returns the cudaError_t of
+# its launch (0 on success).
+SIGNATURES = {
+    # a, a_bf16, x, y, m, n, k, grid, threads, stream
+    "repro_block_matvec": (P, I, P, P, I, I, I, I, I, P),
+    # v, v_bf16, w, h, w_out, partials, partial_blocks, m1, n, j,
+    # smem_cap, blocks_per_sm, stream
+    "repro_gs_project": (P, I, P, P, P, P, I, I, I, I, I, I, P),
+    # a, a_bf16, v, v_bf16, h, w_out, partials, partial_blocks, m1, n, j,
+    # smem_cap, blocks_per_sm, stream
+    "repro_arnoldi_step": (P, I, P, I, P, P, P, I, I, I, I, I, I, P),
+    # Launch shapes, out = int[3] {grid, cols, smem bytes}:
+    # v_bf16, m1, n, smem_cap, blocks_per_sm, out
+    "repro_gs_project_shape": (I, I, I, I, I, P),
+    # a_bf16, v_bf16, m1, n, smem_cap, blocks_per_sm, out
+    "repro_arnoldi_step_shape": (I, I, I, I, I, I, P),
+}
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("repro_torch: nvcc not found (no CUDA toolkit on PATH "
+                       "or under CUDA_HOME); the kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the sources (if this exact build is absent); return the .so."""
+    sources = sorted(CSRC.glob("*.cu"))
+    out = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources:
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"--- {src.name} (exit {proc.returncode})\n"
+                              f"{err}")
+        if errors:
+            raise RuntimeError("repro_torch: nvcc failed\n"
+                               + "\n".join(errors))
+        tmp_so = pathlib.Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_so)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"repro_torch: nvcc link failed\n{link.stderr}")
+        os.replace(tmp_so, out)   # atomic: concurrent builders race safely
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        msg = library().repro_error_string(rc).decode()
+        raise RuntimeError(f"repro_torch: {name} launch failed: "
+                           f"CUDA error {rc} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def shape(name: str, *args) -> dict:
+    """The cooperative launch shape a kernel would use (for the record)."""
+    out = (ctypes.c_int * 3)()
+    check(name, getattr(library(), name)(*args, out))
+    return {"grid": out[0], "cols": out[1], "smem_bytes": out[2]}

@@ -1,0 +1,63 @@
+"""Launch shapes of the port's Hopper kernels, and the fused-step fits check.
+
+Counterpart of ``repro/kernels/tuning.py``, redesigned for Hopper: the
+TPU's VMEM budget, (8, 128) tile rounding and persisted block choices have
+no meaning here.  What the three kernels need is
+
+- the GEMV launch shape (csrc/matvec.cu: one warp per row);
+- the cooperative kernels' shared-memory cap and blocks per SM
+  (csrc/cgs2.cu, csrc/arnoldi_fused.cu); the C side picks the grid from
+  these with the occupancy calculator;
+- ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
+  slice in shared memory?  ``core/gmres.py`` asks this before any launch,
+  as the JAX solver asks its VMEM check.
+"""
+from __future__ import annotations
+
+import torch
+
+H100_SMS = 132            # SMs of an H100 SXM; used when no card is present
+GEMV_THREADS = 256        # 8 warps per block, one row of A per warp
+GS_WARPS = 8              # warps per cooperative block (csrc/common.cuh)
+# Dynamic shared memory a cooperative block may use (of the 227 KB limit),
+# leaving room for the runtime's reserved shared memory.
+SMEM_BUDGET = 200 * 1024
+# Upper bound on co-resident blocks per SM for the cooperative kernels.
+# The GS pass alone is latency-bound (fewer blocks: cheaper grid sync and
+# fewer partials to reduce); the fused step also streams A and wants more
+# warps in flight.
+GS_BLOCKS_PER_SM = 1
+FUSED_BLOCKS_PER_SM = 4
+
+
+def gemv_launch(m: int) -> tuple[int, int]:
+    """(blocks, threads) for ``block_matvec`` over m rows."""
+    rows_per_block = GEMV_THREADS // 32
+    return -(-m // rows_per_block), GEMV_THREADS
+
+
+def sm_count(device) -> int:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return H100_SMS
+
+
+def gs_smem_bytes(m1: int, cols: int) -> int:
+    """Shared memory of one cooperative block (csrc/common.cuh layout): its
+    (m1, cols) basis slice and w slice widened to f32, two h rows, and one
+    partial sum per warp and row (the fused step's phase 0)."""
+    return 4 * (m1 * cols + cols + 2 * m1 + GS_WARPS * cols)
+
+
+def fused_step_fits(m1: int, n: int, sms: int = H100_SMS) -> bool:
+    """Does the fused step's per-block V slice + w slice fit in shared memory
+    with a co-resident grid of one block per SM?  (The basis is held as f32
+    in shared memory whatever its storage dtype.)"""
+    cols = -(-n // min(sms, n))
+    return gs_smem_bytes(m1, cols) <= SMEM_BUDGET
+
+
+def partial_blocks(device, blocks_per_sm: int) -> int:
+    """Most blocks a cooperative launch can have: the partials' capacity."""
+    return blocks_per_sm * sm_count(device)

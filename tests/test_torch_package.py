@@ -1,0 +1,102 @@
+"""Package rules of the PyTorch port.
+
+- The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
+- Entry points run on the card unless the caller asks for the CPU: without
+  a card they raise, they never fall back.
+- Schemes that are not ported yet raise ``NotImplementedError``.
+- A failed kernel build raises with the compiler's message.
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax  # noqa: F401  (both frameworks in one process, as in the suite)
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import device as device_mod  # noqa: E402
+from repro_torch.core import gmres, operators, strategies  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            f"for name in {MODULES!r}:\n"
+            "    __import__(name)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 15
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_sources_name_no_jax(path):
+    src = path.read_text()
+    pattern = r"^\s*(import (jax|repro)\b|from (jax|repro)(\.| import))"
+    assert not re.search(pattern, src, re.M), path
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_card(no_card):
+    a = np.eye(8, dtype=np.float32)
+    b = np.ones(8, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        operators.random_diagdom(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        operators.DenseOperator(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        strategies.device_resident(a, b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        strategies.offload_matvec(a, b)
+    res = strategies.device_resident(a, b, device="cpu")
+    assert res.converged and res.x.device.type == "cpu"
+    assert device_mod.resolve("cpu").type == "cpu"
+
+
+def test_unported_paths_raise():
+    a = operators.random_diagdom(16, device="cpu")
+    b = torch.ones(16)
+    with pytest.raises(NotImplementedError, match="pipelined"):
+        gmres(a, b, gs="cgs2_pipelined")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        gmres(a, b, axis_name="rows")
+    with pytest.raises(ValueError, match="unknown gram-schmidt"):
+        gmres(a, b, gs="householder")
+
+
+def test_tf32_is_pinned_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_failed_build_raises_with_compiler_stderr(tmp_path, monkeypatch):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: simulated compile failure' >&2\n"
+                    "exit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="simulated compile failure"):
+        _build.build()
