@@ -12,7 +12,8 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import givens
-from repro_torch.core.operators import DenseOperator
+from repro_torch.core.operators import (BandedOperator, DenseOperator,
+                                        SlicedEllOperator, SparseOperator)
 
 BACKENDS = {"jnp": "torch", "pallas": "cuda"}
 
@@ -31,6 +32,37 @@ def dense_operator(op, device="cuda") -> DenseOperator:
     """A JAX ``DenseOperator`` (matrix and backend) as the port's."""
     return DenseOperator(tensor(op.a, device), backend=BACKENDS[op.backend],
                          device=device)
+
+
+def operator(op, device="cuda"):
+    """A JAX explicit operator as the port's, structure kept.
+
+    A dense operator keeps its backend; the port's sparse operators always
+    run the SpMV wrappers, so the JAX "jnp" / "pallas" choice is dropped.
+    Dispatches on the object's attributes, not its class, so this module
+    imports nothing of JAX: ``bin_values``/``bin_cols``/``perm`` is a
+    ``SlicedEllOperator`` (all bins, ``perm``, ``halo``, ``slice_height``,
+    ``identity_perm``), ``bands``/``offsets`` a ``BandedOperator``,
+    ``values``/``cols`` a ``SparseOperator`` (with ``halo``), ``a`` a
+    ``DenseOperator``.
+    """
+    if hasattr(op, "bin_values"):
+        return SlicedEllOperator(
+            tuple(tensor(v, device) for v in op.bin_values),
+            tuple(tensor(c, device) for c in op.bin_cols),
+            tensor(op.perm, device), op.halo, op.slice_height,
+            op.identity_perm, device=device)
+    if hasattr(op, "bands"):
+        return BandedOperator(tensor(op.bands, device), op.offsets,
+                              device=device)
+    if hasattr(op, "values"):
+        return SparseOperator(tensor(op.values, device),
+                              tensor(op.cols, device), op.halo,
+                              device=device)
+    if hasattr(op, "a"):
+        return dense_operator(op, device)
+    raise TypeError(f"convert.operator: {type(op).__name__} has no explicit "
+                    f"storage the port knows")
 
 
 def givens_state(state) -> givens.GivensState:

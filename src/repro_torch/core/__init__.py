@@ -1,12 +1,17 @@
-"""Solver core of the port: GMRES(m), Arnoldi schemes, Givens QR,
-operators and the paper's offload strategies."""
+"""Solver core of the port: GMRES(m) and the block multi-RHS solver,
+Arnoldi schemes, Givens QR, operators (dense, ELL, banded, sliced ELL,
+matrix-free), stencils, graphs and the paper's offload strategies."""
 from repro_torch.core.gmres import (BREAKDOWN, HEALTHY, NAN_INF, STAGNATED,
                                     STATUS_NAMES, Diagnostics, GmresResult,
-                                    classify_residuals, gmres)
-from repro_torch.core.operators import (DenseOperator, FunctionOperator,
-                                        as_operator, random_diagdom)
+                                    classify_residuals, gmres, gmres_batched,
+                                    gmres_batched_cycle)
+from repro_torch.core.operators import (BandedOperator, DenseOperator,
+                                        FunctionOperator, SlicedEllOperator,
+                                        SparseOperator, as_operator,
+                                        random_diagdom, with_dtype)
 
-__all__ = ["gmres", "GmresResult", "Diagnostics", "classify_residuals",
-           "HEALTHY", "NAN_INF", "STAGNATED", "BREAKDOWN", "STATUS_NAMES",
-           "DenseOperator", "FunctionOperator", "as_operator",
-           "random_diagdom"]
+__all__ = ["gmres", "gmres_batched", "gmres_batched_cycle", "GmresResult",
+           "Diagnostics", "classify_residuals", "HEALTHY", "NAN_INF",
+           "STAGNATED", "BREAKDOWN", "STATUS_NAMES", "DenseOperator",
+           "SparseOperator", "BandedOperator", "SlicedEllOperator",
+           "FunctionOperator", "as_operator", "with_dtype", "random_diagdom"]

@@ -19,9 +19,18 @@ the true residual norm once per restart.
 
 Kernel-backed paths: ``gs="fused"`` runs each Arnoldi step as one launch
 (``kernels/arnoldi_fused.py``), ``gs="cgs2_fused"`` runs the fused GS
-kernel (``kernels/cgs2.py``), and ``DenseOperator(backend="cuda")`` runs
-every mat-vec through the GEMV kernel.  On CPU tensors each wrapper runs
-its plain version.
+kernel (``kernels/cgs2.py``), ``DenseOperator(backend="cuda")`` runs its
+mat-vecs through the GEMV kernel, and the sparse operators always run
+theirs through the SpMV kernels.  On CPU tensors each wrapper runs its
+plain version.
+
+The block multi-RHS solver (``gmres_batched``, ``gmres_batched_cycle``;
+JAX's ``_make_batched_gs``, ``_block_cycle``, ``_block_matvec``,
+``_batched_precond``) steps k lanes in lockstep: one (n, k) mat-vec of an
+explicit operator feeds every lane, and a CGS2-family scheme runs all
+lanes' Gram-Schmidt in one ``batched_cgs2`` launch
+(``kernels/block_gs.py``).  The per-lane Givens states live on the host,
+so one (k, m+1) copy per lockstep step is the step's sync.
 """
 from __future__ import annotations
 
@@ -31,9 +40,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.core import arnoldi, givens
-from repro_torch.core.operators import DenseOperator, as_operator
-from repro_torch.kernels import arnoldi_fused, tuning
+from repro_torch.core.operators import (EXPLICIT_OPERATORS, DenseOperator,
+                                        as_operator)
+from repro_torch.kernels import arnoldi_fused, block_gs, tuning
 
 # Cycle-level health taxonomy (see repro/core/gmres.py).
 HEALTHY = 0     # converging (or already converged)
@@ -173,6 +184,12 @@ def _gmres_cycle(step_fn, x0, r0, beta, m, tol_abs, precond, basis_dtype):
     return x0 + precond(dx), steps
 
 
+def _rhs(b) -> torch.Tensor:
+    """b as a tensor: a tensor stays where it is, anything else (numpy, a
+    list) goes to the card, raising without one."""
+    return b if isinstance(b, torch.Tensor) else device_mod.as_tensor(b)
+
+
 def check_precond(precond) -> None:
     """Reject a non-callable ``precond`` early, with the argument named."""
     if precond is not None and not callable(precond):
@@ -201,7 +218,8 @@ def gmres(
       a: a ``DenseOperator`` / ``FunctionOperator``, a bare matvec callable,
         or a dense (n, n) matrix (wrapped as a "torch"-backend operator on
         b's device).
-      b: right-hand side, shape (n,); the solve runs on its device.
+      b: right-hand side, shape (n,); the solve runs on its device (a
+        numpy b goes to the card).
       x0: initial guess (zeros by default).
       m: restart length (Krylov subspace dimension per cycle).
       tol: relative residual target, ||b - Ax|| <= tol * ||b||.
@@ -225,6 +243,7 @@ def gmres(
         raise NotImplementedError(
             "gmres(axis_name=...): row-sharded solves are not ported yet; "
             "they arrive with the torch.distributed slice")
+    b = _rhs(b)
     matvec = as_operator(a, device=b.device)
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -269,3 +288,238 @@ def gmres(
                        converged=converged, inner_steps=steps,
                        done=converged or k >= max_restarts,
                        diagnostics=diags)
+
+
+# --------------------------------------------------------------------------
+# Block multi-RHS solver
+# --------------------------------------------------------------------------
+# Schemes whose arithmetic is CGS2: their lanes' Gram-Schmidt runs through
+# batched_cgs2 (the JAX ``_CGS2_FAMILY``, without its VMEM size gate).
+_CGS2_FAMILY = ("cgs2", "cgs2_fused", "fused", "arnoldi_fused")
+
+
+def _make_batched_gs(gs: str) -> Callable:
+    """Build ``batched_gs(v, w, j) -> (v_next, h, h_last)`` over k lanes.
+
+    v: (k, m+1, n) lane bases; w: (k, n) fresh mat-vec outputs; j: host
+    (k,) step indices, -1 for a lane that takes no step this time.  A
+    CGS2-family scheme runs both passes of every lane in one
+    ``batched_cgs2`` call; "cgs" / "mgs" run the scalar scheme lane by
+    lane.  h (k, m+1) holds the projections only: the caller puts h_last
+    at row j+1 on the host.
+    """
+    if gs == "cgs2_pipelined":
+        raise NotImplementedError(
+            "gs='cgs2_pipelined' (single-reduce pipelined CGS2) is not "
+            "ported yet; it arrives with the pipelined-solver slice")
+    if gs in _CGS2_FAMILY:
+        def kernel_gs(v, w, j):
+            h, w2 = block_gs.batched_cgs2(v, w, j)
+            h_last = torch.sqrt((w2 * w2).sum(dim=1))
+            eps = torch.finfo(w2.dtype).tiny ** 0.5
+            v_next = w2 / torch.clamp(h_last, min=eps)[:, None]
+            return v_next.to(w.dtype), h.to(w.dtype), h_last.to(w.dtype)
+
+        return kernel_gs
+
+    gs_step = arnoldi.step(gs)
+
+    def lane_gs(v, w, j):
+        k, m1, _ = v.shape
+        v_next = torch.zeros_like(w)
+        h = torch.zeros((k, m1), dtype=w.dtype, device=w.device)
+        h_last = torch.zeros((k,), dtype=w.dtype, device=w.device)
+        for lane in np.nonzero(j >= 0)[0]:
+            st = gs_step(v[lane], w[lane], int(j[lane]))
+            v_next[lane], h[lane], h_last[lane] = st.v_next, st.h, st.h_last
+        return v_next, h, h_last
+
+    return lane_gs
+
+
+def _lane_norms(r: torch.Tensor, np_dtype) -> np.ndarray:
+    """Per-lane 2-norms of a (k, n) block, on the host (a sync)."""
+    return torch.sqrt((r * r).sum(dim=1)).cpu().numpy().astype(np_dtype)
+
+
+def _block_cycle(blockmv, vprecond, batched_gs, x0, r0, beta, m, tol_abs,
+                 active0, basis_dtype):
+    """One restart cycle over k lanes stepping in lockstep.
+
+    Lanes carry their own basis, Givens state (host) and convergence
+    latch; the one shared operand is A, which every step applies once as a
+    (n, k) block mat-vec.  A done lane is a masked no-op: its mat-vec
+    column is computed and dropped, the GS kernel skips it (j = -1), and
+    its Givens state is not touched (the JAX cycle writes identity columns
+    there, which the final solve ignores alike).  Returns the updated
+    iterates and the per-lane step counts (host).
+    """
+    k, n = x0.shape
+    dev = x0.device
+    np_dtype = _np_dtype(x0.dtype)
+    steps = np.zeros((k,), np.int64)
+    done = ~np.asarray(active0, bool) | (beta <= tol_abs)
+    if done.all():
+        return x0, steps
+    eps = np_dtype.type(np.finfo(np_dtype).tiny ** 0.5)
+
+    v = torch.zeros((k, m + 1, n), dtype=basis_dtype, device=dev)
+    scale = torch.from_numpy(np.maximum(beta, eps).astype(np_dtype)).to(dev)
+    v[:, 0] = (r0 / scale[:, None]).to(basis_dtype)
+    giv = [givens.init(m, beta[lane], np_dtype) for lane in range(k)]
+    lanes = torch.arange(k, device=dev)
+    while True:
+        active = ~done & (steps < m)
+        if not active.any():
+            break
+        j = steps.copy()
+        jd = torch.from_numpy(j).to(dev)
+        # --- the k current Krylov vectors hit A as one block mat-vec ---
+        w = blockmv(vprecond(v[lanes, jd].to(x0.dtype)))
+        v_next, h, h_last = batched_gs(v, w, np.where(active, j, -1))
+        live = torch.from_numpy(np.nonzero(active)[0]).to(dev)
+        v[live, jd[live] + 1] = v_next[live].to(basis_dtype)
+        cols = torch.cat([h, h_last[:, None]], dim=1).to(x0.dtype)
+        cols = cols.cpu().numpy()                 # the step's one sync
+        for lane in np.nonzero(active)[0]:
+            jj = int(j[lane])
+            col = cols[lane, :m + 1].copy()
+            col[jj + 1] = cols[lane, -1]
+            givens.update(giv[lane], col, jj, active=True)
+            resid = givens.residual_norm(giv[lane], jj)
+            happy = cols[lane, -1] <= eps * 100
+            done[lane] = resid <= tol_abs[lane] or happy
+        steps += active
+    y = torch.from_numpy(np.stack([givens.solve(giv[lane], int(steps[lane]))
+                                   for lane in range(k)])).to(dev)
+    vb = v[:, :m].to(x0.dtype)
+    dx = torch.stack([y[lane] @ vb[lane] for lane in range(k)])
+    return x0 + vprecond(dx), steps
+
+
+def _block_matvec(op) -> Callable:
+    """(k, n) -> (k, n) block mat-vec: one matrix stream for all k lanes.
+
+    Explicit operators take an (n, k) operand natively, so the k current
+    Krylov vectors hit the matrix as one GEMM or block SpMV; a matrix-free
+    operator is applied lane by lane (nothing to share).
+    """
+    if isinstance(op, EXPLICIT_OPERATORS):
+        return lambda xs: op(xs.T).T
+    return lambda xs: torch.stack([op(x) for x in xs])
+
+
+def _batched_precond(precond) -> Callable:
+    """(k, n) -> (k, n) lane-batched M^{-1} apply: identity passes through,
+    a ``batched`` attribute is used as is, a plain callable runs lane by
+    lane."""
+    check_precond(precond)
+    if precond is None or getattr(precond, "is_identity", False):
+        return lambda vs: vs
+    batched = getattr(precond, "batched", None)
+    if batched is not None:
+        return batched
+    return lambda vs: torch.stack([precond(x) for x in vs])
+
+
+def _per_lane(value, k: int, dtype) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.broadcast_to(np.asarray(value, dtype), (k,)).copy()
+
+
+def gmres_batched_cycle(a, b: torch.Tensor, x: torch.Tensor, *, m: int = 30,
+                        tol_abs=None, active=None, gs: str = "cgs2",
+                        precond: Optional[Callable] = None,
+                        compute_dtype=None):
+    """One lockstep restart cycle over k lanes: the serving primitive.
+
+    Args:
+      a: shared operator (anything ``gmres`` accepts).
+      b: (k, n) per-lane right-hand sides.
+      x: (k, n) current iterates.
+      m: restart length.
+      tol_abs: (k,) or scalar ABSOLUTE residual targets (zeros default:
+        never converged).
+      active: (k,) bool lane mask; inactive lanes pass through untouched.
+      gs / precond / compute_dtype: as in ``gmres_batched``.
+
+    Returns ``(x', beta', inner_steps)``: updated iterates on x's device,
+    and on the host the TRUE per-lane residual norms after the cycle and
+    the per-lane Arnoldi steps taken.
+    """
+    op = as_operator(a, device=b.device)
+    vprecond = _batched_precond(precond)
+    basis_dtype = b.dtype if compute_dtype is None else compute_dtype
+    batched_gs = _make_batched_gs(gs)
+    blockmv = _block_matvec(op)
+    k = b.shape[0]
+    np_dtype = _np_dtype(b.dtype)
+    tol_abs = _per_lane(0 if tol_abs is None else tol_abs, k, np_dtype)
+    active = _per_lane(True if active is None else active, k, bool)
+
+    r = b - blockmv(x)
+    beta = _lane_norms(r, np_dtype)
+    act = active & (beta > tol_abs)
+    x2, inner = _block_cycle(blockmv, vprecond, batched_gs, x, r, beta, m,
+                             tol_abs, act, basis_dtype)
+    x = torch.where(torch.from_numpy(act).to(x.device)[:, None], x2, x)
+    beta = _lane_norms(b - blockmv(x), np_dtype)
+    return x, beta, inner
+
+
+def gmres_batched(a, b: torch.Tensor, *, m: int = 30, tol=1e-5,
+                  max_restarts=50, gs: str = "cgs2",
+                  precond: Optional[Callable] = None,
+                  compute_dtype=None) -> GmresResult:
+    """A batch of right-hand sides, shape (k, n), shared A, solved blocked.
+
+    The k current Krylov vectors are stacked into an (n, k) block and hit
+    an explicit operator as one GEMM or block SpMV per lockstep step, and
+    a CGS2-family ``gs`` ("cgs2", "cgs2_fused", "fused") runs every lane's
+    Gram-Schmidt in one ``batched_cgs2`` launch; "cgs" / "mgs" run lane by
+    lane.  ``tol`` and ``max_restarts`` may be scalars or (k,) arrays: each
+    lane latches its own convergence against its own ``tol * ||b_lane||``
+    and its own restart budget; a lane out of budget retires as FAILED
+    (``done`` and not ``converged``) while the others cycle on.
+
+    A numpy ``b`` goes to the card (raising without one).  Returns a
+    ``GmresResult`` whose ``x`` is (k, n) on b's device and whose
+    ``residual`` / ``restarts`` / ``converged`` / ``inner_steps`` / ``done``
+    are per-lane host (numpy) arrays; ``diagnostics`` is None.
+    """
+    b = _rhs(b)
+    op = as_operator(a, device=b.device)
+    vprecond = _batched_precond(precond)
+    basis_dtype = b.dtype if compute_dtype is None else compute_dtype
+    batched_gs = _make_batched_gs(gs)
+    blockmv = _block_matvec(op)
+    k = b.shape[0]
+    np_dtype = _np_dtype(b.dtype)
+    bnorm = _lane_norms(b, np_dtype)
+    tol_abs = np.maximum(_per_lane(tol, k, np_dtype) * bnorm,
+                         np_dtype.type(0))
+    max_restarts = _per_lane(max_restarts, k, np.int64)
+
+    def resid_of(x):
+        r = b - blockmv(x)
+        return r, _lane_norms(r, np_dtype)
+
+    x = torch.zeros_like(b)
+    r, beta = resid_of(x)
+    kk = np.zeros((k,), np.int64)
+    steps = np.zeros((k,), np.int64)
+    while True:
+        active = (beta > tol_abs) & (kk < max_restarts)
+        if not active.any():
+            break
+        x2, inner = _block_cycle(blockmv, vprecond, batched_gs, x, r, beta,
+                                 m, tol_abs, active, basis_dtype)
+        x = torch.where(torch.from_numpy(active).to(x.device)[:, None], x2, x)
+        r, beta = resid_of(x)
+        kk += active
+        steps += inner
+    converged = beta <= tol_abs
+    return GmresResult(x=x, residual=beta, restarts=kk, converged=converged,
+                       inner_steps=steps,
+                       done=converged | (kk >= max_restarts))

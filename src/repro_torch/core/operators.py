@@ -1,31 +1,69 @@
-"""Linear operators for the solver: dense matrices and matrix-free callables.
+"""Linear operators for the solver: dense, sparse, banded and matrix-free.
 
-Counterpart of ``repro/core/operators.py`` (``DenseOperator``,
-``FunctionOperator``, ``as_operator`` and the test matrices).  The sparse,
-banded and sliced-ELL operators come with a later slice.
+Counterpart of ``repro/core/operators.py``:
 
-``DenseOperator(backend=...)`` selects the mat-vec path:
+  DenseOperator      explicit (n, n) matrix (the paper's setting)
+  SparseOperator     ELL: fixed-width per-row nonzeros (values/cols)
+  SlicedEllOperator  sliced ELL: rows sorted by nonzero count into slices,
+                     each padded to its own widest row, merged into at most
+                     ``max_bins`` width bins (power-law graphs)
+  BandedOperator     DIA band stack + diagonal offsets (stencils)
+  FunctionOperator   matrix-free ``v -> A @ v`` callable
 
-  "torch" — ``a @ v`` (the plain path; JAX's "jnp")
-  "cuda"  — the hand-written GEMV / multi-RHS kernel
-            (``kernels/matvec.py``, ``csrc/matvec.cu``; JAX's "pallas").
-            On a CPU tensor the kernel wrapper runs its plain version.
+plus ``with_dtype``, ``as_operator`` and the test matrices.  The JAX
+package's row-sharded paths (``_sharded_call``) come with the distributed
+slice.
+
+``DenseOperator`` takes ``backend=`` to select its mat-vec path:
+
+  "torch" — plain PyTorch (JAX's "jnp"): ``a @ v``
+  "cuda"  — the hand-written GEMV (JAX's "pallas", ``kernels/matvec.py``)
+
+The sparse operators (ELL, banded, sliced ELL) have no such switch: they
+always call the SpMV wrappers (``kernels/spmv.py``), which launch the
+kernel on a CUDA tensor and run the plain version on a CPU tensor.
+
+Every ``__call__`` takes an (n,) vector or an (n, k) block (one stream of
+the matrix for all k columns: ``gmres_batched`` rides this) and returns the
+dtype ``a @ v`` promotes to, accumulating in float32 at least.
 
 Constructors default to ``device="cuda"`` and raise without a card unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``.  The ``from_dense`` / ``from_ell``
+constructors run on the host in numpy, as the JAX package's do, so their
+structure (columns, halo, bins, permutation) is the same element for
+element.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_mod
 from repro_torch.kernels import matvec as matvec_k
+from repro_torch.kernels import spmv
 
 BACKENDS = ("torch", "cuda")
+
+
+def _host(a):
+    """(numpy array, torch dtype) of a matrix given as a tensor or array.
+    bfloat16 crosses as float32, which holds it exactly."""
+    if isinstance(a, torch.Tensor):
+        dtype = a.dtype
+        a = a.detach().cpu()
+        if dtype == torch.bfloat16:
+            a = a.float()
+        return a.numpy(), dtype
+    a = np.asarray(a)
+    return a, torch.from_numpy(np.zeros((), a.dtype)).dtype
+
+
+def _on(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    t = device_mod.as_tensor(arr, device)
+    return t if dtype is None else t.to(dtype)
 
 
 class DenseOperator:
@@ -72,8 +110,372 @@ class FunctionOperator:
         return (self.n, self.n)
 
 
-EXPLICIT_OPERATORS = (DenseOperator,)
+class SparseOperator:
+    """ELL-format sparse operator: fixed-width per-row nonzeros.
 
+    Row i stores its nonzeros in ``values[i, :]`` with their int32 column
+    indices in ``cols[i, :]``, padded to the shared width (padding slots
+    hold value 0 at column 0, so every gather stays in bounds).  ``halo``
+    is the bandwidth bound max |col - row| over the nonzeros, recorded by
+    the constructors for the row-sharded solve of a later slice.
+    """
+
+    def __init__(self, values, cols, halo: Optional[int] = None,
+                 device="cuda"):
+        self.values = device_mod.as_tensor(values, device)
+        self.cols = device_mod.as_tensor(cols, device).to(torch.int32)
+        if self.values.ndim != 2 or self.cols.shape != self.values.shape:
+            raise TypeError(f"SparseOperator: values "
+                            f"{tuple(self.values.shape)} and cols "
+                            f"{tuple(self.cols.shape)} must be one (n, "
+                            f"width) shape")
+        self.halo = halo
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return spmv.ell_matvec(self.values, self.cols, v)
+
+    @classmethod
+    def from_dense(cls, a, *, width: int | None = None,
+                   device="cuda") -> "SparseOperator":
+        """Compress a dense (n, n) matrix to ELL form (host-side numpy).
+
+        ``width`` defaults to the widest row's nonzero count; a smaller
+        width raises rather than dropping entries.  The ``halo`` bound is
+        recorded from the nonzero pattern.
+        """
+        device_mod.resolve(device)
+        a_np, dtype = _host(a)
+        n = a_np.shape[0]
+        mask = a_np != 0
+        max_nnz = int(mask.sum(axis=1).max()) if n else 0
+        if width is None:
+            width = max(max_nnz, 1)
+        elif width < max_nnz:
+            raise ValueError(f"from_dense: width={width} < widest row "
+                             f"({max_nnz} nonzeros) — entries would be "
+                             f"dropped")
+        # Stable argsort puts each row's nonzero columns first, in order.
+        order = np.argsort(~mask, axis=1, kind="stable")[:, :width]
+        vals = np.take_along_axis(a_np, order, axis=1)
+        keep = np.take_along_axis(mask, order, axis=1)
+        rows, nz_cols = np.nonzero(mask)
+        halo = int(np.abs(nz_cols - rows).max()) if rows.size else 0
+        return cls(_on(np.where(keep, vals, 0).astype(a_np.dtype), device,
+                       dtype),
+                   _on(np.where(keep, order, 0).astype(np.int32), device),
+                   halo, device=device)
+
+    def todense(self) -> torch.Tensor:
+        """Materialize the dense (n, n) matrix (tests / small systems)."""
+        n, width = self.values.shape
+        rows = torch.arange(n, device=self.values.device).repeat_interleave(
+            width)
+        a = torch.zeros((n, n), dtype=self.values.dtype,
+                        device=self.values.device)
+        return a.index_put_((rows, self.cols.reshape(-1).long()),
+                            self.values.reshape(-1), accumulate=True)
+
+    @property
+    def shape(self):
+        n = self.values.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+
+class BandedOperator:
+    """DIA-style banded operator: ``y[i] = sum_d bands[d, i] * x[i + off_d]``.
+
+    ``bands`` is (nbands, n): band d holds the entries ``A[i, i +
+    offsets[d]]`` at index i.  Out-of-range reads count as zero, so
+    Dirichlet boundaries are free.
+    """
+
+    def __init__(self, bands, offsets, device="cuda"):
+        self.bands = device_mod.as_tensor(bands, device)
+        self.offsets = tuple(int(o) for o in offsets)
+        if self.bands.ndim != 2 or len(self.offsets) != self.bands.shape[0]:
+            raise TypeError(f"BandedOperator: bands "
+                            f"{tuple(self.bands.shape)} need one offset per "
+                            f"band, got {len(self.offsets)}")
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return spmv.banded_matvec(self.bands, v, self.offsets)
+
+    def to_ell(self) -> SparseOperator:
+        """Convert to ELL form (width = nbands; OOB slots become padding)."""
+        nbands, n = self.bands.shape
+        i = torch.arange(n, device=self.bands.device)
+        cols = torch.stack([i + off for off in self.offsets], dim=1)
+        valid = (cols >= 0) & (cols < n)
+        vals = torch.where(valid, self.bands.T,
+                           torch.zeros((), dtype=self.bands.dtype,
+                                       device=self.bands.device))
+        halo = max((abs(o) for o in self.offsets), default=0)
+        return SparseOperator(vals.contiguous(),
+                              torch.where(valid, cols, 0).to(torch.int32),
+                              halo, device=self.bands.device)
+
+    def todense(self) -> torch.Tensor:
+        """Materialize the dense (n, n) matrix (tests / small systems)."""
+        nbands, n = self.bands.shape
+        a = torch.zeros((n, n), dtype=self.bands.dtype,
+                        device=self.bands.device)
+        for d, off in enumerate(self.offsets):
+            band = self.bands[d]
+            diag = band[:n - off] if off >= 0 else band[-off:]
+            a = a + torch.diag(diag, off)
+        return a
+
+    @property
+    def shape(self):
+        n = self.bands.shape[1]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.bands.dtype
+
+
+class SlicedEllOperator:
+    """Sliced-ELL (SELL-C-sigma-style) operator for irregular row patterns.
+
+    Rows are sorted by nonzero count (descending, stable), cut into slices
+    of ``slice_height`` rows, each padded only to its own widest row, and
+    runs of same-width slices are stored as one rectangle, a width bin:
+
+      bin_values[b]  (rows_b, width_b)  values, sorted-row frame
+      bin_cols[b]    (rows_b, width_b)  int32 global column indices
+      perm           (n,) int32, perm[i] = original row at sorted slot i
+
+    The mat-vec is one ELL kernel launch per bin (``spmv.sell_matvec``)
+    over the same x, then a scatter through ``perm`` back to the original
+    order (a plain ``index_copy_``: the JAX package also scatters outside
+    its kernel).  Where sorting would not shrink storage by 10% (the
+    stencils), the constructors keep the original order, ``identity_perm`` is
+    set, and the scatter is skipped.
+    """
+
+    def __init__(self, bin_values, bin_cols, perm,
+                 halo: Optional[int] = None, slice_height: int = 64,
+                 identity_perm: bool = False, device="cuda"):
+        self.bin_values = tuple(device_mod.as_tensor(v, device)
+                                for v in bin_values)
+        self.bin_cols = tuple(device_mod.as_tensor(c, device).to(torch.int32)
+                              for c in bin_cols)
+        self.perm = device_mod.as_tensor(perm, device).to(torch.int32)
+        self.halo = halo
+        self.slice_height = int(slice_height)
+        self.identity_perm = bool(identity_perm)
+        self._perm_index = None if self.identity_perm else self.perm.long()
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return self._unsort(spmv.sell_matvec(self.bin_values, self.bin_cols,
+                                             v))
+
+    def _unsort(self, y_sorted: torch.Tensor) -> torch.Tensor:
+        if self.identity_perm:
+            return y_sorted
+        return torch.zeros_like(y_sorted).index_copy_(0, self._perm_index,
+                                                      y_sorted)
+
+    # -- format conversions -------------------------------------------------
+    @classmethod
+    def from_dense(cls, a, *, slice_height: int = 64,
+                   sort: bool | str = "auto", max_bins: int = 8,
+                   device="cuda") -> "SlicedEllOperator":
+        """Compress a dense (n, n) matrix to sliced-ELL form (host numpy).
+
+        ``sort="auto"`` sorts rows by nonzero count only when that shrinks
+        slice storage by at least 10%; True/False force it.
+        """
+        device_mod.resolve(device)
+        a_np, dtype = _host(a)
+        n = a_np.shape[0]
+        mask = a_np != 0
+        nnz = mask.sum(axis=1)
+        wtab = max(int(nnz.max()) if n else 0, 1)
+        order = np.argsort(~mask, axis=1, kind="stable")[:, :wtab]
+        vals = np.take_along_axis(a_np, order, axis=1)
+        keep = np.take_along_axis(mask, order, axis=1)
+        row_vals = np.where(keep, vals, 0).astype(a_np.dtype)
+        row_cols = np.where(keep, order, 0)
+        rows, nz_cols = np.nonzero(mask)
+        halo = int(np.abs(nz_cols - rows).max()) if rows.size else 0
+        return cls._build(row_vals, row_cols, nnz, slice_height, halo,
+                          sort=sort, max_bins=max_bins, device=device,
+                          dtype=dtype)
+
+    @classmethod
+    def from_ell(cls, sp: SparseOperator, *, slice_height: int = 64,
+                 sort: bool | str = "auto",
+                 max_bins: int = 8) -> "SlicedEllOperator":
+        """Re-slice a plain-ELL operator (value-0 slots become padding), on
+        the ELL operator's device."""
+        vals_np, dtype = _host(sp.values)
+        cols_np = sp.cols.cpu().numpy()
+        mask = vals_np != 0
+        nnz = mask.sum(axis=1)
+        # Pack each row's nonzero slots first (stable, order-preserving).
+        order = np.argsort(~mask, axis=1, kind="stable")
+        keep = np.take_along_axis(mask, order, axis=1)
+        row_vals = np.where(keep, np.take_along_axis(vals_np, order, 1), 0)
+        row_cols = np.where(keep, np.take_along_axis(cols_np, order, 1), 0)
+        halo = sp.halo
+        if halo is None:
+            r, c = np.nonzero(mask)
+            halo = int(np.abs(cols_np[r, c] - r).max()) if r.size else 0
+        return cls._build(row_vals.astype(vals_np.dtype), row_cols, nnz,
+                          slice_height, halo, sort=sort, max_bins=max_bins,
+                          device=sp.values.device, dtype=dtype)
+
+    @classmethod
+    def _build(cls, row_vals, row_cols, nnz, slice_height, halo,
+               *, sort="auto", max_bins=8, device="cuda",
+               dtype=None) -> "SlicedEllOperator":
+        """Shared host-side construction over a packed per-row nonzero table
+        (each row's nonzeros first; slots >= nnz[i] hold 0 at column 0).
+
+        Slices the (possibly sorted) row order into ``slice_height`` chunks,
+        then greedily merges the adjacent pair that adds the least padding
+        until at most ``max_bins`` rectangles remain: the JAX package's
+        rule, so bins and ``perm`` come out identical.
+        """
+        n = row_vals.shape[0]
+        c = max(int(slice_height), 1)
+
+        def slice_storage(order):
+            return sum(
+                len(order[s0:s0 + c]) * int(nnz[order[s0:s0 + c]].max())
+                for s0 in range(0, n, c)) if n else 0
+
+        ident = np.arange(n)
+        by_nnz = np.argsort(-nnz, kind="stable")
+        if sort == "auto":
+            use_sort = slice_storage(by_nnz) < 0.9 * slice_storage(ident)
+        else:
+            use_sort = bool(sort)
+        order = by_nnz if use_sort else ident
+        # Per-slice exact widths (>= 1 so padding slots exist), merged
+        # into [row_start, row_end, width) bins.
+        bins = []
+        for s0 in range(0, n, c):
+            h = min(c, n - s0)
+            w = max(int(nnz[order[s0:s0 + h]].max()), 1)
+            if bins and bins[-1][2] == w:
+                bins[-1][1] += h
+            else:
+                bins.append([s0, s0 + h, w])
+        if not bins:
+            bins = [[0, 0, 1]]
+
+        def merge_cost(i):
+            (a0, a1, aw), (b0, b1, bw) = bins[i], bins[i + 1]
+            w = max(aw, bw)
+            return (a1 - a0) * (w - aw) + (b1 - b0) * (w - bw)
+
+        while len(bins) > max(int(max_bins), 1):
+            i = min(range(len(bins) - 1), key=merge_cost)
+            (a0, a1, aw), (b0, b1, bw) = bins[i], bins[i + 1]
+            bins[i:i + 2] = [[a0, b1, max(aw, bw)]]
+
+        bin_values, bin_cols = [], []
+        for r0, r1, w in bins:
+            rows = order[r0:r1]
+            bin_values.append(_on(np.ascontiguousarray(row_vals[rows][:, :w]),
+                                  device, dtype))
+            bin_cols.append(_on(np.ascontiguousarray(
+                row_cols[rows][:, :w].astype(np.int32)), device))
+        return cls(tuple(bin_values), tuple(bin_cols),
+                   _on(order.astype(np.int32), device), halo, c,
+                   bool(np.array_equal(order, ident)), device=device)
+
+    def to_ell_arrays(self):
+        """Plain-ELL (values, cols) row table in ORIGINAL row order, width =
+        the widest bin."""
+        n = self.perm.shape[0]
+        w = self.max_width
+        dev = self.perm.device
+        vs = torch.cat([torch.nn.functional.pad(v, (0, w - v.shape[1]))
+                        for v in self.bin_values], dim=0)
+        cs = torch.cat([torch.nn.functional.pad(c, (0, w - c.shape[1]))
+                        for c in self.bin_cols], dim=0)
+        idx = self.perm.long()
+        values = torch.zeros((n, w), dtype=self.dtype,
+                             device=dev).index_copy_(0, idx, vs)
+        cols = torch.zeros((n, w), dtype=torch.int32,
+                           device=dev).index_copy_(0, idx, cs)
+        return values, cols
+
+    def to_ell(self) -> SparseOperator:
+        """Expand back to a plain-ELL operator (pad-to-widest)."""
+        values, cols = self.to_ell_arrays()
+        return SparseOperator(values, cols, self.halo, device=values.device)
+
+    def todense(self) -> torch.Tensor:
+        """Materialize the dense (n, n) matrix (tests / small systems)."""
+        n = self.perm.shape[0]
+        a = torch.zeros((n, n), dtype=self.dtype, device=self.perm.device)
+        start = 0
+        for vals, cols in zip(self.bin_values, self.bin_cols):
+            rb, wb = vals.shape
+            rows = self.perm[start:start + rb].long().repeat_interleave(wb)
+            a.index_put_((rows, cols.reshape(-1).long()), vals.reshape(-1),
+                         accumulate=True)
+            start += rb
+        return a
+
+    # -- format statistics ----------------------------------------------------
+    @property
+    def max_width(self) -> int:
+        return max(int(v.shape[1]) for v in self.bin_values)
+
+    @property
+    def storage_entries(self) -> int:
+        """Stored slots incl. slice padding: sum_b rows_b * width_b."""
+        return sum(int(v.shape[0]) * int(v.shape[1])
+                   for v in self.bin_values)
+
+    @property
+    def shape(self):
+        n = self.perm.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.bin_values[0].dtype
+
+
+
+
+# Operators with explicit matrix storage: their (n, k) block ``__call__``
+# lets the block solver stream the matrix once for all k lanes.
+EXPLICIT_OPERATORS = (DenseOperator, SparseOperator, BandedOperator,
+                      SlicedEllOperator)
+
+
+def with_dtype(op, dtype):
+    """The same explicit operator with its matrix storage cast to ``dtype``.
+
+    Structure (cols / offsets / perm / halo) is shared, only the value
+    stream changes.
+    """
+    if isinstance(op, DenseOperator):
+        return DenseOperator(op.a.to(dtype), op.backend, device=op.a.device)
+    if isinstance(op, SparseOperator):
+        return SparseOperator(op.values.to(dtype), op.cols, op.halo,
+                              device=op.values.device)
+    if isinstance(op, BandedOperator):
+        return BandedOperator(op.bands.to(dtype), op.offsets,
+                              device=op.bands.device)
+    if isinstance(op, SlicedEllOperator):
+        return SlicedEllOperator(
+            tuple(v.to(dtype) for v in op.bin_values), op.bin_cols, op.perm,
+            op.halo, op.slice_height, op.identity_perm,
+            device=op.perm.device)
+    raise TypeError(f"with_dtype: no explicit storage on {type(op).__name__}")
 
 def as_operator(a, device="cuda") -> Callable[[torch.Tensor], torch.Tensor]:
     """Normalize ``a`` to a matvec callable.

@@ -35,16 +35,26 @@ SIGNATURES = {
     # a, a_bf16, x, y, m, n, k, grid, threads, stream
     "repro_block_matvec": (P, I, P, P, I, I, I, I, I, P),
     # v, v_bf16, w, h, w_out, partials, partial_blocks, m1, n, j,
-    # smem_cap, blocks_per_sm, stream
-    "repro_gs_project": (P, I, P, P, P, P, I, I, I, I, I, I, P),
+    # smem_cap, blocks_per_sm, stream_blocks_per_sm, stream
+    "repro_gs_project": (P, I, P, P, P, P, I, I, I, I, I, I, I, P),
     # a, a_bf16, v, v_bf16, h, w_out, partials, partial_blocks, m1, n, j,
     # smem_cap, blocks_per_sm, stream
     "repro_arnoldi_step": (P, I, P, I, P, P, P, I, I, I, I, I, I, P),
     # Launch shapes, out = int[3] {grid, cols, smem bytes}:
-    # v_bf16, m1, n, smem_cap, blocks_per_sm, out
-    "repro_gs_project_shape": (I, I, I, I, I, P),
+    # v_bf16, m1, n, smem_cap, blocks_per_sm, stream_blocks_per_sm, out
+    "repro_gs_project_shape": (I, I, I, I, I, I, P),
     # a_bf16, v_bf16, m1, n, smem_cap, blocks_per_sm, out
     "repro_arnoldi_step_shape": (I, I, I, I, I, I, P),
+    # values, v_bf16, cols, x, y, rows, width, k, threads, stream
+    "repro_ell_matvec": (P, I, P, P, P, I, I, I, I, P),
+    # bands, b_bf16, offsets (host int[nbands]), nbands, x, y, n, k,
+    # threads, stream
+    "repro_banded_matvec": (P, I, P, I, P, P, I, I, I, P),
+    # v, v_bf16, w, j (device int[k]), h, w_out, partials, partial_blocks,
+    # k, m1, n, blocks_per_sm, stream
+    "repro_batched_cgs2": (P, I, P, P, P, P, P, I, I, I, I, I, P),
+    # v_bf16, k, m1, n, blocks_per_sm, out
+    "repro_batched_cgs2_shape": (I, I, I, I, I, P),
 }
 
 _LIB = None

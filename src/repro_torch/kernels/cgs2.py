@@ -3,7 +3,9 @@
 Counterpart of ``repro/kernels/cgs2.py::gs_project`` / ``cgs2`` (the fused
 single-shard pass only; the split-phase and payload kernels come with the
 distributed and pipelined solvers).  The kernel is ``csrc/cgs2.cu``; its
-source note gives the design and the bound.
+source note gives the design and the bound.  A basis whose column slices
+do not fit shared memory (the sparse solver's n = 2^20) takes the kernel's
+streamed variant, chosen from the shape on the C side.
 
 The mask is the prefix of valid basis rows, so the wrappers take ``j``
 (rows 0..j valid) instead of a mask vector: the kernel then reads only
@@ -55,12 +57,14 @@ def gs_project(v: torch.Tensor, w: torch.Tensor, j: int):
     wf = w.to(torch.float32).contiguous()
     h = torch.empty(m1, dtype=torch.float32, device=v.device)
     w_out = torch.empty(n, dtype=torch.float32, device=v.device)
-    cap = tuning.partial_blocks(v.device, tuning.GS_BLOCKS_PER_SM)
+    cap = tuning.partial_blocks(v.device, max(tuning.GS_BLOCKS_PER_SM,
+                                              tuning.STREAM_BLOCKS_PER_SM))
     part = torch.empty(cap * m1, dtype=torch.float32, device=v.device)
     rc = _build.library().repro_gs_project(
         v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
         h.data_ptr(), w_out.data_ptr(), part.data_ptr(), cap, m1, n, j,
-        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM, _build.stream_ptr(v))
+        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM,
+        tuning.STREAM_BLOCKS_PER_SM, _build.stream_ptr(v))
     _build.check("gs_project", rc)
     gs_project.launches += 1
     return h, w_out.to(w.dtype)
@@ -73,7 +77,8 @@ def launch_shape(v_dtype, m1: int, n: int) -> dict:
     """The grid gs_project launches at this shape on the current card."""
     return _build.shape("repro_gs_project_shape",
                         int(v_dtype == torch.bfloat16), m1, n,
-                        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM)
+                        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM,
+                        tuning.STREAM_BLOCKS_PER_SM)
 
 
 def cgs2(v: torch.Tensor, w: torch.Tensor, j: int):

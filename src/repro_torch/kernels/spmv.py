@@ -1,0 +1,239 @@
+"""Sparse / structured mat-vec: ELL gather, sliced ELL and banded stencils.
+
+Counterpart of ``repro/kernels/spmv.py`` (``ell_matvec``, ``sell_matvec``,
+``banded_matvec`` and their ``_ref`` oracles; the row-sharded halo
+variants come with the distributed slice).  The kernels are
+``csrc/spmv.cu``; its source note gives the design and the bound.
+
+- ``ell_matvec(values, cols, x)``: values/cols (n, width), padding slots
+  holding value 0 at column 0.
+- ``sell_matvec(bin_values, bin_cols, x)``: one ELL launch per width bin
+  over the same x (columns are global), the output in the bins' sorted-row
+  frame; ``SlicedEllOperator`` scatters it back.
+- ``banded_matvec(bands, x, offsets)``: y[i] = sum_d bands[d, i] *
+  x[i + offsets[d]], out-of-range reads counting as zero.
+
+Values and bands are float32 or bfloat16 storage; x is (n,) or (n, k),
+taken as float32 by the kernels (a wider x is cut into launches of
+``MAX_K`` columns); every sum accumulates in float32 (float64 on the plain
+path for float64 operands).  The result has the dtype ``A @ x`` promotes
+to, as the JAX package's ``_acc_dtypes`` defines it.
+
+On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, tuning
+
+MAX_K = 8            # accumulators per thread (columns of x per launch)
+MAX_BANDS = 32       # offsets passed by value to the banded kernel
+STORAGE = (torch.float32, torch.bfloat16)
+
+
+def _acc_dtypes(mat_dtype, x_dtype):
+    """(compute, accumulate) dtypes matching dense ``a @ x`` promotion."""
+    compute = torch.promote_types(mat_dtype, x_dtype)
+    return compute, torch.promote_types(compute, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+def ell_matvec_plain(values: torch.Tensor, cols: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    compute, acc = _acc_dtypes(values.dtype, x.dtype)
+    g = x[cols.long()].to(acc)               # (n, width) or (n, width, k)
+    vals = values.to(acc)
+    if x.ndim == 2:
+        vals = vals[:, :, None]
+    return (vals * g).sum(dim=1).to(compute)
+
+
+def sell_matvec_plain(bin_values, bin_cols, x: torch.Tensor) -> torch.Tensor:
+    _check_bins(bin_values, bin_cols)
+    return torch.cat([ell_matvec_plain(v, c, x)
+                      for v, c in zip(bin_values, bin_cols)], dim=0)
+
+
+def banded_matvec_plain(bands: torch.Tensor, x: torch.Tensor,
+                        offsets) -> torch.Tensor:
+    nbands, n = bands.shape
+    compute, acc = _acc_dtypes(bands.dtype, x.dtype)
+    halo = max(abs(int(o)) for o in offsets)
+    xp = (x[:, None] if x.ndim == 1 else x).to(acc)
+    pad = torch.zeros((halo, xp.shape[1]), dtype=acc, device=x.device)
+    xp = torch.cat([pad, xp, pad], dim=0)
+    out = torch.zeros((n, xp.shape[1]), dtype=acc, device=x.device)
+    for d, off in enumerate(offsets):
+        seg = xp[halo + int(off): halo + int(off) + n]
+        out = out + bands[d][:, None].to(acc) * seg
+    out = out.to(compute)
+    return out[:, 0] if x.ndim == 1 else out
+
+
+# --------------------------------------------------------------------------
+# checks (the JAX wrappers' contracts: a length mismatch is a TypeError)
+# --------------------------------------------------------------------------
+def _check_x(name: str, n: int, x: torch.Tensor, mat: torch.Tensor) -> None:
+    if x.ndim not in (1, 2) or x.shape[0] != n:
+        raise TypeError(f"{name}: matrix {tuple(mat.shape)} @ x "
+                        f"{tuple(x.shape)} — x must be (n,) or (n, k) with "
+                        f"n = {n} rows")
+    if mat.device != x.device:
+        raise ValueError(f"{name}: matrix on {mat.device}, x on {x.device}")
+
+
+def _check_ell(name: str, values: torch.Tensor, cols: torch.Tensor) -> None:
+    if values.ndim != 2 or cols.shape != values.shape:
+        raise TypeError(f"{name}: cols {tuple(cols.shape)} must match "
+                        f"values {tuple(values.shape)} (both (rows, width))")
+
+
+def _check_bins(bin_values, bin_cols) -> None:
+    if not len(bin_values) or len(bin_values) != len(bin_cols):
+        raise TypeError(f"sell_matvec: {len(bin_values)} value bins vs "
+                        f"{len(bin_cols)} cols bins (need >= 1, matching)")
+    for i, (v, c) in enumerate(zip(bin_values, bin_cols)):
+        if v.ndim != 2 or c.shape != v.shape:
+            raise TypeError(f"sell_matvec: bin {i} cols {tuple(c.shape)} "
+                            f"must match values {tuple(v.shape)}")
+
+
+def _check_storage(name: str, mat: torch.Tensor, idx=None) -> None:
+    if mat.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {mat.device}")
+    if mat.dtype not in STORAGE:
+        raise TypeError(f"{name}: storage must be float32 or bfloat16, got "
+                        f"{mat.dtype}")
+    if not mat.is_contiguous() or (idx is not None
+                                   and not idx.is_contiguous()):
+        raise ValueError(f"{name}: the matrix must be contiguous (row-major)")
+    if idx is not None and idx.dtype != torch.int32:
+        raise TypeError(f"{name}: column indices must be int32, got "
+                        f"{idx.dtype}")
+
+
+def _x_block(name: str, x: torch.Tensor, compute) -> torch.Tensor:
+    """x as a contiguous float32 (n, k) block (values rounded to compute)."""
+    if x.dtype not in STORAGE:
+        raise TypeError(f"{name}: x must be float32 or bfloat16 on the card, "
+                        f"got {x.dtype}")
+    x2 = x[:, None] if x.ndim == 1 else x
+    return x2.to(compute).to(torch.float32).contiguous()
+
+
+def _chunks(k: int) -> int:
+    return -(-k // MAX_K)
+
+
+def _launch_ell(values, cols, xf, y, name: str) -> None:
+    rows, width = values.shape
+    rc = _build.library().repro_ell_matvec(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), xf.data_ptr(), y.data_ptr(), rows, width,
+        xf.shape[1], tuning.SPMV_THREADS, _build.stream_ptr(values))
+    _build.check(name, rc)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+def ell_matvec(values: torch.Tensor, cols: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for ELL A.  values/cols: (n, width); x: (n,) or (n, k)."""
+    _check_ell("ell_matvec", values, cols)
+    _check_x("ell_matvec", values.shape[0], x, values)
+    if values.device.type == "cpu":
+        return ell_matvec_plain(values, cols, x)
+    _check_storage("ell_matvec", values, cols)
+    compute, _ = _acc_dtypes(values.dtype, x.dtype)
+    xf = _x_block("ell_matvec", x, compute)
+    y = torch.empty_like(xf)
+    _launch_ell(values, cols, xf, y, "ell_matvec")
+    ell_matvec.launches += _chunks(xf.shape[1])
+    y = y.to(compute)
+    return y[:, 0] if x.ndim == 1 else y
+
+
+ell_matvec.launches = 0
+
+
+def sell_matvec(bin_values, bin_cols, x: torch.Tensor) -> torch.Tensor:
+    """Sliced-ELL SpMV in the SORTED-row frame: one launch per width bin.
+
+    ``bin_values[b]`` / ``bin_cols[b]`` are (rows_b, width_b) rectangles of
+    nnz-sorted rows with global int32 column indices, which must index x.
+    Returns (sum_b rows_b,) or (sum_b rows_b, k) in bin order: each bin's
+    launch writes its rows straight into one output, no concatenation.
+    """
+    bin_values, bin_cols = tuple(bin_values), tuple(bin_cols)
+    _check_bins(bin_values, bin_cols)
+    if x.ndim not in (1, 2):
+        raise TypeError(f"sell_matvec: x {tuple(x.shape)} must be (n,) or "
+                        f"(n, k)")
+    if any(v.device != x.device or c.device != x.device
+           for v, c in zip(bin_values, bin_cols)):
+        raise ValueError(f"sell_matvec: bins and x on different devices "
+                         f"(x on {x.device})")
+    if x.device.type == "cpu":
+        return sell_matvec_plain(bin_values, bin_cols, x)
+    for v, c in zip(bin_values, bin_cols):
+        _check_storage("sell_matvec", v, c)
+    dtype = bin_values[0].dtype
+    if any(v.dtype != dtype for v in bin_values):
+        raise TypeError("sell_matvec: all bins must share one storage dtype")
+    compute, _ = _acc_dtypes(dtype, x.dtype)
+    xf = _x_block("sell_matvec", x, compute)
+    rows = sum(v.shape[0] for v in bin_values)
+    y = torch.empty((rows, xf.shape[1]), dtype=torch.float32, device=x.device)
+    r0 = 0
+    for v, c in zip(bin_values, bin_cols):
+        _launch_ell(v, c, xf, y[r0:r0 + v.shape[0]], "sell_matvec")
+        r0 += v.shape[0]
+    sell_matvec.launches += len(bin_values) * _chunks(xf.shape[1])
+    y = y.to(compute)
+    return y[:, 0] if x.ndim == 1 else y
+
+
+sell_matvec.launches = 0
+
+
+def banded_matvec(bands: torch.Tensor, x: torch.Tensor,
+                  offsets) -> torch.Tensor:
+    """y[i] = sum_d bands[d, i] * x[i + offsets[d]], out-of-range -> 0.
+
+    bands: (nbands, n); offsets: one int diagonal shift per band (e.g.
+    (-nx, -1, 0, 1, nx) for the five-point stencil); x: (n,) or (n, k).
+    """
+    offsets = tuple(int(o) for o in offsets)
+    if bands.ndim != 2 or len(offsets) != bands.shape[0]:
+        raise TypeError(f"banded_matvec: bands {tuple(bands.shape)} but "
+                        f"{len(offsets)} offsets")
+    _check_x("banded_matvec", bands.shape[1], x, bands)
+    if bands.device.type == "cpu":
+        return banded_matvec_plain(bands, x, offsets)
+    _check_storage("banded_matvec", bands)
+    nbands, n = bands.shape
+    if nbands > MAX_BANDS:
+        raise ValueError(f"banded_matvec: {nbands} bands; the kernel takes "
+                         f"at most {MAX_BANDS}")
+    compute, _ = _acc_dtypes(bands.dtype, x.dtype)
+    xf = _x_block("banded_matvec", x, compute)
+    y = torch.empty_like(xf)
+    offs = (ctypes.c_int * nbands)(*offsets)
+    rc = _build.library().repro_banded_matvec(
+        bands.data_ptr(), int(bands.dtype == torch.bfloat16),
+        ctypes.addressof(offs), nbands, xf.data_ptr(), y.data_ptr(), n,
+        xf.shape[1], tuning.SPMV_THREADS, _build.stream_ptr(bands))
+    _build.check("banded_matvec", rc)
+    banded_matvec.launches += _chunks(xf.shape[1])
+    y = y.to(compute)
+    return y[:, 0] if x.ndim == 1 else y
+
+
+banded_matvec.launches = 0

@@ -2,15 +2,23 @@
 
 Counterpart of ``repro/kernels/tuning.py``, redesigned for Hopper: the
 TPU's VMEM budget, (8, 128) tile rounding and persisted block choices have
-no meaning here.  What the three kernels need is
+no meaning here.  What the kernels need is
 
 - the GEMV launch shape (csrc/matvec.cu: one warp per row);
+- the SpMV block size (csrc/spmv.cu: one thread per row, ELL and banded);
 - the cooperative kernels' shared-memory cap and blocks per SM
-  (csrc/cgs2.cu, csrc/arnoldi_fused.cu); the C side picks the grid from
-  these with the occupancy calculator;
+  (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu); the C side
+  picks the grid from these with the occupancy calculator;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check.
+
+The JAX package's SpMV and batched-GS gates (``spmv_fits``,
+``sell_fits``, ``banded_fits``, ``block_gs_fits`` and their block
+choosers) have no counterpart: they exist because the TPU keeps x, or a
+lane's whole basis, in 12 MiB of VMEM.  Here x and the bases stay in
+global memory (x in L2), so no size sends a CUDA tensor to a plain
+version.
 """
 from __future__ import annotations
 
@@ -28,6 +36,12 @@ SMEM_BUDGET = 200 * 1024
 # warps in flight.
 GS_BLOCKS_PER_SM = 1
 FUSED_BLOCKS_PER_SM = 4
+# The streamed GS passes (V read from global memory: gs_project where a
+# block's slice does not fit shared memory, batched_cgs2 always) are
+# latency-bound and want as many warps in flight as the SM holds (the
+# occupancy calculator caps this; see PERF.md for the sweep).
+STREAM_BLOCKS_PER_SM = 8
+SPMV_THREADS = 256        # rows per SpMV block, one thread per row
 
 
 def gemv_launch(m: int) -> tuple[int, int]:

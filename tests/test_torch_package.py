@@ -18,7 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import device as device_mod  # noqa: E402
-from repro_torch.core import gmres, operators, strategies  # noqa: E402
+from repro_torch.core import gmres, gmres_batched, graphs  # noqa: E402
+from repro_torch.core import operators, stencils, strategies  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -70,6 +71,15 @@ def test_entry_points_raise_without_card(no_card):
         strategies.device_resident(a, b)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         strategies.offload_matvec(a, b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stencils.poisson_2d(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graphs.pagerank_system(16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        operators.SparseOperator.from_dense(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gmres_batched(a, np.ones((2, 8), np.float32))
+    assert stencils.poisson_2d(4, device="cpu").bands.device.type == "cpu"
     res = strategies.device_resident(a, b, device="cpu")
     assert res.converged and res.x.device.type == "cpu"
     assert device_mod.resolve("cpu").type == "cpu"
