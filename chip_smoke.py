@@ -78,6 +78,41 @@ The sparse slice (stencil and graph systems, the block multi-RHS solver):
               each kernel, for the banded cgs2_fused solve and the
               PageRank burst.
 
+The s-step slice (s = 5, 6 blocks: m = 30):
+
+10. sstep_kernels  the matrix-powers kernels (banded, ELL, dense) and
+              ``block_gs_pass`` against their plain versions on the card,
+              float32 and bfloat16 storage, same bars as phase 2, at
+              s = 2, 5 and 8: banded and ELL powers on the 1024^2
+              convection-diffusion stencil, unshifted and with the Newton
+              shifts of its Gershgorin interval (and whether the two formats
+              give the same bits); dense powers at n = 10,000;
+              block_gs_pass at m1 = 31, n = 2^20 and n = 10,000, k_start
+              0, 10 and 25.
+11. sstep_solve  gmres_sstep, tol 1e-5, monomial and Newton bases: the
+              dense n = 10,000 dominance-0.015 system (Newton runs the
+              reference powers over the GEMV kernel) and the 1024^2 stencil
+              (b from numpy seed 1, 200 restarts) as banded, ELL and sliced
+              ELL (reference powers over the SpMV kernel).  Counters zeroed
+              around each solve: powers launches = blocks x cycles,
+              block_gs_pass = 2 x blocks x cycles, the operator's mat-vec
+              once per residual (and s x blocks x cycles on the reference
+              powers).  Checks: converged, true relres <= 2 tol, restarts
+              within 10% (and +-1) of phase 3's / phase 7's gmres(30) cgs2
+              count (dense Newton: +-1 of the same solve on the CPU, as its
+              Gershgorin shifts cost it restarts), first-restart residuals
+              equal across formats within 1e-4, and the 32^2 system on the
+              card against the CPU (restarts +-1, x 1e-3).
+              device_resident_sstep also runs in phase 4.
+12. sstep_timing  phase 5's and phase 9's timing for the four kernels
+              (dense warm, sparse cold; the composite yardstick is s
+              torch.mv or CSR torch.mv calls with norms for the powers and
+              four cuBLAS products for block_gs_pass), and per s-step solve
+              wall and device ms per Arnoldi step, the device idle share and
+              the host syncs per cycle (PyTorch's sync debug mode), beside
+              the cgs2_fused / fused solves of phases 5 and 9 and their
+              syncs per step.
+
 Then one ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result line.  Without a
@@ -123,9 +158,21 @@ PAGERANK_K = 8
 PAGERANK_TOLS = (1e-6, 1e-5, 1e-4, 1e-3)
 BGS_SHAPES = ((4, NX * NX, (0, 7, 15, 29)),
               (8, PAGERANK_N, (0, 3, 7, 12, 15, 20, 25, 29)))
+# The s-step slice: s = 5, 6 blocks (m = 30, the paper's m); kernels held
+# to their plain versions at s = 2, 5, 8 and block-GS k_start 0, 10, 25.
+SSTEP_S = 5
+SSTEP_BLOCKS = 6
+SSTEP_S_CHECK = (2, 5, 8)
+BGS_K = (0, 10, 25)
+SSTEP_BASES = ("monomial", "newton")
+
+
+T0 = time.perf_counter()
 
 
 def emit(**row) -> None:
+    if "phase" in row:                   # seconds since the script started
+        row["t_s"] = round(time.perf_counter() - T0, 1)
     print(json.dumps(row), flush=True)
 
 
@@ -269,11 +316,13 @@ def csr_of(values, cols):
     return coo.coalesce().to_sparse_csr()
 
 
-def solve_timing(run, steps: int, **info) -> dict:
+def solve_timing(run, steps: int, phase="sparse_timing", **info) -> dict:
     """Wall (host clock ending in a sync) and device (profiler) time of one
     solve, per Arnoldi step, the device's idle share, and each kernel's
     device time per step inside the solve (operands as the solve leaves
-    them in L2, not as a timing loop does)."""
+    them in L2, not as a timing loop does).  The profile records the
+    card's activity only: per-op host records cost tens of seconds over a
+    solve of some 30,000 small ops."""
     from torch.profiler import ProfilerActivity, profile
 
     run()                                     # warm
@@ -282,8 +331,7 @@ def solve_timing(run, steps: int, **info) -> dict:
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     dev_ms = device_ms(prof)
@@ -297,13 +345,15 @@ def solve_timing(run, steps: int, **info) -> dict:
                device_idle_share=1 - dev_ms / wall_ms if dev_ms > 0 else None,
                device_ms_per_step_by_kernel={name[:100]: ms / steps
                                              for name, ms in by_kernel[:8]})
-    emit(phase="sparse_timing", **row)
+    emit(phase=phase, **row)
     return row
 
 
 def sparse_phases(smi, gen):
     """Phases 6-9: the sparse slice.  Returns (max abs errors, main-path
-    launches, timing rows) of its kernels, keyed by wrapper name."""
+    launches, timing rows) of its kernels, keyed by wrapper name, the
+    banded gmres(30) cgs2 restart count and the banded cgs2_fused solve's
+    timing row."""
     from repro_torch.core import (gmres, gmres_batched, graphs, operators,
                                   stencils)
     from repro_torch.kernels import (arnoldi_fused, block_gs, cgs2, matvec,
@@ -696,7 +746,7 @@ def sparse_phases(smi, gen):
 
     # per solve: wall and device time per Arnoldi step, idle share
     res = solves[("banded", "cgs2_fused")][0]
-    solve_timing(lambda: gmres(ops["banded"], b, m=M, tol=TOL,
+    banded_fused = solve_timing(lambda: gmres(ops["banded"], b, m=M, tol=TOL,
                                max_restarts=SPARSE_RESTARTS,
                                gs="cgs2_fused"),
                  res.inner_steps, solve="banded cgs2_fused", n=n,
@@ -708,6 +758,397 @@ def sparse_phases(smi, gen):
                  k=PAGERANK_K, restarts=pagerank_res.restarts.tolist(),
                  card=smi)
     zero()
+    return (errs, launches, timing, solves[("banded", "cgs2")][0].restarts,
+            banded_fused)
+
+
+def host_syncs(run) -> tuple[int, dict]:
+    """Host syncs one call of ``run`` makes, as PyTorch's sync debug mode
+    counts them (a warning per synchronizing CUDA operation), and where
+    they happen (file:line of the Python call)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in caught:
+        if "synchronizing CUDA operation" in str(w.message):
+            key = f"{pathlib.Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return sum(where.values()), where
+
+
+def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
+    """Phases 10-12: the s-step slice.  ``dense_restarts`` /
+    ``sparse_restarts``: gmres(30) cgs2 restart counts of phases 3 and 7 on
+    the same systems; ``baseline``: the cgs2_fused solve rows of phases 5
+    and 9.  Returns (max abs errors, main-path launches, timing rows) of its
+    kernels, keyed by wrapper name."""
+    from repro_torch.core import gmres, gmres_sstep, operators, stencils
+    from repro_torch.core.sstep import _newton_shifts
+    from repro_torch.kernels import block_gs, matvec, spmv
+    from repro_torch.kernels import matrix_powers as mp
+
+    kernels = {"banded_powers": mp.banded_powers,
+               "ell_powers": mp.ell_powers,
+               "dense_powers": mp.dense_powers,
+               "block_gs_pass": block_gs.block_gs_pass}
+    counted = dict(kernels, block_matvec=matvec.block_matvec,
+                   banded_matvec=spmv.banded_matvec,
+                   ell_matvec=spmv.ell_matvec, sell_matvec=spmv.sell_matvec)
+    fmt_kernel = {"banded": "banded_matvec", "ell": "ell_matvec",
+                  "sell": "sell_matvec"}
+    powers_kernel = {"banded": "banded_powers", "ell": "ell_powers",
+                     "dense": "dense_powers"}
+    errs = {name: [] for name in kernels}
+    launches = {name: 0 for name in kernels}
+    n = NX * NX
+    s, blocks = SSTEP_S, SSTEP_BLOCKS
+    m = s * blocks
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        d = {name: fn.launches for name, fn in counted.items()}
+        for name in kernels:
+            launches[name] += d[name]
+        return d
+
+    def expect_counts(d, expect, what):
+        for name in counted:
+            check(d[name] == expect.get(name, 0),
+                  f"{what}: {name} launched {d[name]}, expected "
+                  f"{expect.get(name, 0)}")
+
+    def compare(name, got, want, dtype, **info):
+        torch.cuda.synchronize()
+        rel = max(relerr(g, w) for g, w in zip(got, want))
+        err = max(abserr(g, w) for g, w in zip(got, want))
+        errs[name].append(err)
+        emit(phase="sstep_kernels", kernel=name, dtype=str(dtype),
+             max_rel_err=rel, max_abs_err=err, **info)
+        check(rel < TOLS[dtype], f"{name} {info} {dtype}: {rel}")
+
+    ops = {fmt: stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt=fmt)
+           for fmt in FORMATS}
+
+    # ---- 10. kernels vs plain -------------------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        band = operators.with_dtype(ops["banded"], dtype)
+        ell = operators.with_dtype(ops["ell"], dtype)
+        a = (torch.randn(N, N, device="cuda", generator=gen)
+             / N ** 0.5).to(dtype)
+        x_n = torch.randn(n, device="cuda", generator=gen)
+        x_d = torch.randn(N, device="cuda", generator=gen)
+        for sp in SSTEP_S_CHECK:
+            for shifts in (None, _newton_shifts(ops["banded"], sp)):
+                shifted = shifts is not None
+                got_b = mp.banded_powers(band.bands, x_n, band.offsets, sp,
+                                         shifts=shifts)
+                compare("banded_powers", got_b,
+                        mp.banded_powers_plain(band.bands, x_n, band.offsets,
+                                               sp, shifts=shifts),
+                        dtype, s=sp, shifted=shifted, n=n,
+                        shape=mp.launch_shape("banded", dtype, n))
+                got_e = mp.ell_powers(ell.values, ell.cols, x_n, sp,
+                                      shifts=shifts)
+                compare("ell_powers", got_e,
+                        mp.ell_powers_plain(ell.values, ell.cols, x_n, sp,
+                                            shifts=shifts),
+                        dtype, s=sp, shifted=shifted, n=n,
+                        shape=mp.launch_shape("ell", dtype, n),
+                        same_bits_as_banded=bool(
+                            torch.equal(got_b[0], got_e[0])
+                            and torch.equal(got_b[1], got_e[1])))
+            compare("dense_powers", mp.dense_powers(a, x_d, sp),
+                    mp.dense_powers_plain(a, x_d, sp), dtype, s=sp, n=N,
+                    shape=mp.launch_shape("dense", dtype, N))
+        del a
+        for nb in (n, N):
+            for k in BGS_K:
+                v = basis(nb, M + 1, k, dtype, gen)
+                for sp in SSTEP_S_CHECK:
+                    w = torch.randn(sp, nb, device="cuda", generator=gen)
+                    tin = (torch.triu(torch.randn(sp, sp, device="cuda",
+                                                  generator=gen))
+                           + 2 * torch.eye(sp, device="cuda"))
+                    compare("block_gs_pass",
+                            block_gs.block_gs_pass(v, w, tin, k),
+                            block_gs.block_gs_pass_plain(v, w, tin, k),
+                            dtype, n=nb, m1=M + 1, k_start=k, s=sp,
+                            shape=block_gs.block_gs_launch_shape(
+                                dtype, M + 1, nb, sp))
+                del v
+        del band, ell
+    zero()
+
+    # ---- 11. the s-step solves ------------------------------------------
+    def agree(restarts, ref):
+        """Within 10% of the gmres(30) count, and never closer than the
+        +-1 restart contract allows."""
+        return abs(restarts - ref) <= max(1, 0.1 * ref)
+
+    a = operators.random_diagdom(N, dominance=0.015, seed=0)
+    b_d = torch.from_numpy(np.random.default_rng(1).standard_normal(N)
+                           .astype(np.float32)).cuda()
+    dense_op = operators.DenseOperator(a, backend="cuda")
+    solves = {}
+    for basis_name in SSTEP_BASES:
+        zero()
+        t0 = time.perf_counter()
+        res = gmres_sstep(dense_op, b_d, s=s, blocks=blocks, tol=TOL,
+                          max_restarts=MAX_RESTARTS, basis=basis_name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = read()
+        r = torch.mv(a.double(), res.x.double()) - b_d.double()
+        rr = float(r.norm() / b_d.double().norm())
+        cyc = res.restarts
+        # The Newton shifts come from the Gershgorin interval, [-77, 82] on
+        # this system, whose eigenvalues lie within about 1 of 1.2: the
+        # basis is worse than the monomial one and the solve takes more
+        # restarts than gmres(30) (4 against 2 in the JAX package too), so
+        # it is held to the same solve on the CPU instead.
+        cpu = None
+        if basis_name == "newton":
+            cpu = gmres_sstep(operators.DenseOperator(a.cpu(), device="cpu"),
+                              b_d.cpu(), s=s, blocks=blocks, tol=TOL,
+                              max_restarts=MAX_RESTARTS,
+                              basis=basis_name).restarts
+        emit(phase="sstep_solve", system="dense", basis=basis_name, n=N,
+             dominance=0.015, s=s, blocks=blocks, converged=res.converged,
+             restarts=cyc, gmres_cgs2_restarts=dense_restarts,
+             cpu_restarts=cpu, inner_steps=res.inner_steps, true_relres=rr,
+             wall_s=wall, launches=d)
+        check(res.converged and rr <= 2 * TOL,
+              f"dense s-step {basis_name}: converged {res.converged}, "
+              f"relres {rr}")
+        check(bool(torch.isfinite(res.x).all()) and res.x.shape == (N,),
+              f"dense s-step {basis_name}: x not finite or wrong shape")
+        check(agree(cyc, dense_restarts) if cpu is None
+              else abs(cyc - cpu) <= 1,
+              f"dense s-step {basis_name}: {cyc} restarts vs gmres "
+              f"{dense_restarts}, CPU {cpu}")
+        expect = {"block_gs_pass": 2 * blocks * cyc,
+                  "block_matvec": cyc + 1}
+        if basis_name == "monomial":
+            expect["dense_powers"] = blocks * cyc
+        else:                       # reference powers over the GEMV kernel
+            expect["block_matvec"] += s * blocks * cyc
+        expect_counts(d, expect, f"dense s-step {basis_name}")
+        solves[("dense", basis_name)] = res
+
+    bands64 = ops["banded"].bands.double()
+    offsets = ops["banded"].offsets
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    bnorm = float(b.double().norm())
+    for basis_name in SSTEP_BASES:
+        firsts = {}
+        for fmt in FORMATS:
+            op = ops[fmt]
+            bins = len(op.bin_values) if fmt == "sell" else 1
+            zero()
+            t0 = time.perf_counter()
+            res = gmres_sstep(op, b, s=s, blocks=blocks, tol=TOL,
+                              max_restarts=SPARSE_RESTARTS, basis=basis_name,
+                              history=SPARSE_RESTARTS + 8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d = read()
+            r = spmv.banded_matvec_plain(bands64, res.x.double(), offsets) \
+                - b.double()
+            rr = float(r.norm()) / bnorm
+            cyc = res.restarts
+            firsts[fmt] = float(res.residual_history[-cyc]) / bnorm
+            emit(phase="sstep_solve", system="stencil", fmt=fmt,
+                 basis=basis_name, n=n, s=s, blocks=blocks,
+                 converged=res.converged, restarts=cyc,
+                 gmres_cgs2_restarts=sparse_restarts,
+                 inner_steps=res.inner_steps, true_relres=rr,
+                 first_restart_relres=firsts[fmt], wall_s=wall, launches=d)
+            check(res.converged and rr <= 2 * TOL,
+                  f"{fmt} s-step {basis_name}: converged {res.converged}, "
+                  f"relres {rr}")
+            check(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,),
+                  f"{fmt} s-step {basis_name}: x not finite or wrong shape")
+            check(agree(cyc, sparse_restarts), f"{fmt} s-step {basis_name}: "
+                  f"{cyc} restarts vs gmres {sparse_restarts}")
+            kernel = powers_kernel.get(fmt)
+            expect = {"block_gs_pass": 2 * blocks * cyc,
+                      fmt_kernel[fmt]: (cyc + 1) * bins}
+            if kernel:
+                expect[kernel] = blocks * cyc
+            else:                   # reference powers over the SpMV kernel
+                expect[fmt_kernel[fmt]] += s * blocks * cyc * bins
+            expect_counts(d, expect, f"{fmt} s-step {basis_name}")
+            solves[(fmt, basis_name)] = res
+        for fmt in FORMATS:
+            check(abs(firsts[fmt] - firsts["banded"])
+                  <= 1e-4 * firsts["banded"],
+                  f"s-step {basis_name}: first-restart residual {fmt} "
+                  f"{firsts[fmt]} vs banded {firsts['banded']}")
+
+    # the 32^2 system on the card against the CPU
+    b_s = np.random.default_rng(1).standard_normal(32 * 32).astype(np.float32)
+    op_c = stencils.convection_diffusion_2d(32, 32, beta=BETA)
+    op_h = stencils.convection_diffusion_2d(32, 32, beta=BETA, device="cpu")
+    for basis_name in SSTEP_BASES:
+        res = gmres_sstep(op_c, torch.from_numpy(b_s).cuda(), s=s,
+                          blocks=blocks, tol=TOL, max_restarts=SPARSE_RESTARTS,
+                          basis=basis_name)
+        ref = gmres_sstep(op_h, torch.from_numpy(b_s), s=s, blocks=blocks,
+                          tol=TOL, max_restarts=SPARSE_RESTARTS,
+                          basis=basis_name)
+        diff = float((res.x.cpu() - ref.x).norm() / ref.x.norm())
+        emit(phase="sstep_solve", reference="cpu", n=32 * 32, fmt="banded",
+             basis=basis_name, restarts=[res.restarts, ref.restarts],
+             x_rel=diff)
+        check(res.converged and ref.converged
+              and abs(res.restarts - ref.restarts) <= 1 and diff <= 1e-3,
+              f"s-step {basis_name}: card and CPU disagree at 32^2 ({diff})")
+    for name, count in launches.items():
+        check(count > 0, f"{name} was never launched on the s-step path")
+    emit(phase="sstep_solve", launches_total=launches)
+    zero()
+
+    # ---- 12. timing -----------------------------------------------------
+    def measure(fn, plain, composite_fn=None, cold=True, **info) -> dict:
+        row = dict(**timed(fn, cold=cold),
+                   plain_ms=timed(plain, cold=cold)["ms"],
+                   library_ms=None, composite_ms=timed(composite_fn,
+                                                       cold=cold)["ms"]
+                   if composite_fn else None, **info)
+        if cold:
+            row["warm_ms"] = timed(fn)["ms"]
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+        return row
+
+    timing = {}
+    csr = csr_of(ops["ell"].values, ops["ell"].cols)
+    x_n = torch.randn(n, device="cuda", generator=gen)
+    x_d = torch.randn(N, device="cuda", generator=gen)
+    k_t = BGS_K[-1]
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.empty((), dtype=dtype).element_size()
+        f32 = dtype == torch.float32
+        band = operators.with_dtype(ops["banded"], dtype)
+        ell = operators.with_dtype(ops["ell"], dtype)
+        nbands, width = band.bands.shape[0], ell.values.shape[1]
+        ar = (torch.randn(N, N, device="cuda", generator=gen)
+              / N ** 0.5).to(dtype)
+
+        def powers_composite(mv, x):
+            def run():
+                u = x
+                for _ in range(s):
+                    w = mv(u)
+                    u = w / w.norm()
+                return u
+            return run
+
+        rows = {
+            "dense_powers": measure(
+                lambda: mp.dense_powers(ar, x_d, s),
+                lambda: mp.dense_powers_plain(ar, x_d, s),
+                powers_composite(lambda u: torch.mv(ar, u), x_d.to(dtype)),
+                cold=False, composite=f"{s} x (torch.mv + norm + scale)",
+                n=N, s=s, shape=mp.launch_shape("dense", dtype, N),
+                bytes=s * N * N * sz + 4 * N + 4 * s * N,
+                flops=2 * s * N * N),
+            "banded_powers": measure(
+                lambda: mp.banded_powers(band.bands, x_n, band.offsets, s),
+                lambda: mp.banded_powers_plain(band.bands, x_n, band.offsets,
+                                               s),
+                powers_composite(lambda u: torch.mv(csr, u), x_n)
+                if f32 else None,
+                composite=f"{s} x (CSR torch.mv + norm + scale)"
+                if f32 else None,
+                n=n, s=s, shape=mp.launch_shape("banded", dtype, n),
+                bytes=nbands * n * sz + 4 * n + 4 * s * n,
+                flops=2 * s * nbands * n),
+            "ell_powers": measure(
+                lambda: mp.ell_powers(ell.values, ell.cols, x_n, s),
+                lambda: mp.ell_powers_plain(ell.values, ell.cols, x_n, s),
+                powers_composite(lambda u: torch.mv(csr, u), x_n)
+                if f32 else None,
+                composite=f"{s} x (CSR torch.mv + norm + scale)"
+                if f32 else None,
+                n=n, s=s, shape=mp.launch_shape("ell", dtype, n),
+                bytes=n * width * (sz + 4) + 4 * n + 4 * s * n,
+                flops=2 * s * width * n),
+        }
+        del ar
+        for nb, cold in ((n, True), (N, False)):
+            v = basis(nb, M + 1, k_t, dtype, gen)
+            w = torch.randn(s, nb, device="cuda", generator=gen)
+            tin = torch.triu(torch.randn(s, s, device="cuda", generator=gen)) \
+                + 2 * torch.eye(s, device="cuda")
+            vv = v[:k_t + 1]
+
+            def gs_composite():
+                q = tin @ w
+                c = vv @ q.T
+                w2 = q - c.T @ vv
+                return c, w2, w2 @ w2.T
+            rows[f"block_gs_pass n = {nb}"] = measure(
+                lambda: block_gs.block_gs_pass(v, w, tin, k_t),
+                lambda: block_gs.block_gs_pass_plain(v, w, tin, k_t),
+                gs_composite if f32 else None,
+                composite="4 cuBLAS products" if f32 else None, cold=cold,
+                n=nb, m1=M + 1, k_start=k_t, s=s,
+                shape=block_gs.block_gs_launch_shape(dtype, M + 1, nb, s),
+                bytes=(k_t + 1) * nb * sz + 8 * s * nb,
+                flops=(4 * (k_t + 1) * s + 3 * s * s) * nb)
+            del v, w, vv
+        for name, r in rows.items():
+            emit(phase="sstep_timing", kernel=name, dtype=str(dtype),
+                 card=smi, **r)
+        if f32:
+            timing = {"dense_powers": rows["dense_powers"],
+                      "banded_powers": rows["banded_powers"],
+                      "ell_powers": rows["ell_powers"],
+                      "block_gs_pass": rows[f"block_gs_pass n = {n}"]}
+        del band, ell
+
+    # per solve: wall and device time per Arnoldi step, idle share, host
+    # syncs per cycle, beside the standard solver's rows of phases 5 and 9
+    runs = [("dense", lambda: gmres_sstep(dense_op, b_d, s=s, blocks=blocks,
+                                          tol=TOL, max_restarts=MAX_RESTARTS),
+             "dense fused")]
+    for fmt in FORMATS:
+        runs.append((fmt, lambda op=ops[fmt]: gmres_sstep(
+            op, b, s=s, blocks=blocks, tol=TOL,
+            max_restarts=SPARSE_RESTARTS), "banded cgs2_fused"))
+    for system, run, base in runs:
+        res = solves[(system, "monomial")]
+        syncs, where = host_syncs(run)
+        solve_timing(run, res.inner_steps, phase="sstep_timing",
+                     solve=f"{system} s-step monomial", s=s, blocks=blocks,
+                     restarts=res.restarts, host_syncs=syncs,
+                     host_syncs_per_cycle=syncs / max(res.restarts, 1),
+                     host_syncs_at=where, beside=baseline.get(base),
+                     card=smi)
+    std = {"dense fused": lambda: gmres(dense_op, b_d, m=M, tol=TOL,
+                                        gs="fused"),
+           "banded cgs2_fused": lambda: gmres(
+               ops["banded"], b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
+               gs="cgs2_fused")}
+    for name, run in std.items():
+        row = baseline.get(name) or {}
+        syncs, where = host_syncs(run)
+        emit(phase="sstep_timing", solve=f"{name} (gmres, phase 5 / 9)",
+             host_syncs=syncs,
+             host_syncs_per_step=syncs / max(row.get("steps", 1), 1),
+             host_syncs_at=where, card=smi)
+    zero()
+    del dense_op, a
     return errs, launches, timing
 
 
@@ -862,6 +1303,9 @@ def main() -> None:
                 for name in CONFIG.strategies[1:]]
         runs.append(("device_resident_fused", strategies.device_resident,
                      {"gs": "fused", "backend": "cuda"}))
+        runs.append(("device_resident_sstep",
+                     strategies.device_resident_sstep,
+                     {"s": SSTEP_S, "backend": "cuda"}))
         for name, fn, kw in runs:
             fn(a, b, m=M, tol=TOL, **kw)          # warm: first-call costs
             torch.cuda.synchronize()
@@ -986,6 +1430,7 @@ def main() -> None:
     flush_counters()
 
     # host cost per Arnoldi step: the fused solve, wall clock vs device time
+    baseline = {}
     a = operators.random_diagdom(N, dominance=0.015, seed=0)
     b = torch.from_numpy(np.random.default_rng(1).standard_normal(N)
                          .astype(np.float32)).cuda()
@@ -1004,21 +1449,34 @@ def main() -> None:
             torch.cuda.synchronize()
         dev_ms = device_ms(prof)
         steps = res.inner_steps
-        emit(phase="timing", solve=gs, dominance=0.015, n=N,
-             restarts=res.restarts, inner_steps=steps, wall_ms=wall_ms,
-             wall_ms_per_step=wall_ms / steps,
-             device_ms=dev_ms if dev_ms > 0 else None,
-             device_ms_per_step=dev_ms / steps if dev_ms > 0 else None,
-             host_overhead_ms_per_step=(wall_ms - dev_ms) / steps
-             if dev_ms > 0 else None,
-             device_idle_share=1 - dev_ms / wall_ms if dev_ms > 0 else None,
-             card=smi)
+        row = dict(solve=gs, dominance=0.015, n=N, restarts=res.restarts,
+                   steps=steps, wall_ms=wall_ms,
+                   wall_ms_per_step=wall_ms / steps,
+                   device_ms=dev_ms if dev_ms > 0 else None,
+                   device_ms_per_step=dev_ms / steps if dev_ms > 0 else None,
+                   host_overhead_ms_per_step=(wall_ms - dev_ms) / steps
+                   if dev_ms > 0 else None,
+                   device_idle_share=1 - dev_ms / wall_ms
+                   if dev_ms > 0 else None)
+        emit(phase="timing", **row, card=smi)
+        if gs == "fused":
+            baseline["dense fused"] = row
     flush_counters()
 
     # ---- 6-9. the sparse slice -------------------------------------------
-    s_errs, s_launches, s_timing = sparse_phases(smi, gen)
+    s_errs, s_launches, s_timing, sparse_restarts, banded_fused = \
+        sparse_phases(smi, gen)
+    baseline["banded cgs2_fused"] = banded_fused
     for name, e in s_errs.items():
         errs.setdefault(name, []).extend(e)
+    launches.update(s_launches)
+    timing.update(s_timing)
+
+    # ---- 10-12. the s-step slice -----------------------------------------
+    s_errs, s_launches, s_timing = sstep_phases(
+        smi, gen, solves[(0.015, "cgs2")].restarts, sparse_restarts,
+        baseline)
+    errs.update(s_errs)
     launches.update(s_launches)
     timing.update(s_timing)
 
@@ -1035,7 +1493,15 @@ def main() -> None:
                "banded_matvec": ("src/repro_torch/csrc/spmv.cu",
                                  "src/repro/kernels/spmv.py:286"),
                "batched_cgs2": ("src/repro_torch/csrc/batched_cgs2.cu",
-                                "src/repro/kernels/block_gs.py:456")}
+                                "src/repro/kernels/block_gs.py:456"),
+               "block_gs_pass": ("src/repro_torch/csrc/block_gs.cu",
+                                 "src/repro/kernels/block_gs.py:125"),
+               "banded_powers": ("src/repro_torch/csrc/matrix_powers.cu",
+                                 "src/repro/kernels/matrix_powers.py:166"),
+               "dense_powers": ("src/repro_torch/csrc/matrix_powers.cu",
+                                "src/repro/kernels/matrix_powers.py:351"),
+               "ell_powers": ("src/repro_torch/csrc/matrix_powers.cu",
+                              "src/repro/kernels/matrix_powers.py:439")}
     emit(kernels=[{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": launches[name],

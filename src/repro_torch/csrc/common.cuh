@@ -1,7 +1,9 @@
 // Device helpers shared by the port's kernels (matvec.cu, cgs2.cu,
-// arnoldi_fused.cu, spmv.cu, batched_cgs2.cu): storage-type conversion,
-// 16-byte row streaming with a warp, and the grid-synchronised classical
-// Gram-Schmidt pass, with the basis slice in shared memory or streamed.
+// arnoldi_fused.cu, spmv.cu, batched_cgs2.cu, matrix_powers.cu,
+// block_gs.cu): storage-type conversion, 16-byte row streaming with a warp,
+// block sums in a fixed order, the grid-synchronised classical Gram-Schmidt
+// pass, with the basis slice in shared memory or streamed, and the grid of
+// a persistent cooperative kernel.
 //
 // Storage types are float and __nv_bfloat16; every sum is taken in float.
 #pragma once
@@ -82,6 +84,29 @@ __device__ __forceinline__ float warp_sum(float s) {
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
 }
+
+// Sum of one float per thread over a block of kThreads, in a fixed order
+// (warp shuffles, then the warps in order); every thread gets the sum.
+// `red` holds kWarps floats of shared memory.
+__device__ inline float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();   // a previous call may still be reading red
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) s += red[q];
+  return s;
+}
+
+// Diagonal offsets of a banded matrix, passed by value in a kernel's
+// parameters (spmv.cu, matrix_powers.cu).  Read them at constant indices
+// (a loop unrolled to kMaxBands): indexed at run time the struct goes to
+// local memory in every thread.
+constexpr int kMaxBands = 32;
+struct BandOffsets {
+  int off[kMaxBands];
+};
 
 // acc[k] += sum_c row[c] * x(c, k) for one row of length n, split over the
 // 32 lanes of a warp.  The row is read in 16-byte vectors, neighbouring
@@ -410,6 +435,57 @@ cudaError_t stream_shape(Kernel kernel, int k, int m1, int n,
   out->smem = sb;
   last = key;
   last_shape = *out;
+  return cudaSuccess;
+}
+
+// The grid of a persistent cooperative kernel (matrix_powers.cu,
+// block_gs.cu): `blocks_per_sm` blocks on every SM, fewer where the
+// occupancy calculator says fewer are co-resident, and never more than
+// `max_grid`.  A cooperative launch with more blocks than can be resident
+// is refused, so the grid never exceeds what the calculator allows.  The
+// answers are kept per host thread, a few (kernel, device, shared memory)
+// entries, so a solve's alternating launches skip the queries.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, int blocks_per_sm,
+                            int max_grid, int* grid) {
+  struct Entry {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    int per_sm, sms;
+  };
+  constexpr int kEntries = 8;
+  thread_local Entry cache[kEntries] = {};
+  thread_local int next = 0;
+  if (blocks_per_sm < 1 || max_grid < 1) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const Entry* hit = nullptr;
+  for (const Entry& c : cache)
+    if (c.kernel == (const void*)kernel && c.dev == dev && c.smem == smem)
+      hit = &c;
+  if (hit == nullptr) {
+    Entry c{(const void*)kernel, dev, smem, 0, 0};
+    e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel,
+                                                      kThreads, smem);
+    if (e != cudaSuccess) return e;
+    cache[next] = c;
+    hit = &cache[next];
+    next = (next + 1) % kEntries;
+  }
+  if (hit->per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int per_sm = hit->per_sm < blocks_per_sm ? hit->per_sm : blocks_per_sm;
+  const int g = per_sm * hit->sms;
+  *grid = g < max_grid ? g : max_grid;
   return cudaSuccess;
 }
 

@@ -1,0 +1,367 @@
+// The s normalized matrix powers of the s-step GMRES cycle, in one launch:
+//
+//   u_0 = x;  w = (A - shift_p I) u_{p-1};  sigma_p = ||w||;
+//   u_p = w / max(sigma_p, eps)                       p = 1..s
+//
+// (shift_p = 0 without shifts: the monomial basis; with shifts, the Newton
+// basis.)  Returns u (s, n), row p-1 holding u_p, and sigma (s,), float32.
+// A is banded (bands (nbands, n), offsets by value), ELL (values/cols
+// (n, width), padding slots value 0 at column 0) or dense ((n, n),
+// unshifted), stored as float or bf16 and widened in registers; every sum
+// is taken in float.  eps is tiny(float)^(1/2), the breakdown guard.
+//
+// Replaces repro/kernels/matrix_powers.py::banded_powers, ::ell_powers and
+// ::dense_powers.  The TPU kernels walk a sequential grid over the powers
+// with the operand carried in VMEM scratch: the band stack and the ELL
+// table stay in VMEM for all s powers, dense A streams once per power in
+// (b, b) tiles, and the norm of each power is reduced in-register at the
+// power boundary.
+//
+// Bound: bytes.  Each input once, each output once (s the storage size):
+//   banded  nbands * n * s + 4 n + 4 s n
+//   ELL     n * width * (s + 4) + 4 n + 4 s n
+//   dense   powers * n^2 * s + 4 n + 4 s n   (A streams once per power:
+//           nothing of it can be kept between powers at n = 10^4)
+// At the 1024 x 1024 five-point stencil, s = 5, f32, banded moves 46 MB
+// (0.014 ms at 3.35 TB/s), ELL 67 MB (0.020 ms); the dense system at
+// n = 10,000, s = 5 moves 2.0 GB (0.60 ms).  Two flops per stored entry
+// and power: far below the card's 20 flops per byte.
+//
+// Design: one cooperative launch per call.  Hopper's blocks run in no
+// order, so the TPU's power boundary becomes one grid sync per power:
+//   (a) every block computes w for its rows from the previous power, writes
+//       it unnormalised to a scratch row (`raw`, two rows used in turn) and
+//       stores its partial ||w||^2 (one float, in a fixed order) to
+//       part[power][block];
+//   (b) grid sync;
+//   (c) every block sums the partials itself, in one order, so all blocks
+//       hold the same sigma without a second sync, and writes its own rows
+//       of u_p = w / max(sigma, eps).
+// The next power reads its operand as raw / max(sigma, eps), the same
+// correctly rounded division that produced u_p, so it sees u_p exactly
+// while other blocks are still writing u_p.  The two raw rows alternate:
+// a row is rewritten two powers later, after a grid sync that every read
+// of it precedes.  Values written during the launch are read through L2
+// (__ldcg): an SM's L1 may hold stale lines of a neighbour's rows.
+//   banded  a block owns a contiguous range of rows (a multiple of 32),
+//           a thread per row; the offsets come by value and are read at
+//           constant indices (PR 12's banded SpMV lost 6x to a local-memory
+//           copy of them); an out-of-range neighbour is skipped (the TPU's
+//           zero halo).  The TPU keeps the band stack in VMEM; here it
+//           stays in the 50 MB L2 between powers (21 MB at n = 2^20, f32)
+//           with the operand rows (4 MB each).
+//   ELL     the same rows, each thread walking its row's slots in order;
+//           padding slots read x[0] and add 0.  Banded and ELL share the
+//           row partition, the slot order (BandedOperator.to_ell keeps the
+//           offsets' order) and the reduction order, so a stencil gets the
+//           same bits in both formats.
+//   dense   a warp per row (rows dealt round-robin over the grid's warps),
+//           the row read in 16-byte vectors (common.cuh::row_dot, bf16
+//           widened in registers); each block first divides the whole
+//           operand into shared memory (n floats: 40 KB at n = 10,000) and
+//           the rows read it there.
+// The grid is sized by the occupancy calculator so the cooperative launch
+// is legal; banded and ELL use the same grid.
+#include "common.cuh"
+
+namespace repro {
+
+// Rows [r0, r1) of this block: equal chunks, each a multiple of 32 rows.
+__device__ __forceinline__ void row_range(int n, int* r0, int* r1) {
+  const int per = ((n + (int)gridDim.x - 1) / (int)gridDim.x + 31) / 32 * 32;
+  *r0 = min(n, (int)blockIdx.x * per);
+  *r1 = min(n, *r0 + per);
+}
+
+// The norm of one power: every block sums the grid's partials in the same
+// order.  red holds kWarps + 1 floats; the result is in every thread.
+__device__ inline float grid_norm(const float* part, float* red) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    float s = 0.f;
+    for (int b = lane; b < (int)gridDim.x; b += 32) s += __ldcg(part + b);
+    s = warp_sum(s);
+    if (lane == 0) red[kWarps] = sqrtf(s);
+  }
+  __syncthreads();
+  return red[kWarps];
+}
+
+// u_p = w / max(sigma, eps) over the block's rows; sigma_p by block 0.
+__device__ __forceinline__ void finish_power(float sg, float denom, int p,
+                                             const float* out, float* u,
+                                             float* sigma, int n, int r0,
+                                             int r1) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) sigma[p] = sg;
+  for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x)
+    u[(size_t)p * n + i] = __ldcg(out + i) / denom;
+}
+
+// The banded (kEll false: mat = bands) and ELL (mat = values) powers; x is
+// the previous power's raw row divided by denom (x itself at p = 0).
+template <typename T, bool kEll>
+__global__ void __launch_bounds__(kThreads)
+    sparse_powers_kernel(const T* __restrict__ mat,
+                         const int* __restrict__ cols, int width,
+                         BandOffsets offs, int nbands,
+                         const float* __restrict__ x,
+                         const float* __restrict__ shifts, float* u,
+                         float* __restrict__ sigma, float* raw, float* part,
+                         int n, int s, float eps) {
+  __shared__ float red[kWarps + 1];
+  cg::grid_group grid = cg::this_grid();
+  int r0, r1;
+  row_range(n, &r0, &r1);
+  const float* cur = x;
+  float denom = 1.f;
+  for (int p = 0; p < s; ++p) {
+    float* out = raw + (size_t)(p & 1) * n;
+    float sq = 0.f;
+    for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+      float acc;
+      if constexpr (kEll) {
+        const T* vr = mat + (size_t)i * width;
+        const int* cr = cols + (size_t)i * width;
+        acc = 0.f;
+        for (int t = 0; t < width; ++t)
+          acc = fmaf(to_f(vr[t]), __ldcg(cur + __ldg(cr + t)) / denom, acc);
+      } else {
+        acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < kMaxBands; ++d) {   // offsets at constant indices
+          if (d >= nbands) break;
+          const int c = i + offs.off[d];
+          if (c < 0 || c >= n) continue;         // the zero halo
+          acc = fmaf(to_f(mat[(size_t)d * n + i]), __ldcg(cur + c) / denom,
+                     acc);
+        }
+      }
+      if (shifts != nullptr)   // w - shift * u, rounded as the plain version
+        acc = __fsub_rn(acc,
+                        __fmul_rn(__ldg(shifts + p), __ldcg(cur + i) / denom));
+      __stcg(out + i, acc);
+      sq = fmaf(acc, acc, sq);
+    }
+    sq = block_sum(sq, red);
+    if (threadIdx.x == 0) part[(size_t)p * gridDim.x + blockIdx.x] = sq;
+    grid.sync();
+    const float sg = grid_norm(part + (size_t)p * gridDim.x, red);
+    denom = fmaxf(sg, eps);
+    finish_power(sg, denom, p, out, u, sigma, n, r0, r1);
+    cur = out;
+  }
+}
+
+// The dense operand, read from shared memory by common.cuh::row_dot.
+struct SharedX {
+  const float* xs;
+  __device__ __forceinline__ void fma(float (&acc)[1], float a, int c) const {
+    acc[0] = fmaf(a, xs[c], acc[0]);
+  }
+  __device__ __forceinline__ bool vec_ok(int head) const {
+    return (head & 3) == 0;
+  }
+  template <int VA>
+  __device__ __forceinline__ void fma_vec(float (&acc)[1], const float* a,
+                                          int c0) const {
+    const float4* p = reinterpret_cast<const float4*>(xs + c0);
+#pragma unroll
+    for (int q = 0; q < VA / 4; ++q) {
+      const float4 v = p[q];
+      acc[0] = fmaf(a[4 * q], v.x, acc[0]);
+      acc[0] = fmaf(a[4 * q + 1], v.y, acc[0]);
+      acc[0] = fmaf(a[4 * q + 2], v.z, acc[0]);
+      acc[0] = fmaf(a[4 * q + 3], v.w, acc[0]);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dense_powers_kernel(const T* __restrict__ a, const float* __restrict__ x,
+                        float* u, float* __restrict__ sigma, float* raw,
+                        float* part, int n, int s, float eps) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  __shared__ float red[kWarps + 1];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gw = blockIdx.x * kWarps + warp;
+  const int nwarps = gridDim.x * kWarps;
+  const float* cur = x;
+  float denom = 1.f;
+  for (int p = 0; p < s; ++p) {
+    // every warp of this block finished the previous power before the
+    // grid sync, so xs is free to overwrite
+    for (int c = threadIdx.x; c < n; c += blockDim.x)
+      xs[c] = __ldcg(cur + c) / denom;
+    __syncthreads();
+    float* out = raw + (size_t)(p & 1) * n;
+    float sq = 0.f;
+    for (int r = gw; r < n; r += nwarps) {
+      float acc[1] = {0.f};
+      row_dot<T, 1>(a + (size_t)r * n, n, lane, SharedX{xs}, acc);
+      acc[0] = warp_sum(acc[0]);
+      if (lane == 0) {
+        __stcg(out + r, acc[0]);
+        sq = fmaf(acc[0], acc[0], sq);
+      }
+    }
+    sq = block_sum(sq, red);
+    if (threadIdx.x == 0) part[(size_t)p * gridDim.x + blockIdx.x] = sq;
+    grid.sync();
+    const float sg = grid_norm(part + (size_t)p * gridDim.x, red);
+    denom = fmaxf(sg, eps);
+    if (blockIdx.x == 0 && threadIdx.x == 0) sigma[p] = sg;
+    if (lane == 0)
+      for (int r = gw; r < n; r += nwarps)
+        u[(size_t)p * n + r] = __ldcg(out + r) / denom;
+    cur = out;
+  }
+}
+
+// Grid of the banded / ELL kernels: a thread per row at least.
+template <typename T, bool kEll>
+static cudaError_t sparse_grid(int n, int blocks_per_sm, int* grid) {
+  return persistent_grid(sparse_powers_kernel<T, kEll>, 0, blocks_per_sm,
+                         (n + kThreads - 1) / kThreads, grid);
+}
+
+template <typename T>
+static cudaError_t dense_grid(int n, int blocks_per_sm, int* grid) {
+  return persistent_grid(dense_powers_kernel<T>, sizeof(float) * (size_t)n,
+                         blocks_per_sm, (n + kWarps - 1) / kWarps, grid);
+}
+
+template <typename T, bool kEll>
+static cudaError_t launch_sparse_powers(const void* mat, const int* cols,
+                                        int width, const int* offsets,
+                                        int nbands, const float* x,
+                                        const float* shifts, float* u,
+                                        float* sigma, float* raw, float* part,
+                                        int part_blocks, int n, int s,
+                                        float eps, int blocks_per_sm,
+                                        cudaStream_t stream) {
+  if (n <= 0 || s <= 0) return cudaErrorInvalidValue;
+  if (kEll ? width <= 0 : (nbands <= 0 || nbands > kMaxBands))
+    return cudaErrorInvalidValue;
+  BandOffsets offs{};
+  for (int d = 0; !kEll && d < nbands; ++d) offs.off[d] = offsets[d];
+  int g = 0;
+  cudaError_t e = sparse_grid<T, kEll>(n, blocks_per_sm, &g);
+  if (e != cudaSuccess) return e;
+  if (g > part_blocks) return cudaErrorInvalidValue;
+  const T* mt = static_cast<const T*>(mat);
+  void* args[] = {(void*)&mt,  (void*)&cols,   (void*)&width, (void*)&offs,
+                  (void*)&nbands, (void*)&x,   (void*)&shifts, (void*)&u,
+                  (void*)&sigma, (void*)&raw,  (void*)&part,  (void*)&n,
+                  (void*)&s,   (void*)&eps};
+  e = cudaLaunchCooperativeKernel((const void*)sparse_powers_kernel<T, kEll>,
+                                  g, kThreads, args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_dense_powers(const void* a, const float* x,
+                                       float* u, float* sigma, float* raw,
+                                       float* part, int part_blocks, int n,
+                                       int s, float eps, int smem_cap,
+                                       int blocks_per_sm,
+                                       cudaStream_t stream) {
+  if (n <= 0 || s <= 0) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)n;
+  if (smem > (size_t)smem_cap) return cudaErrorInvalidValue;
+  int g = 0;
+  cudaError_t e = dense_grid<T>(n, blocks_per_sm, &g);
+  if (e != cudaSuccess) return e;
+  if (g > part_blocks) return cudaErrorInvalidValue;
+  const T* at = static_cast<const T*>(a);
+  void* args[] = {(void*)&at,  (void*)&x,   (void*)&u,
+                  (void*)&sigma, (void*)&raw, (void*)&part,
+                  (void*)&n,   (void*)&s,   (void*)&eps};
+  e = cudaLaunchCooperativeKernel((const void*)dense_powers_kernel<T>, g,
+                                  kThreads, args, smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace repro
+
+// Common arguments: x (n,) f32; shifts (s,) f32 in device memory or null
+// (monomial basis); u (s, n) and sigma (s,) f32 out; raw holds 2 n floats
+// and part s * part_blocks floats of scratch.
+//
+// bands (nbands, n); offsets is host memory (nbands ints), copied into the
+// launch's parameters.
+extern "C" int repro_banded_powers(const void* bands, int b_bf16,
+                                   const int* offsets, int nbands,
+                                   const float* x, const float* shifts,
+                                   float* u, float* sigma, float* raw,
+                                   float* part, int part_blocks, int n, int s,
+                                   float eps, int blocks_per_sm,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_BANDED(T)                                                       \
+  repro::launch_sparse_powers<T, false>(bands, nullptr, 0, offsets, nbands,  \
+                                        x, shifts, u, sigma, raw, part,      \
+                                        part_blocks, n, s, eps,              \
+                                        blocks_per_sm, st)
+  return b_bf16 ? REPRO_BANDED(repro::bf16) : REPRO_BANDED(float);
+#undef REPRO_BANDED
+}
+
+// values (n, width) and cols (n, width) int32, row-major.
+extern "C" int repro_ell_powers(const void* values, int v_bf16,
+                                const int* cols, int width, const float* x,
+                                const float* shifts, float* u, float* sigma,
+                                float* raw, float* part, int part_blocks,
+                                int n, int s, float eps, int blocks_per_sm,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_ELL(T)                                                        \
+  repro::launch_sparse_powers<T, true>(values, cols, width, nullptr, 0, x, \
+                                       shifts, u, sigma, raw, part,        \
+                                       part_blocks, n, s, eps,             \
+                                       blocks_per_sm, st)
+  return v_bf16 ? REPRO_ELL(repro::bf16) : REPRO_ELL(float);
+#undef REPRO_ELL
+}
+
+// a (n, n) row-major; n floats of dynamic shared memory must fit smem_cap.
+extern "C" int repro_dense_powers(const void* a, int a_bf16, const float* x,
+                                  float* u, float* sigma, float* raw,
+                                  float* part, int part_blocks, int n, int s,
+                                  float eps, int smem_cap, int blocks_per_sm,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a_bf16 ? repro::launch_dense_powers<repro::bf16>(
+                      a, x, u, sigma, raw, part, part_blocks, n, s, eps,
+                      smem_cap, blocks_per_sm, st)
+                : repro::launch_dense_powers<float>(
+                      a, x, u, sigma, raw, part, part_blocks, n, s, eps,
+                      smem_cap, blocks_per_sm, st);
+}
+
+// The launch shape of kind 0 (banded), 1 (ELL) or 2 (dense):
+// out = {grid, rows per block (banded / ELL) or warps (dense), smem bytes}.
+extern "C" int repro_matrix_powers_shape(int kind, int is_bf16, int n,
+                                         int blocks_per_sm, int* out) {
+  using repro::bf16;
+  int g = 0;
+  cudaError_t e;
+  if (kind == 0)
+    e = is_bf16 ? repro::sparse_grid<bf16, false>(n, blocks_per_sm, &g)
+                : repro::sparse_grid<float, false>(n, blocks_per_sm, &g);
+  else if (kind == 1)
+    e = is_bf16 ? repro::sparse_grid<bf16, true>(n, blocks_per_sm, &g)
+                : repro::sparse_grid<float, true>(n, blocks_per_sm, &g);
+  else
+    e = is_bf16 ? repro::dense_grid<bf16>(n, blocks_per_sm, &g)
+                : repro::dense_grid<float>(n, blocks_per_sm, &g);
+  out[0] = g;
+  out[1] = kind == 2 ? g * repro::kWarps
+                     : (g ? ((n + g - 1) / g + 31) / 32 * 32 : 0);
+  out[2] = kind == 2 ? (int)(sizeof(float) * (size_t)n) : 0;
+  return e;
+}

@@ -53,11 +53,6 @@
 namespace repro {
 
 constexpr int kSpmvMaxK = 8;       // accumulators per thread
-constexpr int kMaxBands = 32;      // offsets passed by value
-
-struct BandOffsets {
-  int off[kMaxBands];
-};
 
 template <typename T, int K>
 __global__ void __launch_bounds__(256)

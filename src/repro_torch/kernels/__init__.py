@@ -1,5 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-Sources are in ``repro_torch/csrc``; ``_build`` compiles them with ``nvcc``
-at the first launch.  Importing these modules builds nothing.
+Modules: ``matvec`` (GEMV / block GEMM), ``cgs2`` (fused Gram-Schmidt
+pass), ``arnoldi_fused`` (whole Arnoldi step), ``spmv`` (ELL, sliced ELL,
+banded), ``block_gs`` (s-step block pass, per-lane CGS2),
+``matrix_powers`` (the s-step cycle's powers).  Sources are in
+``repro_torch/csrc``; ``_build`` compiles them with ``nvcc`` at the first
+launch.  Importing these modules builds nothing.
 """

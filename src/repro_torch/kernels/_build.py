@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 # C entry points: name -> argtypes.  Every entry returns the cudaError_t of
 # its launch (0 on success).
 SIGNATURES = {
@@ -55,6 +56,23 @@ SIGNATURES = {
     "repro_batched_cgs2": (P, I, P, P, P, P, P, I, I, I, I, I, P),
     # v_bf16, k, m1, n, blocks_per_sm, out
     "repro_batched_cgs2_shape": (I, I, I, I, I, P),
+    # bands, b_bf16, offsets (host int[nbands]), nbands, x, shifts (device
+    # float[s] or null), u, sigma, raw, partials, partial_blocks, n, s, eps,
+    # blocks_per_sm, stream
+    "repro_banded_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, P),
+    # values, v_bf16, cols, width, x, shifts, u, sigma, raw, partials,
+    # partial_blocks, n, s, eps, blocks_per_sm, stream
+    "repro_ell_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, P),
+    # a, a_bf16, x, u, sigma, raw, partials, partial_blocks, n, s, eps,
+    # smem_cap, blocks_per_sm, stream
+    "repro_dense_powers": (P, I, P, P, P, P, P, I, I, I, F, I, I, P),
+    # kind (0 banded, 1 ELL, 2 dense), bf16, n, blocks_per_sm, out
+    "repro_matrix_powers_shape": (I, I, I, I, P),
+    # v, v_bf16, w, tin, c, w_out, g, partials, partial_blocks, m1, n, s,
+    # rows, blocks_per_sm, stream
+    "repro_block_gs_pass": (P, I, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # v_bf16, m1, n, s, blocks_per_sm, out
+    "repro_block_gs_pass_shape": (I, I, I, I, I, P),
 }
 
 _LIB = None

@@ -1,20 +1,31 @@
-"""Per-lane CGS2 for the block multi-RHS solver (``gmres_batched``).
+"""Block Gram-Schmidt kernels: the s-step pass and per-lane CGS2.
 
-Counterpart of ``repro/kernels/block_gs.py::batched_cgs2`` (the s-step
-block Gram-Schmidt kernels of that module come with a later slice).  The
-kernel is ``csrc/batched_cgs2.cu``: one cooperative launch runs both CGS2
-passes for every lane; its source note gives the design and the bound.
+Counterpart of ``repro/kernels/block_gs.py``: ``block_gs_pass`` (the
+fused pass of the s-step cycle) and ``batched_cgs2`` (the block multi-RHS
+solver's per-lane CGS2).  The row-sharded pair (``block_gs_project``,
+``block_gs_update``) comes with the distributed slice, and the
+single-reduce ``block_gs_project_gram`` with the pipelined slice.  The
+kernels are ``csrc/block_gs.cu`` and ``csrc/batched_cgs2.cu``; their source
+notes give the designs and the bounds.
 
-The JAX wrapper takes a (k, m1) 0/1 mask of valid basis rows.  A lane's
-valid rows are always the prefix 0..j, so the port takes the per-lane step
-index ``j`` instead (host ints, one per lane), and ``j = -1`` skips a lane
-(h = 0, w'' = w): the solver passes it for lanes that are done.  V is
-float32 or bfloat16; w is taken as float32; h (k, m1) and the unnormalised
-w'' (k, n) come back in float32.
+``block_gs_pass(v, w, tin, k_start)``: Q = T W, C = mask (V Q^T),
+W' = Q - C^T V, G = W' W'^T, with mask selecting basis rows 0..k_start
+(the JAX wrapper's ``mask`` argument is always that prefix, so the port
+takes ``k_start`` and the kernel reads only those rows).  V is float32 or
+bfloat16, w and tin are taken as float32; c (m1, s), w' (s, n) and g (s, s)
+come back in float32 (float64 on the plain path for float64 inputs).  The
+kernel takes s <= ``tuning.BLOCK_GS_MAX_S``.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.  There is no size gate: the kernel streams
-the bases from global memory, so no basis is too large for it.
+``batched_cgs2``: the JAX wrapper takes a (k, m1) 0/1 mask of valid basis
+rows.  A lane's valid rows are always the prefix 0..j, so the port takes
+the per-lane step index ``j`` instead (host ints, one per lane), and
+``j = -1`` skips a lane (h = 0, w'' = w): the solver passes it for lanes
+that are done.  V is float32 or bfloat16; w is taken as float32; h (k, m1)
+and the unnormalised w'' (k, n) come back in float32.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.  There is no size gate: the kernels stream
+the bases from global memory, so no basis is too large for them.
 """
 from __future__ import annotations
 
@@ -113,3 +124,85 @@ def launch_shape(v_dtype, k: int, m1: int, n: int) -> dict:
     return _build.shape("repro_batched_cgs2_shape",
                         int(v_dtype == torch.bfloat16), k, m1, n,
                         tuning.STREAM_BLOCKS_PER_SM)
+
+
+# --------------------------------------------------------------------------
+# the s-step block pass
+# --------------------------------------------------------------------------
+def block_gs_pass_plain(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
+                        k_start: int):
+    """The kernel's arithmetic (JAX's ``block_gs_pass_ref``) in float32 or
+    wider."""
+    acc = torch.promote_types(w.dtype, torch.float32)
+    mask = (torch.arange(v.shape[0], device=v.device) <= k_start).to(acc)
+    vf = v.to(acc)
+    q = tin.to(acc) @ w.to(acc)
+    c = (vf @ q.T) * mask[:, None]
+    w2 = q - c.T @ vf
+    return c, w2, w2 @ w2.T
+
+
+def _check_pass(v, w, tin, k_start: int) -> None:
+    if v.ndim != 2 or w.ndim != 2 or w.shape[1] != v.shape[1]:
+        raise TypeError(f"block_gs_pass: v {tuple(v.shape)} and w "
+                        f"{tuple(w.shape)} must share the vector length")
+    s = w.shape[0]
+    if tuple(tin.shape) != (s, s):
+        raise TypeError(f"block_gs_pass: tin {tuple(tin.shape)} must be "
+                        f"({s}, {s})")
+    if not 0 <= k_start < v.shape[0]:
+        raise ValueError(f"block_gs_pass: k_start = {k_start} outside "
+                         f"0..{v.shape[0] - 1}")
+    if w.device != v.device or tin.device != v.device:
+        raise ValueError(f"block_gs_pass: v on {v.device}, w on {w.device}, "
+                         f"tin on {tin.device}")
+
+
+def block_gs_pass(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
+                  k_start: int):
+    """One fused block-GS pass.  v: (m1, n) basis, rows 0..k_start valid;
+    w: (s, n); tin: (s, s).  Returns ``(c, w', g)``."""
+    k_start = int(k_start)
+    _check_pass(v, w, tin, k_start)
+    if v.device.type == "cpu":
+        return block_gs_pass_plain(v, w, tin, k_start)
+    if v.device.type != "cuda":
+        raise ValueError(f"block_gs_pass: unsupported device {v.device}")
+    if v.dtype not in STORAGE or w.dtype not in STORAGE:
+        raise TypeError(f"block_gs_pass: storage must be float32 or "
+                        f"bfloat16, got v {v.dtype}, w {w.dtype}")
+    if not v.is_contiguous():
+        raise ValueError("block_gs_pass: v must be contiguous (row-major)")
+    m1, n = v.shape
+    s = w.shape[0]
+    if not 1 <= s <= tuning.BLOCK_GS_MAX_S:
+        raise ValueError(f"block_gs_pass: s = {s}; the kernel takes "
+                         f"1..{tuning.BLOCK_GS_MAX_S}")
+    dev = v.device
+    wf = w.to(torch.float32).contiguous()
+    tf = tin.to(torch.float32).contiguous()
+    c = torch.empty((m1, s), dtype=torch.float32, device=dev)
+    w_out = torch.empty((s, n), dtype=torch.float32, device=dev)
+    g = torch.empty((s, s), dtype=torch.float32, device=dev)
+    grid = tuning.persistent_grid(dev, tuning.BLOCK_GS_BLOCKS_PER_SM,
+                                  -(-n // (32 * tuning.GS_WARPS)))
+    part = torch.empty(((m1 * s + s * (s + 1) // 2) * grid,),
+                       dtype=torch.float32, device=dev)
+    rc = _build.library().repro_block_gs_pass(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        tf.data_ptr(), c.data_ptr(), w_out.data_ptr(), g.data_ptr(),
+        part.data_ptr(), grid, m1, n, s, k_start + 1,
+        tuning.BLOCK_GS_BLOCKS_PER_SM, _build.stream_ptr(v))
+    _build.check("block_gs_pass", rc)
+    block_gs_pass.launches += 1
+    return c, w_out, g
+
+
+block_gs_pass.launches = 0
+
+
+def block_gs_launch_shape(v_dtype, m1: int, n: int, s: int) -> dict:
+    """The grid block_gs_pass launches at this shape on the current card."""
+    return _build.shape("repro_block_gs_pass_shape",
+                        int(v_dtype == torch.bfloat16), m1, n, s,
+                        tuning.BLOCK_GS_BLOCKS_PER_SM)

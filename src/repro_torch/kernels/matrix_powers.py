@@ -1,0 +1,260 @@
+"""The s-step cycle's matrix powers: s normalized powers in one launch.
+
+Counterpart of ``repro/kernels/matrix_powers.py`` (``banded_powers``,
+``ell_powers``, ``dense_powers`` and the ``matrix_powers_ref`` oracle; the
+row-sharded ``banded_powers_halo`` comes with the distributed slice and
+``banded_cheb_apply`` with the preconditioning slice).  The kernels are
+``csrc/matrix_powers.cu``; its source note gives the design and the bound.
+
+Each computes, from u_0 = x,
+
+    w = (A - shifts[p] I) u_{p-1};  sigma_p = ||w||;  u_p = w / max(sigma_p, eps)
+
+for p = 1..s (``shifts=None``: the monomial basis) and returns ``(u,
+sigma)``: u (s, n), row p-1 holding u_p, and sigma (s,).  eps is the
+breakdown guard tiny^(1/2) of the accumulation dtype.  Matrices are
+float32 or bfloat16 storage (float64 on the plain path), x any float
+dtype; the results are float32 (float64 for float64 inputs), as the JAX
+kernels' ``_acc_dtype`` gives them.  ``dense_powers`` takes no shifts, as
+in JAX.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.  ``matrix_powers_ref(matvec, x, s, eps,
+shifts)`` is the JAX package's sequential reference over any mat-vec: the
+s-step solver runs it for the operators that have no powers kernel, and on
+the card its mat-vecs launch the operator's own GEMV or SpMV kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref, spmv, tuning
+
+STORAGE = (torch.float32, torch.bfloat16)
+_KIND = {"banded": 0, "ell": 1, "dense": 2}
+
+
+def _acc_dtype(mat_dtype, x_dtype) -> torch.dtype:
+    return torch.promote_types(torch.promote_types(mat_dtype, x_dtype),
+                               torch.float32)
+
+
+def guard(dtype) -> float:
+    """The breakdown guard tiny^(1/2) of ``dtype``."""
+    return float(torch.finfo(dtype).tiny) ** 0.5
+
+
+def matrix_powers_ref(matvec, x: torch.Tensor, s: int, eps,
+                      shifts: torch.Tensor | None = None):
+    """s normalized powers by s sequential mat-vecs (the JAX reference).
+
+    Runs in the dtype the mat-vec returns; ``shifts`` (s,) selects the
+    Newton basis.  Returns ``(u (s, n), sigma (s,))``.
+    """
+    us, sigmas = [], []
+    u = x
+    for p in range(s):
+        w = matvec(u)
+        if shifts is not None:
+            w = w - shifts[p] * u
+        sigma = torch.sqrt((w.float() * w.float()).sum()
+                           if w.dtype == torch.bfloat16
+                           else torch.dot(w, w))
+        sigma = sigma.to(w.dtype)
+        u = w / torch.clamp(sigma, min=eps)
+        us.append(u)
+        sigmas.append(sigma)
+    return torch.stack(us), torch.stack(sigmas)
+
+
+# --------------------------------------------------------------------------
+# plain versions: the kernels' arithmetic, in the accumulation dtype
+# --------------------------------------------------------------------------
+def _plain(matvec, x, s, acc, shifts):
+    sh = None if shifts is None else shifts.to(acc)
+    return matrix_powers_ref(matvec, x.to(acc), s, guard(acc), sh)
+
+
+def banded_powers_plain(bands, x, offsets, s: int, *, shifts=None):
+    acc = _acc_dtype(bands.dtype, x.dtype)
+    return _plain(lambda u: spmv.banded_matvec_plain(bands, u, offsets), x,
+                  s, acc, shifts)
+
+
+def ell_powers_plain(values, cols, x, s: int, *, shifts=None):
+    acc = _acc_dtype(values.dtype, x.dtype)
+    return _plain(lambda u: spmv.ell_matvec_plain(values, cols, u), x, s,
+                  acc, shifts)
+
+
+def dense_powers_plain(a, x, s: int):
+    acc = _acc_dtype(a.dtype, x.dtype)
+    return _plain(lambda u: ref.matvec(a, u), x, s, acc, None)
+
+
+# --------------------------------------------------------------------------
+# checks
+# --------------------------------------------------------------------------
+def _check_x(name: str, n: int, x: torch.Tensor, mat: torch.Tensor) -> None:
+    if x.shape != (n,):
+        raise TypeError(f"{name}: matrix {tuple(mat.shape)} needs x of shape "
+                        f"({n},), got {tuple(x.shape)}")
+    if mat.device != x.device:
+        raise ValueError(f"{name}: matrix on {mat.device}, x on {x.device}")
+
+
+def _check_s(name: str, s: int, shifts) -> None:
+    if s < 1:
+        raise ValueError(f"{name}: s = {s} must be >= 1")
+    if shifts is not None and tuple(shifts.shape) != (s,):
+        raise TypeError(f"{name}: shifts {tuple(shifts.shape)} must be "
+                        f"({s},)")
+
+
+def _check_card(name: str, mat: torch.Tensor, idx=None) -> None:
+    if mat.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {mat.device}")
+    if mat.dtype not in STORAGE:
+        raise TypeError(f"{name}: storage must be float32 or bfloat16, got "
+                        f"{mat.dtype}")
+    if not mat.is_contiguous() or (idx is not None
+                                   and not idx.is_contiguous()):
+        raise ValueError(f"{name}: the matrix must be contiguous (row-major)")
+    if idx is not None and idx.dtype != torch.int32:
+        raise TypeError(f"{name}: column indices must be int32, got "
+                        f"{idx.dtype}")
+
+
+def _buffers(x: torch.Tensor, s: int, grid: int, shifts):
+    """x as float32, the shifts on the card (or a null pointer), and the
+    outputs and scratch of one launch."""
+    if x.dtype not in STORAGE:
+        raise TypeError(f"matrix powers: x must be float32 or bfloat16 on the "
+                        f"card, got {x.dtype}")
+    n = x.shape[0]
+    dev = x.device
+    xf = x.to(torch.float32).contiguous()
+    sh = None if shifts is None else \
+        shifts.to(device=dev, dtype=torch.float32).contiguous()
+    u = torch.empty((s, n), dtype=torch.float32, device=dev)
+    sigma = torch.empty((s,), dtype=torch.float32, device=dev)
+    raw = torch.empty((2, n), dtype=torch.float32, device=dev)
+    part = torch.empty((s * grid,), dtype=torch.float32, device=dev)
+    return xf, sh, u, sigma, raw, part
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+def banded_powers(bands: torch.Tensor, x: torch.Tensor, offsets, s: int, *,
+                  shifts: torch.Tensor | None = None):
+    """All s normalized powers of a banded operator.  bands: (nbands, n);
+    offsets: one diagonal shift per band; x: (n,)."""
+    offsets = tuple(int(o) for o in offsets)
+    if bands.ndim != 2 or len(offsets) != bands.shape[0]:
+        raise TypeError(f"banded_powers: bands {tuple(bands.shape)} but "
+                        f"{len(offsets)} offsets")
+    _check_x("banded_powers", bands.shape[1], x, bands)
+    _check_s("banded_powers", s, shifts)
+    if bands.device.type == "cpu":
+        return banded_powers_plain(bands, x, offsets, s, shifts=shifts)
+    _check_card("banded_powers", bands)
+    nbands, n = bands.shape
+    if nbands > spmv.MAX_BANDS:
+        raise ValueError(f"banded_powers: {nbands} bands; the kernel takes at "
+                         f"most {spmv.MAX_BANDS}")
+    grid = tuning.persistent_grid(bands.device, tuning.POWERS_BLOCKS_PER_SM,
+                                  -(-n // (32 * tuning.GS_WARPS)))
+    xf, sh, u, sigma, raw, part = _buffers(x, s, grid, shifts)
+    offs = (ctypes.c_int * nbands)(*offsets)
+    rc = _build.library().repro_banded_powers(
+        bands.data_ptr(), int(bands.dtype == torch.bfloat16),
+        ctypes.addressof(offs), nbands, xf.data_ptr(), _ptr(sh),
+        u.data_ptr(), sigma.data_ptr(), raw.data_ptr(), part.data_ptr(),
+        grid, n, s, guard(torch.float32), tuning.POWERS_BLOCKS_PER_SM,
+        _build.stream_ptr(bands))
+    _build.check("banded_powers", rc)
+    banded_powers.launches += 1
+    return u, sigma
+
+
+banded_powers.launches = 0
+
+
+def ell_powers(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+               s: int, *, shifts: torch.Tensor | None = None):
+    """All s normalized powers of an ELL operator.  values/cols: (n, width)
+    as in ``spmv.ell_matvec``; x: (n,)."""
+    if values.ndim != 2 or cols.shape != values.shape:
+        raise TypeError(f"ell_powers: cols {tuple(cols.shape)} must match "
+                        f"values {tuple(values.shape)}")
+    _check_x("ell_powers", values.shape[0], x, values)
+    _check_s("ell_powers", s, shifts)
+    if values.device.type == "cpu":
+        return ell_powers_plain(values, cols, x, s, shifts=shifts)
+    _check_card("ell_powers", values, cols)
+    n, width = values.shape
+    grid = tuning.persistent_grid(values.device, tuning.POWERS_BLOCKS_PER_SM,
+                                  -(-n // (32 * tuning.GS_WARPS)))
+    xf, sh, u, sigma, raw, part = _buffers(x, s, grid, shifts)
+    rc = _build.library().repro_ell_powers(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), width, xf.data_ptr(), _ptr(sh), u.data_ptr(),
+        sigma.data_ptr(), raw.data_ptr(), part.data_ptr(), grid, n, s,
+        guard(torch.float32), tuning.POWERS_BLOCKS_PER_SM,
+        _build.stream_ptr(values))
+    _build.check("ell_powers", rc)
+    ell_powers.launches += 1
+    return u, sigma
+
+
+ell_powers.launches = 0
+
+
+def dense_powers(a: torch.Tensor, x: torch.Tensor, s: int):
+    """All s normalized powers of a dense (n, n) A (unshifted); x: (n,).
+
+    The kernel keeps the current power in each block's shared memory, so n
+    is at most ``tuning.SMEM_BUDGET / 4`` (51,200) on the card.
+    """
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise TypeError(f"dense_powers: a {tuple(a.shape)} must be square")
+    _check_x("dense_powers", a.shape[0], x, a)
+    _check_s("dense_powers", s, None)
+    if a.device.type == "cpu":
+        return dense_powers_plain(a, x, s)
+    _check_card("dense_powers", a)
+    n = a.shape[0]
+    if 4 * n > tuning.SMEM_BUDGET:
+        raise ValueError(f"dense_powers: n = {n}; the kernel holds the "
+                         f"operand in shared memory, n <= "
+                         f"{tuning.SMEM_BUDGET // 4}")
+    grid = tuning.persistent_grid(a.device, tuning.POWERS_BLOCKS_PER_SM,
+                                  -(-n // tuning.GS_WARPS))
+    xf, _, u, sigma, raw, part = _buffers(x, s, grid, None)
+    rc = _build.library().repro_dense_powers(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), xf.data_ptr(),
+        u.data_ptr(), sigma.data_ptr(), raw.data_ptr(), part.data_ptr(),
+        grid, n, s, guard(torch.float32), tuning.SMEM_BUDGET,
+        tuning.POWERS_BLOCKS_PER_SM, _build.stream_ptr(a))
+    _build.check("dense_powers", rc)
+    dense_powers.launches += 1
+    return u, sigma
+
+
+dense_powers.launches = 0
+
+
+def launch_shape(kind: str, dtype, n: int) -> dict:
+    """The grid a powers kernel ("banded", "ell", "dense") launches at this
+    size on the current card ("cols": rows per block, or the grid's warps
+    for dense)."""
+    return _build.shape("repro_matrix_powers_shape", _KIND[kind],
+                        int(dtype == torch.bfloat16), n,
+                        tuning.POWERS_BLOCKS_PER_SM)

@@ -7,16 +7,18 @@ no meaning here.  What the kernels need is
 - the GEMV launch shape (csrc/matvec.cu: one warp per row);
 - the SpMV block size (csrc/spmv.cu: one thread per row, ELL and banded);
 - the cooperative kernels' shared-memory cap and blocks per SM
-  (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu); the C side
-  picks the grid from these with the occupancy calculator;
+  (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu,
+  csrc/matrix_powers.cu, csrc/block_gs.cu); the C side picks the grid from
+  these with the occupancy calculator;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check.
 
-The JAX package's SpMV and batched-GS gates (``spmv_fits``,
-``sell_fits``, ``banded_fits``, ``block_gs_fits`` and their block
-choosers) have no counterpart: they exist because the TPU keeps x, or a
-lane's whole basis, in 12 MiB of VMEM.  Here x and the bases stay in
+The JAX package's SpMV, batched-GS and s-step gates (``spmv_fits``,
+``sell_fits``, ``banded_fits``, ``block_gs_fits``, ``powers_fits``,
+``ell_powers_fits`` and their block choosers) have no counterpart: they
+exist because the TPU keeps x, a lane's whole basis, or a band stack and
+its s powers, in 12 MiB of VMEM.  Here x and the bases stay in
 global memory (x in L2), so no size sends a CUDA tensor to a plain
 version.
 """
@@ -42,6 +44,17 @@ FUSED_BLOCKS_PER_SM = 4
 # occupancy calculator caps this; see PERF.md for the sweep).
 STREAM_BLOCKS_PER_SM = 8
 SPMV_THREADS = 256        # rows per SpMV block, one thread per row
+# The s-step kernels (csrc/matrix_powers.cu, csrc/block_gs.cu) are
+# persistent cooperative launches: these many blocks per SM at most, fewer
+# where the occupancy calculator says fewer are co-resident, and never more
+# blocks than the rows (a thread per row; dense: a warp per row) or columns
+# (a thread per column) need.  The banded and ELL powers share one value,
+# so a stencil gets the same row partition, and the same bits, in both
+# formats.  Each power ends in a grid sync whose cost grows with the grid;
+# each block-GS pass reduces (k_start + 1) * s partials per block.
+POWERS_BLOCKS_PER_SM = 4
+BLOCK_GS_BLOCKS_PER_SM = 2
+BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
 
 
 def gemv_launch(m: int) -> tuple[int, int]:
@@ -75,3 +88,9 @@ def fused_step_fits(m1: int, n: int, sms: int = H100_SMS) -> bool:
 def partial_blocks(device, blocks_per_sm: int) -> int:
     """Most blocks a cooperative launch can have: the partials' capacity."""
     return blocks_per_sm * sm_count(device)
+
+
+def persistent_grid(device, blocks_per_sm: int, max_grid: int) -> int:
+    """Upper bound of a persistent kernel's grid (the C side may take fewer
+    where occupancy is lower): the partials' capacity."""
+    return max(1, min(partial_blocks(device, blocks_per_sm), max_grid))

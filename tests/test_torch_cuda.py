@@ -199,3 +199,150 @@ def test_sparse_and_batched_solves_count_launches(dev):
     d_gs = block_gs.batched_cgs2.launches - before[1]
     assert res.converged.all() and d_gs > 0
     assert d_spmv == d_gs + int(res.restarts.max()) + 1
+
+
+# --------------------------------------------------------------------------
+# the s-step slice: matrix powers, block Gram-Schmidt, s-step solves
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 5, 8])
+def test_powers_kernels_match_plain(dev, s, dtype):
+    from repro_torch.core import stencils
+    from repro_torch.kernels import matrix_powers as mp
+
+    op = operators.with_dtype(
+        stencils.convection_diffusion_2d(100, 77, device=dev), dtype)
+    ell = op.to_ell()
+    n = op.shape[0]
+    g = torch.Generator(device=dev).manual_seed(s)
+    x = torch.randn(n, device=dev, generator=g)
+    for shifts in (None, torch.linspace(0.5, 7.5, s, device=dev)):
+        before = (mp.banded_powers.launches, mp.ell_powers.launches)
+        u, sig = mp.banded_powers(op.bands, x, op.offsets, s, shifts=shifts)
+        ue, sige = mp.ell_powers(ell.values, ell.cols, x, s, shifts=shifts)
+        assert (mp.banded_powers.launches, mp.ell_powers.launches) == \
+            (before[0] + 1, before[1] + 1)
+        up, sigp = mp.banded_powers_plain(op.bands, x, op.offsets, s,
+                                          shifts=shifts)
+        torch.cuda.synchronize()
+        assert _relerr(u, up) < TOL[dtype] and _relerr(sig, sigp) < TOL[dtype]
+        # one row partition and one order: the same bits in both formats
+        assert torch.equal(u, ue) and torch.equal(sig, sige)
+    a = (torch.randn(3001, 3001, device=dev, generator=g) / 3001 ** 0.5
+         + 2 * torch.eye(3001, device=dev)).to(dtype)
+    x = torch.randn(3001, device=dev, generator=g)
+    u, sig = mp.dense_powers(a, x, s)
+    up, sigp = mp.dense_powers_plain(a, x, s)
+    torch.cuda.synchronize()
+    assert _relerr(u, up) < TOL[dtype] and _relerr(sig, sigp) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 5, 8])
+@pytest.mark.parametrize("n,k_start", [(300, 0), (10_000, 10),
+                                       (100_003, 25)])
+def test_block_gs_pass_kernel_matches_plain(dev, n, k_start, s, dtype):
+    from repro_torch.kernels import block_gs
+
+    m1 = 31
+    v = _basis(n, m1, k_start, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(n + s)
+    w = torch.randn(s, n, device=dev, generator=g)
+    tin = torch.triu(torch.randn(s, s, device=dev, generator=g)) \
+        + 2 * torch.eye(s, device=dev)
+    before = block_gs.block_gs_pass.launches
+    got = block_gs.block_gs_pass(v, w, tin, k_start)
+    want = block_gs.block_gs_pass_plain(v, w, tin, k_start)
+    torch.cuda.synchronize()
+    assert block_gs.block_gs_pass.launches == before + 1
+    assert not got[0][k_start + 1:].any()
+    for gt, wt in zip(got, want):
+        assert _relerr(gt, wt) < TOL[dtype]
+
+
+def test_sstep_kernels_reject_float64(dev):
+    from repro_torch.kernels import block_gs
+    from repro_torch.kernels import matrix_powers as mp
+
+    f64 = dict(device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        mp.dense_powers(torch.eye(8, **f64), torch.ones(8, device=dev), 2)
+    with pytest.raises(TypeError):
+        mp.banded_powers(torch.ones(1, 8, **f64), torch.ones(8, device=dev),
+                         (0,), 2)
+    with pytest.raises(TypeError):
+        block_gs.block_gs_pass(torch.zeros(4, 8, **f64),
+                               torch.zeros(2, 8, device=dev),
+                               torch.eye(2, device=dev), 0)
+
+
+@pytest.mark.parametrize("fmt", ["banded", "ell", "sell", "dense"])
+@pytest.mark.parametrize("basis", ["monomial", "newton"])
+def test_sstep_solves_count_launches(dev, fmt, basis):
+    from repro_torch.core import gmres_sstep, stencils
+    from repro_torch.kernels import block_gs, spmv
+    from repro_torch.kernels import matrix_powers as mp
+
+    s, blocks = 5, 6
+    if fmt == "dense":
+        a = operators.random_diagdom(1000, dominance=0.3, seed=1,
+                                     device="cpu")
+        op_c = operators.DenseOperator(a, backend="cuda", device=dev)
+        op_h = operators.DenseOperator(a, device="cpu")
+    else:
+        op_c = stencils.convection_diffusion_2d(32, 32, fmt=fmt, device=dev)
+        op_h = stencils.convection_diffusion_2d(32, 32, fmt=fmt,
+                                                device="cpu")
+    n = op_c.shape[0]
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32))
+    counters = {"banded": mp.banded_powers, "ell": mp.ell_powers,
+                "dense": mp.dense_powers, "gs": block_gs.block_gs_pass,
+                "sell": spmv.sell_matvec, "gemv": matvec.block_matvec}
+    before = {k: f.launches for k, f in counters.items()}
+    res = gmres_sstep(op_c, b.to(dev), s=s, blocks=blocks, tol=1e-5,
+                      max_restarts=200, basis=basis)
+    d = {k: f.launches - before[k] for k, f in counters.items()}
+    ref = gmres_sstep(op_h, b, s=s, blocks=blocks, tol=1e-5,
+                      max_restarts=200, basis=basis)
+    assert res.converged and ref.converged
+    assert abs(res.restarts - ref.restarts) <= 1
+    diff = float((res.x.cpu() - ref.x).norm() / ref.x.norm())
+    assert diff <= 1e-3
+    cycles = res.restarts
+    assert d["gs"] == 2 * blocks * cycles
+    kernel = {"banded": "banded", "ell": "ell", "dense": "dense"}.get(fmt)
+    if fmt == "dense" and basis == "newton":
+        kernel = None                   # reference powers over the GEMV
+    for name in ("banded", "ell", "dense"):
+        assert d[name] == (blocks * cycles if name == kernel else 0)
+    residuals = cycles + 1
+    if fmt == "sell":
+        bins = len(op_c.bin_values)
+        assert d["sell"] == (s * blocks * cycles + residuals) * bins
+    if fmt == "dense":
+        assert d["gemv"] == residuals + (s * blocks * cycles
+                                         if kernel is None else 0)
+
+
+def test_cuda_tensors_never_reach_plain_versions(dev, monkeypatch):
+    from repro_torch.core import gmres_sstep, stencils
+    from repro_torch.kernels import block_gs
+    from repro_torch.kernels import matrix_powers as mp
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("banded_powers_plain", "ell_powers_plain",
+                 "dense_powers_plain"):
+        monkeypatch.setattr(mp, name, refuse)
+    monkeypatch.setattr(block_gs, "block_gs_pass_plain", refuse)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(1 << 16)
+                         .astype(np.float32)).to(dev)
+    for fmt in ("banded", "ell"):
+        op = stencils.convection_diffusion_2d(256, 256, fmt=fmt, device=dev)
+        res = gmres_sstep(op, b, s=5, blocks=6, tol=1e-3, max_restarts=3)
+        assert bool(torch.isfinite(res.x).all())
+    a = operators.random_diagdom(2000, seed=2, device=dev)
+    res = gmres_sstep(a, b[:2000], s=5, blocks=6, tol=1e-5)
+    assert res.converged

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.core import gmres, gmres_batched, graphs  # noqa: E402
+from repro_torch.core import gmres_sstep  # noqa: E402
 from repro_torch.core import operators, stencils, strategies  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
@@ -83,6 +84,20 @@ def test_entry_points_raise_without_card(no_card):
     res = strategies.device_resident(a, b, device="cpu")
     assert res.converged and res.x.device.type == "cpu"
     assert device_mod.resolve("cpu").type == "cpu"
+
+
+def test_sstep_entry_points_raise_without_card(no_card):
+    a = np.eye(8, dtype=np.float32) * 2
+    b = np.ones(8, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gmres_sstep(a, b, s=2, blocks=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        strategies.device_resident_sstep(a, b, m=4, s=2)
+    res = gmres_sstep(torch.from_numpy(a), torch.from_numpy(b), s=2,
+                      blocks=2)
+    assert res.converged and res.x.device.type == "cpu"
+    res = strategies.device_resident_sstep(a, b, m=4, s=2, device="cpu")
+    assert res.converged and res.x.device.type == "cpu"
 
 
 def test_unported_paths_raise():
