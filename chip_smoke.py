@@ -113,6 +113,41 @@ The s-step slice (s = 5, 6 blocks: m = 30):
               the cgs2_fused / fused solves of phases 5 and 9 and their
               syncs per step.
 
+The pipelined slice (gs = "cgs2_pipelined"):
+
+13. pipelined_kernels  the single-reduce payload (gs_project_norm_partial),
+              gs_update, block_gs_project_gram and block_gs_update against
+              their plain versions on the card, float32 and bfloat16
+              storage, same bars as phase 2: payload and update at
+              n = 10,000 and 2^20, m1 = 31, j = 0, 15, 29 (the update on
+              the row prefix V[:j+1], as the cycle calls it, and bit-equal
+              to the full call); the block pair and the whole single-reduce
+              pass at n = 2^20 and 10,000, k_start 0 and 25, s = 5.
+14. pipelined_solve  gmres(gs="cgs2_pipelined"), tol 1e-5, on the dense
+              n = 10,000 dominance-0.015 system and the 1024^2 stencil as
+              banded, ELL and sliced ELL, held to phase 3's / phase 7's
+              cgs2_fused solve of the same system: converged, true relres
+              <= 2 tol, restarts within +-1 (10% on the stencil), x within
+              1e-3; banded and ELL first-restart residuals the same bits.
+              Counters: payload = steps, gs_update = 2 x steps, the
+              operator's mat-vec (steps + 2 restarts + 1) x bins, no
+              gs_project.  Then wall, device ms and idle share per step
+              and host syncs per step (sync debug mode) of the dense and
+              banded solves beside cgs2_fused's, timed in turn, and for
+              the dense pair where a step's host time goes (the host
+              profile's ops and the time outside them).
+15. sstep_sr_solve  gmres_sstep(s=5, blocks=6, gs="cgs2_pipelined") on the
+              dense system and the banded and ELL stencil, held to phase
+              11's split solve (restarts +-1, 10% on the stencil, x 1e-3);
+              block_gs_project_gram and block_gs_update launch 2 x blocks
+              per cycle, block_gs_pass never; host syncs at most 3 per
+              cycle; wall, device and idle per step of the dense and banded
+              solves beside the split solve's, timed in turn.
+              Last, the four kernels' times at the path's shapes (cold at
+              n = 2^20, warm at 10,000) beside their bounds, plain versions
+              and composite yardsticks (no single library call computes
+              any of them).
+
 Then one ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result line.  Without a
@@ -145,6 +180,7 @@ MAX_RESTARTS = CONFIG.max_restarts
 TOL = 1e-5
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLUSH_BYTES = 256 << 20        # rewritten before a cold call: 5x the L2
+PROFILE_TRIES = 3              # profiles taken before a time is "not measured"
 SCHEMES = ("cgs2", "cgs2_fused", "fused")
 # The sparse slice: the JAX package's sparse walkthrough
 # (examples/sparse_poisson.py) at a grid its users solve, n = 2^20.
@@ -165,6 +201,10 @@ SSTEP_BLOCKS = 6
 SSTEP_S_CHECK = (2, 5, 8)
 BGS_K = (0, 10, 25)
 SSTEP_BASES = ("monomial", "newton")
+# The pipelined slice: the payload and update at steps j = 0, 15, 29, the
+# single-reduce block pair at k_start = 0 and 25 (s = 5).
+PIPE_J = (0, 15, 29)
+PIPE_K = (0, 25)
 
 
 T0 = time.perf_counter()
@@ -206,7 +246,8 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
     events time each call alone), so every call reads its operands from
     HBM, as a solve's calls do once the basis traffic has evicted them.
     Where the profile shows no flush kernel to leave out, ``ms`` is "not
-    measured" (None) and only ``event_ms`` stands.
+    measured" (None) and only ``event_ms`` stands.  A profile that shows
+    neither is taken again, up to PROFILE_TRIES times.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,17 +288,22 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
         stop.record()
         torch.cuda.synchronize()
         event_ms = start.elapsed_time(stop) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    if cold:
-        names = kernel_ms(prof)
-        dev_ms = sum(ms for key, ms in names.items() if not is_flush(key)) \
-            / iters if any(map(is_flush, names)) else 0.0
-    else:
-        dev_ms = device_ms(prof) / iters
+    dev_ms = 0.0
+    for _ in range(PROFILE_TRIES):       # a profile may record no kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        if cold:
+            names = kernel_ms(prof)
+            dev_ms = sum(ms for key, ms in names.items()
+                         if not is_flush(key)) / iters \
+                if any(map(is_flush, names)) else 0.0
+        else:
+            dev_ms = device_ms(prof) / iters
+        if dev_ms > 0:
+            break
     return {"ms": dev_ms if dev_ms > 0 else None, "event_ms": event_ms,
             "host_ms": host_ms}
 
@@ -349,6 +395,33 @@ def solve_timing(run, steps: int, phase="sparse_timing", **info) -> dict:
     return row
 
 
+class Counters:
+    """The launch counters of a phase: ``zero`` just before a solve,
+    ``read`` just after it (adding the phase's own kernels' counts to
+    ``totals``), ``expect`` holds every counter to the scheme's count."""
+
+    def __init__(self, kernels: dict, **others):
+        self.kernels = kernels
+        self.counted = dict(kernels, **others)
+        self.totals = {name: 0 for name in kernels}
+
+    def zero(self) -> None:
+        for fn in self.counted.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        d = {name: fn.launches for name, fn in self.counted.items()}
+        for name in self.kernels:
+            self.totals[name] += d[name]
+        return d
+
+    def expect(self, d: dict, expect: dict, what: str) -> None:
+        for name in self.counted:
+            check(d[name] == expect.get(name, 0),
+                  f"{what}: {name} launched {d[name]}, expected "
+                  f"{expect.get(name, 0)}")
+
+
 def sparse_phases(smi, gen):
     """Phases 6-9: the sparse slice.  Returns (max abs errors, main-path
     launches, timing rows) of its kernels, keyed by wrapper name, the
@@ -359,34 +432,19 @@ def sparse_phases(smi, gen):
     from repro_torch.kernels import (arnoldi_fused, block_gs, cgs2, matvec,
                                      spmv, tuning)
 
-    kernels = {"ell_matvec": spmv.ell_matvec,
-               "sell_matvec": spmv.sell_matvec,
-               "banded_matvec": spmv.banded_matvec,
-               "batched_cgs2": block_gs.batched_cgs2}
-    counted = dict(kernels, block_matvec=matvec.block_matvec,
+    ctr = Counters({"ell_matvec": spmv.ell_matvec,
+                    "sell_matvec": spmv.sell_matvec,
+                    "banded_matvec": spmv.banded_matvec,
+                    "batched_cgs2": block_gs.batched_cgs2},
+                   block_matvec=matvec.block_matvec,
                    gs_project=cgs2.gs_project,
                    arnoldi_step=arnoldi_fused.arnoldi_step)
+    kernels, launches = ctr.kernels, ctr.totals
+    zero, read, expect_counts = ctr.zero, ctr.read, ctr.expect
     fmt_kernel = {"banded": "banded_matvec", "ell": "ell_matvec",
                   "sell": "sell_matvec"}
     errs = {name: [] for name in (*kernels, "gs_project")}
-    launches = {name: 0 for name in kernels}
     n = NX * NX
-
-    def zero():
-        for fn in counted.values():
-            fn.launches = 0
-
-    def read():
-        d = {name: fn.launches for name, fn in counted.items()}
-        for name in kernels:
-            launches[name] += d[name]
-        return d
-
-    def expect_counts(d, expect, what):
-        for name in counted:
-            check(d[name] == expect.get(name, 0),
-                  f"{what}: {name} launched {d[name]}, expected "
-                  f"{expect.get(name, 0)}")
 
     # ---- the systems ----------------------------------------------------
     t0 = time.perf_counter()
@@ -759,7 +817,34 @@ def sparse_phases(smi, gen):
                  card=smi)
     zero()
     return (errs, launches, timing, solves[("banded", "cgs2")][0].restarts,
-            banded_fused)
+            banded_fused, solves)
+
+
+def host_breakdown(run, steps: int) -> dict:
+    """Where one solve's host time goes, per Arnoldi step: the PyTorch ops'
+    own CPU time (the profiler's self time; a blocking copy's wait for the
+    card is inside its op), the ten largest by name, and the rest of the
+    wall time (Python, numpy, the kernels' ctypes launches).  Profiled on
+    the host only, so keep the solve short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(((e.key, e.self_cpu_time_total / 1e3)
+                  for e in prof.key_averages()), key=lambda kv: -kv[1])
+    in_ops = sum(ms for _, ms in ops)
+    allocs = {e.key: e.count for e in prof.key_averages()
+              if "Malloc" in e.key or "HostAlloc" in e.key}
+    return {"profiled_wall_ms_per_step": wall / steps,
+            "allocation_calls_per_solve": allocs,
+            "in_ops_ms_per_step": in_ops / steps,
+            "outside_ops_ms_per_step": (wall - in_ops) / steps,
+            "top_ops_ms_per_step": {key: ms / steps for key, ms in ops[:10]}}
 
 
 def host_syncs(run) -> tuple[int, dict]:
@@ -793,38 +878,23 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
     from repro_torch.kernels import block_gs, matvec, spmv
     from repro_torch.kernels import matrix_powers as mp
 
-    kernels = {"banded_powers": mp.banded_powers,
-               "ell_powers": mp.ell_powers,
-               "dense_powers": mp.dense_powers,
-               "block_gs_pass": block_gs.block_gs_pass}
-    counted = dict(kernels, block_matvec=matvec.block_matvec,
+    ctr = Counters({"banded_powers": mp.banded_powers,
+                    "ell_powers": mp.ell_powers,
+                    "dense_powers": mp.dense_powers,
+                    "block_gs_pass": block_gs.block_gs_pass},
+                   block_matvec=matvec.block_matvec,
                    banded_matvec=spmv.banded_matvec,
                    ell_matvec=spmv.ell_matvec, sell_matvec=spmv.sell_matvec)
+    kernels, launches = ctr.kernels, ctr.totals
+    zero, read, expect_counts = ctr.zero, ctr.read, ctr.expect
     fmt_kernel = {"banded": "banded_matvec", "ell": "ell_matvec",
                   "sell": "sell_matvec"}
     powers_kernel = {"banded": "banded_powers", "ell": "ell_powers",
                      "dense": "dense_powers"}
     errs = {name: [] for name in kernels}
-    launches = {name: 0 for name in kernels}
     n = NX * NX
     s, blocks = SSTEP_S, SSTEP_BLOCKS
     m = s * blocks
-
-    def zero():
-        for fn in counted.values():
-            fn.launches = 0
-
-    def read():
-        d = {name: fn.launches for name, fn in counted.items()}
-        for name in kernels:
-            launches[name] += d[name]
-        return d
-
-    def expect_counts(d, expect, what):
-        for name in counted:
-            check(d[name] == expect.get(name, 0),
-                  f"{what}: {name} launched {d[name]}, expected "
-                  f"{expect.get(name, 0)}")
 
     def compare(name, got, want, dtype, **info):
         torch.cuda.synchronize()
@@ -1149,7 +1219,355 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
              host_syncs_at=where, card=smi)
     zero()
     del dense_op, a
-    return errs, launches, timing
+    return errs, launches, timing, solves
+
+
+def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
+    """Phases 13-15: the pipelined slice.  ``dense_fused``: phase 3's
+    cgs2_fused solve of the dense dominance-0.015 system; ``sparse_solves``
+    phase 7's stencil solves by (fmt, gs); ``sstep_solves`` phase 11's by
+    (system, basis).  Returns (max abs errors, main-path launches, timing
+    rows) of its kernels, keyed by wrapper name."""
+    from repro_torch.core import gmres, gmres_sstep, operators, stencils
+    from repro_torch.kernels import (arnoldi_fused, block_gs, cgs2, matvec,
+                                     spmv, tuning)
+    from repro_torch.kernels import matrix_powers as mp
+
+    ctr = Counters({"gs_project_norm_partial": cgs2.gs_project_norm_partial,
+                    "gs_update": cgs2.gs_update,
+                    "block_gs_project_gram": block_gs.block_gs_project_gram,
+                    "block_gs_update": block_gs.block_gs_update},
+                   gs_project=cgs2.gs_project,
+                   arnoldi_step=arnoldi_fused.arnoldi_step,
+                   block_gs_pass=block_gs.block_gs_pass,
+                   block_matvec=matvec.block_matvec,
+                   banded_matvec=spmv.banded_matvec,
+                   ell_matvec=spmv.ell_matvec, sell_matvec=spmv.sell_matvec,
+                   banded_powers=mp.banded_powers, ell_powers=mp.ell_powers,
+                   dense_powers=mp.dense_powers)
+    errs = {name: [] for name in ctr.kernels}
+    fmt_kernel = {"banded": "banded_matvec", "ell": "ell_matvec",
+                  "sell": "sell_matvec", "dense": "block_matvec"}
+    powers_kernel = {"banded": "banded_powers", "ell": "ell_powers",
+                     "dense": "dense_powers"}
+    n = NX * NX
+    m1 = M + 1
+    s, blocks = SSTEP_S, SSTEP_BLOCKS
+
+    def compare(name, got, want, dtype, **info):
+        torch.cuda.synchronize()
+        rel = max(relerr(g, w) for g, w in zip(got, want))
+        err = max(abserr(g, w) for g, w in zip(got, want))
+        if name in errs:
+            errs[name].append(err)
+        emit(phase="pipelined_kernels", kernel=name, dtype=str(dtype),
+             max_rel_err=rel, max_abs_err=err, **info)
+        check(rel < TOLS[dtype], f"{name} {info} {dtype}: {rel}")
+
+    # ---- 13. kernels vs plain -------------------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        for nb in (N, n):
+            for j in PIPE_J:
+                v = basis(nb, m1, j, dtype, gen)
+                z = torch.randn(nb, device="cuda", generator=gen)
+                compare("gs_project_norm_partial",
+                        (cgs2.gs_project_norm_partial(v, z, j),),
+                        (cgs2.gs_project_norm_partial_plain(v, z, j),),
+                        dtype, n=nb, m1=m1, j=j,
+                        grid=tuning.sr_grid("cuda", nb))
+                h = torch.randn(j + 1, device="cuda", generator=gen)
+                got = cgs2.gs_update(v[:j + 1], z, h)
+                compare("gs_update", (got,),
+                        (cgs2.gs_update_plain(v[:j + 1], z, h),), dtype,
+                        n=nb, rows=j + 1)
+                h_full = torch.zeros(m1, device="cuda")
+                h_full[:j + 1] = h
+                check(torch.equal(cgs2.gs_update(v, z, h_full), got),
+                      f"gs_update n={nb} j={j} {dtype}: the row prefix "
+                      f"does not give the full call's bits")
+                del v, z
+        for nb in (n, N):
+            for k in PIPE_K:
+                v = basis(nb, m1, k, dtype, gen)
+                vp = v[:k + 1]
+                w = torch.randn(s, nb, device="cuda", generator=gen)
+                tin = (torch.triu(torch.randn(s, s, device="cuda",
+                                              generator=gen))
+                       + 2 * torch.eye(s, device="cuda"))
+                got = block_gs.block_gs_project_gram(vp, w, tin)
+                compare("block_gs_project_gram", got,
+                        block_gs.block_gs_project_gram_plain(vp, w, tin),
+                        dtype, n=nb, rows=k + 1, s=s,
+                        grid=tuning.sr_grid("cuda", nb))
+                check(torch.equal(got[2], got[2].T),
+                      "block_gs_project_gram: M is not symmetric")
+                c = torch.randn(k + 1, s, device="cuda", generator=gen)
+                compare("block_gs_update",
+                        block_gs.block_gs_update(vp, got[0], c),
+                        block_gs.block_gs_update_plain(vp, got[0], c),
+                        dtype, n=nb, rows=k + 1, s=s)
+                gram = torch.eye(m1, device="cuda")
+                compare("block_gs_pass_single_reduce",
+                        block_gs.block_gs_pass_single_reduce(v, w, tin, k,
+                                                             gram),
+                        block_gs.block_gs_pass_single_reduce_ref(v, w, tin,
+                                                                 k, gram),
+                        dtype, n=nb, k_start=k, s=s)
+                del v, vp, w
+    ctr.zero()
+
+    # ---- 14. pipelined gmres --------------------------------------------
+    def agree(restarts, ref):
+        return abs(restarts - ref) <= max(1, 0.1 * ref)
+
+    def x_rel(x, ref):
+        return float((x - ref).norm() / ref.norm())
+
+    a = operators.random_diagdom(N, dominance=0.015, seed=0)
+    b_d = torch.from_numpy(np.random.default_rng(1).standard_normal(N)
+                           .astype(np.float32)).cuda()
+    dense_op = operators.DenseOperator(a, backend="cuda")
+    ops = {fmt: stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt=fmt)
+           for fmt in FORMATS}
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    bnorm = float(b.double().norm())
+    bands64 = ops["banded"].bands.double()
+    offsets = ops["banded"].offsets
+
+    def relres(system, x, rhs):
+        if system == "dense":
+            r = torch.mv(a.double(), x.double()) - rhs.double()
+        else:
+            r = spmv.banded_matvec_plain(bands64, x.double(), offsets) \
+                - rhs.double()
+        return float(r.norm() / rhs.double().norm())
+
+    systems = [("dense", dense_op, b_d, MAX_RESTARTS, dense_fused)]
+    systems += [(fmt, ops[fmt], b, SPARSE_RESTARTS,
+                 sparse_solves[(fmt, "cgs2_fused")][0]) for fmt in FORMATS]
+    firsts, pipe = {}, {}
+    for system, op, rhs, budget, ref in systems:
+        bins = len(op.bin_values) if system == "sell" else 1
+        ctr.zero()
+        t0 = time.perf_counter()
+        res = gmres(op, rhs, m=M, tol=TOL, max_restarts=budget,
+                    gs="cgs2_pipelined", history=budget + 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = ctr.read()
+        rr = relres(system, res.x, rhs)
+        xr = x_rel(res.x, ref.x)
+        first = float(res.residual_history[-res.restarts]) \
+            / float(rhs.double().norm())
+        firsts[system] = first
+        emit(phase="pipelined_solve", system=system, n=rhs.shape[0],
+             gs="cgs2_pipelined", converged=res.converged,
+             restarts=res.restarts, cgs2_fused_restarts=ref.restarts,
+             inner_steps=res.inner_steps, true_relres=rr,
+             x_rel_to_cgs2_fused=xr, first_restart_relres=first,
+             wall_s=wall, launches=d)
+        check(res.converged and rr <= 2 * TOL,
+              f"pipelined {system}: converged {res.converged}, relres {rr}")
+        check(bool(torch.isfinite(res.x).all())
+              and res.x.shape == rhs.shape,
+              f"pipelined {system}: x not finite or wrong shape")
+        check(abs(res.restarts - ref.restarts) <= 1 if system == "dense"
+              else agree(res.restarts, ref.restarts),
+              f"pipelined {system}: {res.restarts} restarts vs cgs2_fused "
+              f"{ref.restarts}")
+        check(xr <= 1e-3, f"pipelined {system}: x differs from cgs2_fused "
+                          f"by {xr}")
+        steps = res.inner_steps
+        ctr.expect(d, {"gs_project_norm_partial": steps,
+                       "gs_update": 2 * steps,
+                       fmt_kernel[system]: (steps + 2 * res.restarts + 1)
+                       * bins}, f"pipelined {system}")
+        pipe[system] = res
+    check(firsts["ell"] == firsts["banded"],
+          f"pipelined: first-restart residual ell {firsts['ell']!r} vs "
+          f"banded {firsts['banded']!r} (not the same bits)")
+    check(abs(firsts["sell"] - firsts["banded"]) <= 1e-4 * firsts["banded"],
+          f"pipelined: first-restart residual sell {firsts['sell']} vs "
+          f"banded {firsts['banded']}")
+    ctr.zero()
+
+    # wall, device and idle per step, and host syncs per step, beside
+    # cgs2_fused on the same system in the same run
+    for system, op, rhs, budget, ref in systems[:2]:
+        for gs, res in (("cgs2_fused", ref), ("cgs2_pipelined",
+                                               pipe[system])):
+            def run(op=op, rhs=rhs, budget=budget, gs=gs):
+                return gmres(op, rhs, m=M, tol=TOL, max_restarts=budget,
+                             gs=gs)
+            syncs, where = host_syncs(run)
+            host = (host_breakdown(run, res.inner_steps)
+                    if system == "dense" else None)
+            solve_timing(run, res.inner_steps, phase="pipelined_timing",
+                         solve=f"{system} {gs}", restarts=res.restarts,
+                         host_syncs=syncs,
+                         host_syncs_per_step=syncs / res.inner_steps,
+                         host_syncs_at=where, host=host, card=smi)
+            if gs == "cgs2_pipelined":
+                check(syncs <= res.inner_steps + 2 * res.restarts + 2,
+                      f"pipelined {system}: {syncs} host syncs for "
+                      f"{res.inner_steps} steps")
+    ctr.zero()
+
+    # ---- 15. single-reduce gmres_sstep ----------------------------------
+    cycles = {}
+    for system, op, rhs, budget, _ in systems[:3]:
+        ref = sstep_solves[(system, "monomial")]
+        ctr.zero()
+        t0 = time.perf_counter()
+        res = gmres_sstep(op, rhs, s=s, blocks=blocks, tol=TOL,
+                          max_restarts=budget, gs="cgs2_pipelined",
+                          history=budget + 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = ctr.read()
+        rr = relres(system, res.x, rhs)
+        xr = x_rel(res.x, ref.x)
+        cyc = cycles[system] = res.restarts
+        firsts[system] = float(res.residual_history[-cyc]) \
+            / float(rhs.double().norm())
+        emit(phase="sstep_sr_solve", system=system, n=rhs.shape[0], s=s,
+             blocks=blocks, converged=res.converged, restarts=cyc,
+             split_restarts=ref.restarts, inner_steps=res.inner_steps,
+             true_relres=rr, x_rel_to_split=xr,
+             first_restart_relres=firsts[system], wall_s=wall, launches=d)
+        check(res.converged and rr <= 2 * TOL,
+              f"single-reduce s-step {system}: converged {res.converged}, "
+              f"relres {rr}")
+        check(bool(torch.isfinite(res.x).all())
+              and res.x.shape == rhs.shape,
+              f"single-reduce s-step {system}: x not finite or wrong shape")
+        check(abs(cyc - ref.restarts) <= 1 if system == "dense"
+              else agree(cyc, ref.restarts),
+              f"single-reduce s-step {system}: {cyc} restarts vs split "
+              f"{ref.restarts}")
+        check(xr <= 1e-3, f"single-reduce s-step {system}: x differs from "
+                          f"the split solve's by {xr}")
+        ctr.expect(d, {"block_gs_project_gram": 2 * blocks * cyc,
+                       "block_gs_update": 2 * blocks * cyc,
+                       powers_kernel[system]: blocks * cyc,
+                       fmt_kernel[system]: cyc + 1},
+                   f"single-reduce s-step {system}")
+    check(abs(firsts["ell"] - firsts["banded"]) <= 1e-4 * firsts["banded"],
+          f"single-reduce s-step: first-restart residual ell "
+          f"{firsts['ell']} vs banded {firsts['banded']}")
+    ctr.zero()
+    for system, op, rhs, budget, _ in systems[:2]:
+        for gs, cyc in (("cgs2", sstep_solves[(system, "monomial")].restarts),
+                        ("cgs2_pipelined", cycles[system])):
+            def run(op=op, rhs=rhs, budget=budget, gs=gs):
+                return gmres_sstep(op, rhs, s=s, blocks=blocks, tol=TOL,
+                                   max_restarts=budget, gs=gs)
+            syncs, where = host_syncs(run)
+            solve_timing(run, cyc * s * blocks, phase="sstep_sr_timing",
+                         solve=f"{system} s-step {gs}", s=s, blocks=blocks,
+                         restarts=cyc, host_syncs=syncs,
+                         host_syncs_per_cycle=syncs / cyc,
+                         host_syncs_at=where, card=smi)
+            check(syncs <= 3 * cyc + 2,
+                  f"s-step {gs} {system}: {syncs} host syncs for {cyc} "
+                  f"cycles")
+    ctr.zero()
+    del dense_op, a, ops
+
+    # ---- kernel times at the path's shapes --------------------------------
+    def measure(fn, plain, composite_fn, cold, library_fn=None,
+                **info) -> dict:
+        row = dict(**timed(fn, cold=cold),
+                   plain_ms=timed(plain, cold=cold)["ms"],
+                   library_ms=timed(library_fn, cold=cold)["ms"]
+                   if library_fn else None,
+                   composite_ms=timed(composite_fn, cold=cold)["ms"]
+                   if composite_fn else None, **info)
+        if cold:
+            row["warm_ms"] = timed(fn)["ms"]
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+        return row
+
+    timing = {}
+    j, k = PIPE_J[1], PIPE_K[-1]
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.empty((), dtype=dtype).element_size()
+        f32 = dtype == torch.float32
+        rows = {}
+        for nb, cold in ((n, True), (N, False)):
+            v = basis(nb, m1, j, dtype, gen)
+            vp = v[:j + 1]
+            z = torch.randn(nb, device="cuda", generator=gen)
+            h = torch.randn(j + 1, device="cuda", generator=gen)
+            vpf = vp.float()
+
+            def payload_composite():
+                st = torch.stack([z, vpf[j]], 1)
+                return vpf @ st, (st * st).sum(0)
+            rows[f"gs_project_norm_partial n = {nb}"] = measure(
+                lambda: cgs2.gs_project_norm_partial(v, z, j),
+                lambda: cgs2.gs_project_norm_partial_plain(v, z, j),
+                payload_composite if f32 else None, cold,
+                composite="V[:j+1] @ stack([z, v_j]) + norms"
+                if f32 else None, n=nb, m1=m1, j=j,
+                grid=tuning.sr_grid("cuda", nb),
+                bytes=((j + 1) * sz + 4) * nb + (m1 + 1) * 8,
+                flops=(4 * (j + 1) + 4) * nb)
+            rows[f"gs_update n = {nb}"] = measure(
+                lambda: cgs2.gs_update(vp, z, h),
+                lambda: cgs2.gs_update_plain(vp, z, h),
+                (lambda: z - h @ vpf) if f32 else None, cold,
+                library_fn=(lambda: torch.addmv(z, vpf.T, h, alpha=-1))
+                if f32 else None,
+                library="torch.addmv(w, V[:j+1].T, h, alpha=-1)"
+                if f32 else None,
+                composite="w - h @ V[:j+1]" if f32 else None, n=nb,
+                rows=j + 1, bytes=((j + 1) * sz + 8) * nb,
+                flops=2 * (j + 1) * nb)
+            del v, vp, vpf
+            v = basis(nb, m1, k, dtype, gen)
+            vp = v[:k + 1]
+            vpf = vp.float()
+            w = torch.randn(s, nb, device="cuda", generator=gen)
+            tin = (torch.triu(torch.randn(s, s, device="cuda",
+                                          generator=gen))
+                   + 2 * torch.eye(s, device="cuda"))
+            q = tin @ w
+            c = torch.randn(k + 1, s, device="cuda", generator=gen)
+
+            def gram_composite():
+                qq = tin @ w
+                return qq, vpf @ qq.T, qq @ qq.T
+
+            def update_composite():
+                w2 = q - c.T @ vpf
+                return w2, w2 @ w2.T
+            rows[f"block_gs_project_gram n = {nb}"] = measure(
+                lambda: block_gs.block_gs_project_gram(vp, w, tin),
+                lambda: block_gs.block_gs_project_gram_plain(vp, w, tin),
+                gram_composite if f32 else None, cold,
+                composite="3 cuBLAS products" if f32 else None, n=nb,
+                rows=k + 1, s=s, grid=tuning.sr_grid("cuda", nb),
+                bytes=((k + 1) * sz + 8 * s) * nb + (m1 + s) * s * 4,
+                flops=(2 * s * s + 2 * (k + 1) * s + s * (s + 1)) * nb)
+            rows[f"block_gs_update n = {nb}"] = measure(
+                lambda: block_gs.block_gs_update(vp, q, c),
+                lambda: block_gs.block_gs_update_plain(vp, q, c),
+                update_composite if f32 else None, cold,
+                composite="2 cuBLAS products" if f32 else None, n=nb,
+                rows=k + 1, s=s, grid=tuning.sr_grid("cuda", nb),
+                bytes=((k + 1) * sz + 8 * s) * nb,
+                flops=(2 * (k + 1) * s + s * (s + 1)) * nb)
+            del v, vp, vpf, w, q
+        for name, r in rows.items():
+            r["launches_per_path"] = ctr.totals[name.split()[0]]
+            emit(phase="pipelined_timing", kernel=name, dtype=str(dtype),
+                 card=smi, **r)
+        if f32:
+            timing = {name: rows[f"{name} n = {n}"] for name in ctr.kernels}
+    ctr.zero()
+    return errs, ctr.totals, timing
 
 
 def main() -> None:
@@ -1464,8 +1882,8 @@ def main() -> None:
     flush_counters()
 
     # ---- 6-9. the sparse slice -------------------------------------------
-    s_errs, s_launches, s_timing, sparse_restarts, banded_fused = \
-        sparse_phases(smi, gen)
+    s_errs, s_launches, s_timing, sparse_restarts, banded_fused, \
+        sparse_solves = sparse_phases(smi, gen)
     baseline["banded cgs2_fused"] = banded_fused
     for name, e in s_errs.items():
         errs.setdefault(name, []).extend(e)
@@ -1473,12 +1891,19 @@ def main() -> None:
     timing.update(s_timing)
 
     # ---- 10-12. the s-step slice -----------------------------------------
-    s_errs, s_launches, s_timing = sstep_phases(
+    s_errs, s_launches, s_timing, sstep_solves = sstep_phases(
         smi, gen, solves[(0.015, "cgs2")].restarts, sparse_restarts,
         baseline)
     errs.update(s_errs)
     launches.update(s_launches)
     timing.update(s_timing)
+
+    # ---- 13-15. the pipelined slice --------------------------------------
+    p_errs, p_launches, p_timing = pipelined_phases(
+        smi, gen, solves[(0.015, "cgs2_fused")], sparse_solves, sstep_solves)
+    errs.update(p_errs)
+    launches.update(p_launches)
+    timing.update(p_timing)
 
     sources = {"block_matvec": ("src/repro_torch/csrc/matvec.cu",
                                 "src/repro/kernels/matvec.py:80"),
@@ -1501,7 +1926,16 @@ def main() -> None:
                "dense_powers": ("src/repro_torch/csrc/matrix_powers.cu",
                                 "src/repro/kernels/matrix_powers.py:351"),
                "ell_powers": ("src/repro_torch/csrc/matrix_powers.cu",
-                              "src/repro/kernels/matrix_powers.py:439")}
+                              "src/repro/kernels/matrix_powers.py:439"),
+               "gs_project_norm_partial": (
+                   "src/repro_torch/csrc/sr_payload.cu",
+                   "src/repro/kernels/cgs2.py:257"),
+               "gs_update": ("src/repro_torch/csrc/sr_payload.cu",
+                             "src/repro/kernels/cgs2.py:291"),
+               "block_gs_project_gram": ("src/repro_torch/csrc/block_gs.cu",
+                                         "src/repro/kernels/block_gs.py:334"),
+               "block_gs_update": ("src/repro_torch/csrc/block_gs.cu",
+                                   "src/repro/kernels/block_gs.py:259")}
     emit(kernels=[{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": launches[name],

@@ -19,10 +19,13 @@ the true residual norm once per restart.
 
 Kernel-backed paths: ``gs="fused"`` runs each Arnoldi step as one launch
 (``kernels/arnoldi_fused.py``), ``gs="cgs2_fused"`` runs the fused GS
-kernel (``kernels/cgs2.py``), ``DenseOperator(backend="cuda")`` runs its
-mat-vecs through the GEMV kernel, and the sparse operators always run
-theirs through the SpMV kernels.  On CPU tensors each wrapper runs its
-plain version.
+kernel (``kernels/cgs2.py``), ``gs="cgs2_pipelined"`` the single-reduce
+payload and update kernels (``_gmres_cycle_pipelined``: the payload is the
+step's one copy to the host, and the next mat-vec runs on the card, on a
+second stream, while the host recovers the step from it),
+``DenseOperator(backend="cuda")`` runs its mat-vecs through the GEMV
+kernel, and the sparse operators always run theirs through the SpMV
+kernels.  On CPU tensors each wrapper runs its plain version.
 
 The block multi-RHS solver (``gmres_batched``, ``gmres_batched_cycle``;
 JAX's ``_make_batched_gs``, ``_block_cycle``, ``_block_matvec``,
@@ -35,6 +38,7 @@ so one (k, m+1) copy per lockstep step is the step's sync.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,6 +49,7 @@ from repro_torch.core import arnoldi, givens
 from repro_torch.core.operators import (EXPLICIT_OPERATORS, DenseOperator,
                                         as_operator)
 from repro_torch.kernels import arnoldi_fused, block_gs, tuning
+from repro_torch.kernels import cgs2 as cgs2_k
 
 # Cycle-level health taxonomy (see repro/core/gmres.py).
 HEALTHY = 0     # converging (or already converged)
@@ -184,6 +189,139 @@ def _gmres_cycle(step_fn, x0, r0, beta, m, tol_abs, precond, basis_dtype):
     return x0 + precond(dx), steps
 
 
+# --------------------------------------------------------------------------
+# Pipelined single-reduce cycle (gs="cgs2_pipelined")
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _side_stream(index: int) -> torch.cuda.Stream:
+    """The card's side stream for the pipelined mat-vec, one per process.
+    Each stream has its own pool in PyTorch's caching allocator, so a new
+    stream per solve (or per cycle) would pay a cudaMalloc at its first
+    allocation; one kept for the process reuses its pool."""
+    return torch.cuda.Stream(torch.device("cuda", index))
+
+
+@dataclasses.dataclass
+class _PipelineBuffers:
+    """What the pipelined cycles of one solve share on a card: the side
+    stream the next mat-vec runs on, and the pinned host buffer the
+    update coefficients go back through (made once per solve; None on
+    the CPU)."""
+    side: torch.cuda.Stream
+    coef: torch.Tensor
+
+    @classmethod
+    def for_device(cls, dev: torch.device, m: int, dtype):
+        if dev.type != "cuda":
+            return None
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        return cls(side=_side_stream(index),
+                   coef=torch.empty(2 * (m + 1), dtype=dtype,
+                                    pin_memory=True))
+
+
+def _beside(side, fn, x):
+    """``fn(x)`` on the ``side`` stream, after the work already enqueued on
+    the current one (a plain call on the CPU, where ``side`` is None).
+
+    The caller makes the current stream wait for ``side`` before it uses
+    the result.  No ``record_stream`` is needed: x's memory is reused on
+    the current stream only after that wait, and the result's on ``side``
+    only after the next call's wait for the current stream.
+    """
+    if side is None:
+        return fn(x)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    with torch.cuda.stream(side):
+        return fn(x)
+
+
+def _gmres_cycle_pipelined(op, x0, r0, beta, m, tol_abs, precond,
+                           basis_dtype, bufs):
+    """One restart cycle of depth-1 pipelined single-reduce GMRES.
+
+    Counterpart of the JAX ``_gmres_cycle_pipelined`` (its
+    ``_PipelinedState`` carry is this loop's locals).  Per Arnoldi step:
+
+        payload_j = [mask*(V@[z_j, v_j]); z_j.z_j, v_j.v_j]   one launch
+        u         = op(z_j)        the next mat-vec, on a second stream
+        payload_j to the host      the step's one sync: it waits for the
+                                   payload only, the mat-vec runs on
+        recover h_tot, ||w''||, Gram row j from payload_j   (host, numpy)
+        v_{j+1}   = (z_j - h_tot @ V) / ||w''||
+        z_{j+1}   = (u - (H h_lt) @ V - h_tot[j] z_j) / ||w''||
+
+    On one card there is no collective to hide; the host round trip plays
+    that part: the card runs the next mat-vec while the host does the
+    recovery, the ``hraw`` recurrence and the Givens update.  h_tot and the
+    recurrence's coefficients go back in one small copy from pinned memory
+    (no sync), and two update launches (``kernels/cgs2.py::gs_update``)
+    form v_{j+1} and z_{j+1}.  ``op`` is A M^{-1}; ``bufs`` holds the
+    solve's side stream and pinned buffer (None on the CPU).  The pinned
+    buffer is rewritten only after the next step's payload copy, which
+    follows the previous step's copy out of it on the same stream.  Both
+    coefficient vectors are zero past row j, so the updates read only the
+    row prefix V[:j+1].  As in JAX, each cycle pays a prologue mat-vec and
+    a wasted speculative mat-vec at its last step, and the recurrence's
+    rounding is bounded by the true residual recomputed at every restart.
+    The done test is relative, ``||w''|| <= 100 eps ||z||``, so the scheme
+    is scale-invariant.
+    """
+    dev = x0.device
+    n = x0.shape[0]
+    dtype = x0.dtype
+    np_dtype = _np_dtype(dtype)
+    tiny = np_dtype.type(np.finfo(np_dtype).tiny ** 0.5)
+    eps_rel = np_dtype.type(np.finfo(np_dtype).eps * 100)
+    acc = np.promote_types(np_dtype, np.float32)    # the payload's dtype
+
+    v0 = r0 / float(max(beta, tiny))
+    v = torch.zeros((m + 1, n), dtype=basis_dtype, device=dev)
+    v[0] = v0.to(basis_dtype)
+    z = op(v0)                                    # pipeline prologue mat-vec
+    hraw = np.zeros((m + 1, m), np_dtype)
+    gram = np.eye(m + 1, dtype=acc)
+    giv = givens.init(m, beta, np_dtype)
+    side, coef = (bufs.side, bufs.coef) if bufs is not None else (None,
+                                                                   None)
+    done = beta <= tol_abs
+    steps = 0
+    while not done and steps < m:
+        j = steps
+        payload = arnoldi.sr_payload(v, z, j)
+        u = _beside(side, op, z)
+        p = payload.cpu().numpy()                 # the step's one sync
+        h_tot, s_norm, zeta, gram = arnoldi.sr_recover(p, gram, j)
+        h_tot = h_tot.astype(np_dtype)
+        s_d = np_dtype.type(s_norm)
+        sg = float(max(s_d, tiny))
+        # correct the speculative mat-vec onto v_{j+1} via the recurrence
+        lt = np.arange(m) < j
+        c_vec = hraw @ (h_tot[:m] * lt)           # (m+1,), zero past row j
+        hc = torch.from_numpy(np.stack([h_tot[:j + 1], c_vec[:j + 1]]))
+        if coef is not None:                      # pinned: no sync
+            coef[:hc.numel()] = hc.reshape(-1)
+            hc = coef[:hc.numel()].to(dev, non_blocking=True).view(2, j + 1)
+        vp = v[:j + 1]
+        w2 = cgs2_k.gs_update(vp, z, hc[0])                 # w'' = z - h_tot @ V
+        if side is not None:
+            torch.cuda.current_stream(dev).wait_stream(side)
+        z = (cgs2_k.gs_update(vp, u, hc[1]) - float(h_tot[j]) * z) / sg
+        v[j + 1] = (w2 / sg).to(basis_dtype)
+        hcol = h_tot.copy()
+        hcol[j + 1] = s_d
+        hraw[:, j] = hcol
+        givens.update(giv, hcol, j, active=True)
+        resid = givens.residual_norm(giv, j)
+        happy = s_d <= eps_rel * np_dtype.type(np.sqrt(zeta))
+        done = resid <= tol_abs or happy
+        steps = j + 1
+    y = torch.from_numpy(givens.solve(giv, steps)).to(dev)
+    dx = y @ v[:m].to(dtype)
+    return x0 + precond(dx), steps
+
+
 def _rhs(b) -> torch.Tensor:
     """b as a tensor: a tensor stays where it is, anything else (numpy, a
     list) goes to the card, raising without one."""
@@ -227,7 +365,10 @@ def gmres(
       gs: "cgs" | "mgs" | "cgs2" | "cgs2_fused" (fused GS kernel) |
         "fused" (whole Arnoldi step in one kernel; needs an
         unpreconditioned ``DenseOperator`` whose basis slices fit shared
-        memory, degrades to "cgs2_fused" otherwise).
+        memory, degrades to "cgs2_fused" otherwise) | "cgs2_pipelined"
+        (single-reduce CGS2 with depth-1 pipelining: one payload copied
+        to the host per step while the next mat-vec runs on the card; the
+        payload and update kernels).
       precond: right preconditioner M^{-1} as a callable (identity default).
       axis_name: row-sharded solves are not ported yet; must be None.
       compute_dtype: Krylov-basis storage dtype (e.g. ``torch.bfloat16``);
@@ -253,9 +394,15 @@ def gmres(
     if precond is None:
         precond = lambda v: v  # noqa: E731
     basis_dtype = b.dtype if compute_dtype is None else compute_dtype
-    step_fn = _make_step_fn(matvec, precond, gs,
-                            identity_precond=identity_precond, m=m,
-                            n=b.shape[0], basis_dtype=basis_dtype)
+    pipelined = gs == "cgs2_pipelined"
+    if pipelined:
+        def op_fn(zv):
+            return matvec(precond(zv))
+        bufs = _PipelineBuffers.for_device(b.device, m, b.dtype)
+    else:
+        step_fn = _make_step_fn(matvec, precond, gs,
+                                identity_precond=identity_precond, m=m,
+                                n=b.shape[0], basis_dtype=basis_dtype)
 
     np_dtype = _np_dtype(b.dtype)
     tol_abs = max(np_dtype.type(tol) * np_dtype.type(arnoldi.norm(b).item()),
@@ -271,8 +418,13 @@ def gmres(
     hist[-1] = beta
     x, k, steps = x0, 0, 0
     while beta > tol_abs and k < max_restarts:
-        x, inner = _gmres_cycle(step_fn, x, r, beta, m, tol_abs, precond,
-                                basis_dtype)
+        if pipelined:
+            x, inner = _gmres_cycle_pipelined(op_fn, x, r, beta, m,
+                                              tol_abs, precond, basis_dtype,
+                                              bufs)
+        else:
+            x, inner = _gmres_cycle(step_fn, x, r, beta, m, tol_abs,
+                                    precond, basis_dtype)
         r, beta = resid_of(x)
         hist = np.roll(hist, -1)
         hist[-1] = beta
@@ -294,8 +446,11 @@ def gmres(
 # Block multi-RHS solver
 # --------------------------------------------------------------------------
 # Schemes whose arithmetic is CGS2: their lanes' Gram-Schmidt runs through
-# batched_cgs2 (the JAX ``_CGS2_FAMILY``, without its VMEM size gate).
-_CGS2_FAMILY = ("cgs2", "cgs2_fused", "fused", "arnoldi_fused")
+# batched_cgs2 (the JAX ``_CGS2_FAMILY``, without its VMEM size gate).  The
+# batched solver has no whole-cycle pipelining, so "cgs2_pipelined" runs
+# CGS2 there, as in JAX.
+_CGS2_FAMILY = ("cgs2", "cgs2_fused", "fused", "arnoldi_fused",
+                "cgs2_pipelined")
 
 
 def _make_batched_gs(gs: str) -> Callable:
@@ -308,10 +463,6 @@ def _make_batched_gs(gs: str) -> Callable:
     lane.  h (k, m+1) holds the projections only: the caller puts h_last
     at row j+1 on the host.
     """
-    if gs == "cgs2_pipelined":
-        raise NotImplementedError(
-            "gs='cgs2_pipelined' (single-reduce pipelined CGS2) is not "
-            "ported yet; it arrives with the pipelined-solver slice")
     if gs in _CGS2_FAMILY:
         def kernel_gs(v, w, j):
             h, w2 = block_gs.batched_cgs2(v, w, j)
@@ -476,12 +627,13 @@ def gmres_batched(a, b: torch.Tensor, *, m: int = 30, tol=1e-5,
 
     The k current Krylov vectors are stacked into an (n, k) block and hit
     an explicit operator as one GEMM or block SpMV per lockstep step, and
-    a CGS2-family ``gs`` ("cgs2", "cgs2_fused", "fused") runs every lane's
-    Gram-Schmidt in one ``batched_cgs2`` launch; "cgs" / "mgs" run lane by
-    lane.  ``tol`` and ``max_restarts`` may be scalars or (k,) arrays: each
-    lane latches its own convergence against its own ``tol * ||b_lane||``
-    and its own restart budget; a lane out of budget retires as FAILED
-    (``done`` and not ``converged``) while the others cycle on.
+    a CGS2-family ``gs`` ("cgs2", "cgs2_fused", "fused", "cgs2_pipelined")
+    runs every lane's Gram-Schmidt in one ``batched_cgs2`` launch; "cgs" /
+    "mgs" run lane by lane.  ``tol`` and ``max_restarts`` may be scalars or
+    (k,) arrays: each lane latches its own convergence against its own
+    ``tol * ||b_lane||`` and its own restart budget; a lane out of budget
+    retires as FAILED (``done`` and not ``converged``) while the others
+    cycle on.
 
     A numpy ``b`` goes to the card (raising without one).  Returns a
     ``GmresResult`` whose ``x`` is (k, n) on b's device and whose

@@ -19,7 +19,9 @@ VMEM gates, ``tuning.powers_fits`` and friends):
             every other case (dense Newton, sliced ELL, a preconditioner, a
             matrix-free operator) runs ``matrix_powers_ref`` over the
             operator, whose mat-vecs launch its own GEMV or SpMV kernels.
-  block GS  ``block_gs_pass``, twice per block.
+  block GS  ``block_gs_pass``, twice per block; under
+            ``gs="cgs2_pipelined"`` ``block_gs_pass_single_reduce`` twice
+            per block (``block_gs_project_gram`` + ``block_gs_update``).
 
 Where the data lives.  The JAX solver is one XLA program.  Here every
 block of a cycle is enqueued on b's device with no host sync between
@@ -88,14 +90,14 @@ def _make_block_fns(op, s: int, dtype, gs: str = "cgs2", precond=None,
     """Dispatch: ``(powers_fn, gs_pass)`` for the block step.
 
     ``powers_fn(u0) -> (u (s, n), sigma (s,))``; ``gs_pass(v, w, tin,
-    k_start) -> (c, w', g)``.  No size sends a CUDA tensor to a plain
-    version: the kernel wrappers launch or raise.
+    k_start) -> (c, w', g)`` for ``gs="cgs2"`` (``block_gs_pass``), and
+    ``gs_pass(v, w, tin, k_start, gram) -> (c, w', g, c_hat)`` for
+    ``gs="cgs2_pipelined"`` (``block_gs_pass_single_reduce``: one stacked
+    payload per pass, the CholQR Gram recovered against the maintained
+    basis Gram matrix).  No size sends a CUDA tensor to a plain version:
+    the kernel wrappers launch or raise.
     """
-    if gs == "cgs2_pipelined":
-        raise NotImplementedError(
-            "gmres_sstep(gs='cgs2_pipelined') (single-reduce block passes) "
-            "is not ported yet; it arrives with the pipelined-solver slice")
-    if gs != "cgs2":
+    if gs not in ("cgs2", "cgs2_pipelined"):
         raise ValueError(f"gmres_sstep: unknown gs {gs!r}; options: "
                          f"['cgs2', 'cgs2_pipelined']")
     guard = mp.guard(dtype)
@@ -117,19 +119,32 @@ def _make_block_fns(op, s: int, dtype, gs: str = "cgs2", precond=None,
         pmatvec = op if identity_pc else (lambda v: op(precond(v)))
         powers_fn = lambda u0: mp.matrix_powers_ref(  # noqa: E731
             pmatvec, u0, s, guard, shifts=shifts)
+    if gs == "cgs2_pipelined":
+        return powers_fn, block_gs.block_gs_pass_single_reduce
     return powers_fn, block_gs.block_gs_pass
 
 
 def _block_orth(powers_fn, gs_pass, v_basis: torch.Tensor, k_start: int,
-                s: int, eps: float, hdt) -> torch.Tensor:
+                s: int, eps: float, hdt, gram=None) -> torch.Tensor:
     """The device half of one s-step block at offset k_start, in place.
 
-    v_basis: (m+1, n) basis, rows 0..k_start valid.  Builds the s powers of
-    row k_start, orthogonalizes them by block CGS2 + CholQR and writes them
-    to basis rows k_start+1..k_start+s.  Returns what the Hessenberg
-    reconstruction needs, flattened in ``hdt``: C1 and C2 (m1, s), R1 and
-    R2 (s, s), sigma (s,).  The streams (basis rows, the power block) are in
-    the basis dtype, the (s, s) algebra in ``hdt``; nothing syncs.
+    v_basis: (m+1, n) basis, rows 0..k_start valid, rows past them zero.
+    Builds the s powers of row k_start, orthogonalizes them by block CGS2 +
+    CholQR and writes them to basis rows k_start+1..k_start+s.  Returns
+    what the Hessenberg reconstruction needs, flattened in ``hdt``: C1 and
+    C2 (m1, s), R1 and R2 (s, s), sigma (s,).  The streams (basis rows, the
+    power block) are in the basis dtype, the (s, s) algebra in ``hdt``;
+    nothing syncs.
+
+    ``gram`` (single-reduce mode): the maintained (m+1, m+1) basis Gram
+    matrix on the card, in ``hdt``.  Each pass then pays one stacked
+    payload, and after CholQR the s new basis rows' inner products extend
+    ``gram`` in place:
+
+        Gamma_cross = V Q_new^T = (C_hat_2 - Gamma C_2) R_2^{-1}
+        Gamma_diag  = Q_new Q_new^T = R_2^{-T} G_2 R_2^{-1}
+
+    -- (m x s) algebra on the card, no sync.
     """
     dev = v_basis.device
     dtype = v_basis.dtype
@@ -150,7 +165,8 @@ def _block_orth(powers_fn, gs_pass, v_basis: torch.Tensor, k_start: int,
         low, _ = torch.linalg.cholesky_ex(g + ridge * eye_s)
         return low.mT                                      # upper
 
-    c1, w1, g1 = gs_pass(v_basis, u_cols, eye_s, k_start)
+    pass_args = () if gram is None else (gram,)
+    c1, w1, g1, *_ = gs_pass(v_basis, u_cols, eye_s, k_start, *pass_args)
     r1 = cholqr_factor(g1)
     # T = inv(R^T) folds each CholQR back-substitution into a product: the
     # first into pass 2's stream, the second into the basis rows.  (A
@@ -158,10 +174,18 @@ def _block_orth(powers_fn, gs_pass, v_basis: torch.Tensor, k_start: int,
     # does it, takes seconds on an H100 at n = 2^20 in
     # torch.linalg.solve_triangular.)
     t1 = torch.linalg.solve_triangular(r1.mT, eye_s, upper=False)
-    c2, w2, g2 = gs_pass(v_basis, w1.to(dtype), t1, k_start)
+    c2, w2, g2, *c_hat2 = gs_pass(v_basis, w1.to(dtype), t1, k_start,
+                                  *pass_args)
     r2 = cholqr_factor(g2)
     t2 = torch.linalg.solve_triangular(r2.mT, eye_s, upper=False)
     v_basis[k_start + 1:k_start + 1 + s] = (t2 @ w2.to(hdt)).to(dtype)
+    if gram is not None:
+        # Extend the maintained Gram matrix (in hdt) by the s rows just built.
+        cross = (c_hat2[0].to(hdt) - gram @ c2.to(hdt)) @ t2.mT   # (m1, s)
+        new = slice(k_start + 1, k_start + 1 + s)
+        gram[:, new] = cross
+        gram[new, :] = cross.mT
+        gram[new, new] = t2 @ g2.to(hdt) @ t2.mT
     return torch.cat([c1.to(hdt).reshape(-1), c2.to(hdt).reshape(-1),
                       r1.reshape(-1), r2.reshape(-1), sigma.to(hdt)])
 
@@ -219,8 +243,10 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
     powers kernels (see the module docstring), anything else the reference
     powers.  A numpy ``b`` goes to the card (raising without one).
 
-    ``gs``: "cgs2" (two fused block passes per block); "cgs2_pipelined" is
-    not ported yet.  ``precond``: right preconditioner ``v -> M^{-1} v``;
+    ``gs``: "cgs2" (two fused block passes per block) or "cgs2_pipelined"
+    (two single-reduce passes per block, each one projection launch and
+    one update launch, with the basis Gram matrix maintained on the card).
+    ``precond``: right preconditioner ``v -> M^{-1} v``;
     the power block is built over ``A M^{-1}`` by the reference powers and
     the update un-preconditions, ``x += M^{-1} (y V)``.  ``basis``:
     "monomial" | "newton" (Leja-ordered Chebyshev shifts of A's Gershgorin
@@ -265,9 +291,16 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
     host_shifts = None if shifts is None else shifts.cpu()
 
     def cycle(x, r, beta):
+        # A fresh zero basis every cycle: the single-reduce pass reads only
+        # rows 0..k_start because the rows past them are zero.
         v = torch.zeros((m + 1, n), dtype=basis_dtype, device=b.device)
         v[0] = (r / float(max(beta, guard))).to(basis_dtype)
-        parts = [_block_orth(powers_fn, gs_pass, v, blk * s, s, eps, dtype)
+        # Identity init is exact where it matters: rows beyond the current
+        # block are only ever touched against zero (masked) columns.
+        gram = (torch.eye(m + 1, dtype=dtype, device=b.device)
+                if gs == "cgs2_pipelined" else None)
+        parts = [_block_orth(powers_fn, gs_pass, v, blk * s, s, eps, dtype,
+                             gram)
                  for blk in range(blocks)]
         parts = torch.stack(parts).cpu()       # the cycle's one copy back
         h = torch.zeros((m + 1, m), dtype=dtype)

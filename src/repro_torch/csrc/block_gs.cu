@@ -255,6 +255,279 @@ static cudaError_t launch_block_gs(const void* v, const float* w,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The single-reduce pass (gs = "cgs2_pipelined"): two kernels, each a plain
+// grid whose partials a second small launch reduces (common.cuh).
+//
+//   block_gs_project_gram   Q = T W,  C_hat = V Q^T (unmasked),  M = Q Q^T
+//   block_gs_update         W' = Q - C^T V,  G = W' W'^T
+//
+// Replace repro/kernels/block_gs.py::block_gs_project_gram and
+// ::block_gs_update, the Pallas kernels that hold V, W (or Q) and the
+// outputs in one VMEM block and compute the products in one grid step.
+// The caller recovers C and the CholQR Gram from [C_hat; M] against the
+// maintained basis Gram matrix (kernels/block_gs.py), so G of the update
+// is not needed by the single-reduce pass; it is the kernel's contract
+// (the row-sharded pass reduces it across shards) and costs s (s + 1) / 2
+// fmas per column.
+//
+// Bound: bytes.  Each must read the rows of V it is given once, and W or
+// Q once, and write Q or W' once: (rows s_V + 8 s) n bytes.  With the
+// prefix rows = k_start + 1 = 26, s = 5, n = 2^20, f32: 144 MiB, 0.045 ms
+// at 3.35 TB/s each.  At n = 10^4 both are launch-bound.
+//
+// Design.  No grid sync is needed: C_hat and M (and G) are sums over n of
+// per-column products, so each block writes partials [entry][block] and
+// reduce_partials_kernel sums them in one order (no float atomics: the
+// same bits every run).  Block b owns the column slice [b * cols,
+// b * cols + len); a thread takes its columns in turn.
+//   project_gram: T in shared memory; Q = T W for the slice, kept in shared
+//   memory (s x cols floats) and written out, with the upper triangle of M
+//   per thread; then the rows of V eight at a time against the slice of Q,
+//   eight loads of V in flight per thread.  V is read once.  The reduced
+//   output is the stacked (m1 + s, s) block [C_hat; M]; M's partials are
+//   stored to both triangles, so M comes out symmetric to the bit.
+//   update: C in shared memory; per column u = C^T V[:, c] over the rows in
+//   order (eight loads in flight), W' = Q - u, and the upper triangle of G.
+// Every row of the V passed is read: the s-step cycle passes the valid
+// prefix V[:k_start+1] (the rows past it are zero in its fresh basis).
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory: ts[S * S], qs[S * cols], red[kWarps * kRowChunk * S]
+template <typename TV, int S>
+__global__ void __launch_bounds__(kThreads)
+    block_gs_project_gram_kernel(const TV* __restrict__ v,
+                                 const float* __restrict__ w,
+                                 const float* __restrict__ tin,
+                                 float* __restrict__ q_out,
+                                 float* __restrict__ part, int m1, int n,
+                                 int cols) {
+  constexpr int kG = S * (S + 1) / 2;
+  extern __shared__ float smem[];
+  float* ts = smem;
+  float* qs = ts + S * S;
+  float* red = qs + (size_t)S * cols;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = gridDim.x;
+  const int c0 = blockIdx.x * cols;
+  const int len = max(0, min(cols, n - c0));
+
+  for (int i = threadIdx.x; i < S * S; i += blockDim.x) ts[i] = tin[i];
+  __syncthreads();
+
+  // Q = T W and the upper triangle of M = Q Q^T
+  float gacc[kG];
+#pragma unroll
+  for (int k = 0; k < kG; ++k) gacc[k] = 0.f;
+  for (int c = threadIdx.x; c < len; c += blockDim.x) {
+    float wc[S], q[S];
+#pragma unroll
+    for (int b = 0; b < S; ++b) wc[b] = w[(size_t)b * n + c0 + c];
+#pragma unroll
+    for (int a = 0; a < S; ++a) {
+      float t = 0.f;
+#pragma unroll
+      for (int b = 0; b < S; ++b) t = fmaf(ts[a * S + b], wc[b], t);
+      q[a] = t;
+      qs[(size_t)a * cols + c] = t;
+      q_out[(size_t)a * n + c0 + c] = t;
+    }
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(q[a], q[b], gacc[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    const float t = warp_sum(gacc[k]);
+    if (lane == 0) red[warp * kG + k] = t;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kG; k += blockDim.x) {
+    float t = 0.f;
+    for (int r = 0; r < kWarps; ++r) t += red[r * kG + k];
+    int a = 0, kk = k;   // entry k of the upper triangle, row by row
+    while (kk >= S - a) kk -= S - a++;
+    const size_t e0 = (size_t)m1 * S;
+    part[(e0 + a * S + a + kk) * nb + blockIdx.x] = t;
+    part[(e0 + (a + kk) * S + a) * nb + blockIdx.x] = t;
+  }
+  __syncthreads();
+
+  // C_hat = V Q^T, eight rows at a time
+  for (int r0 = 0; r0 < m1; r0 += kRowChunk) {
+    const int nr = m1 - r0 < kRowChunk ? m1 - r0 : kRowChunk;
+    float acc[kRowChunk * S];
+#pragma unroll
+    for (int i = 0; i < kRowChunk * S; ++i) acc[i] = 0.f;
+    const TV* vr = v + (size_t)r0 * n + c0;
+    for (int c = threadIdx.x; c < len; c += blockDim.x) {
+      float vv[kRowChunk], q[S];
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r)
+        vv[r] = r < nr ? to_f(vr[(size_t)r * n + c]) : 0.f;
+#pragma unroll
+      for (int a = 0; a < S; ++a) q[a] = qs[(size_t)a * cols + c];
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r)
+#pragma unroll
+        for (int a = 0; a < S; ++a)
+          acc[r * S + a] = fmaf(vv[r], q[a], acc[r * S + a]);
+    }
+    block_partials<kRowChunk * S>(acc, red, part, r0 * S, nr * S, nb);
+  }
+}
+
+// Dynamic shared memory: cs[m1 * S], red[kWarps * kG]
+template <typename TV, int S>
+__global__ void __launch_bounds__(kThreads)
+    block_gs_update_kernel(const TV* __restrict__ v,
+                           const float* __restrict__ q,
+                           const float* __restrict__ c_in,
+                           float* __restrict__ w_out,
+                           float* __restrict__ part, int m1, int n,
+                           int cols) {
+  constexpr int kG = S * (S + 1) / 2;
+  extern __shared__ float smem[];
+  float* cs = smem;
+  float* red = cs + (size_t)m1 * S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = gridDim.x;
+  const int c0 = blockIdx.x * cols;
+  const int len = max(0, min(cols, n - c0));
+
+  for (int i = threadIdx.x; i < m1 * S; i += blockDim.x) cs[i] = c_in[i];
+  __syncthreads();
+  float gacc[kG];
+#pragma unroll
+  for (int k = 0; k < kG; ++k) gacc[k] = 0.f;
+  for (int c = threadIdx.x; c < len; c += blockDim.x) {
+    float u[S];
+#pragma unroll
+    for (int a = 0; a < S; ++a) u[a] = 0.f;
+    for (int r0 = 0; r0 < m1; r0 += kRowChunk) {
+      const int nr = m1 - r0 < kRowChunk ? m1 - r0 : kRowChunk;
+      const TV* vr = v + (size_t)r0 * n + c0 + c;
+      float vv[kRowChunk];
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r)
+        vv[r] = r < nr ? to_f(vr[(size_t)r * n]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r)
+        if (r < nr)
+#pragma unroll
+          for (int a = 0; a < S; ++a)
+            u[a] = fmaf(cs[(r0 + r) * S + a], vv[r], u[a]);
+    }
+    float w2[S];
+#pragma unroll
+    for (int a = 0; a < S; ++a) {
+      w2[a] = q[(size_t)a * n + c0 + c] - u[a];
+      w_out[(size_t)a * n + c0 + c] = w2[a];
+    }
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(w2[a], w2[b], gacc[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    const float t = warp_sum(gacc[k]);
+    if (lane == 0) red[warp * kG + k] = t;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kG; k += blockDim.x) {
+    float t = 0.f;
+    for (int r = 0; r < kWarps; ++r) t += red[r * kG + k];
+    int a = 0, kk = k;
+    while (kk >= S - a) kk -= S - a++;
+    part[((size_t)a * S + a + kk) * nb + blockIdx.x] = t;
+    part[((size_t)(a + kk) * S + a) * nb + blockIdx.x] = t;
+  }
+}
+
+template <typename TV>
+static cudaError_t project_gram_kernel_for(int s, const void** kernel) {
+  switch (s) {
+#define REPRO_CASE(S)                                               \
+  case S:                                                           \
+    *kernel = (const void*)block_gs_project_gram_kernel<TV, S>;     \
+    return cudaSuccess;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TV>
+static cudaError_t block_update_kernel_for(int s, const void** kernel) {
+  switch (s) {
+#define REPRO_CASE(S)                                               \
+  case S:                                                           \
+    *kernel = (const void*)block_gs_update_kernel<TV, S>;           \
+    return cudaSuccess;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+static cudaError_t launch_plain(const void* kernel, int grid, size_t smem,
+                                void** args, cudaStream_t stream) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernel(kernel, grid, kThreads, args, smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename TV>
+static cudaError_t launch_project_gram(const void* v, const float* w,
+                                       const float* tin, float* q, float* out,
+                                       float* part, int grid, int m1, int n,
+                                       int s, cudaStream_t stream) {
+  if (m1 <= 0 || n <= 0 || grid < 1 || grid > n) return cudaErrorInvalidValue;
+  const void* kernel = nullptr;
+  cudaError_t e = project_gram_kernel_for<TV>(s, &kernel);
+  if (e != cudaSuccess) return e;
+  const TV* vt = static_cast<const TV*>(v);
+  int cols = (n + grid - 1) / grid;
+  const size_t smem = sizeof(float) * ((size_t)s * s + (size_t)s * cols +
+                                       (size_t)kWarps * kRowChunk * s);
+  void* args[] = {(void*)&vt, (void*)&w, (void*)&tin, (void*)&q,
+                  (void*)&part, (void*)&m1, (void*)&n, (void*)&cols};
+  e = launch_plain(kernel, grid, smem, args, stream);
+  if (e != cudaSuccess) return e;
+  // out = [C_hat (m1, s); M (s, s)]
+  return launch_reduce_partials(part, grid, (m1 + s) * s, 0, 0, out, stream);
+}
+
+template <typename TV>
+static cudaError_t launch_block_update(const void* v, const float* q,
+                                       const float* c, float* w_out, float* g,
+                                       float* part, int grid, int m1, int n,
+                                       int s, cudaStream_t stream) {
+  if (m1 <= 0 || n <= 0 || grid < 1 || grid > n) return cudaErrorInvalidValue;
+  const void* kernel = nullptr;
+  cudaError_t e = block_update_kernel_for<TV>(s, &kernel);
+  if (e != cudaSuccess) return e;
+  const TV* vt = static_cast<const TV*>(v);
+  int cols = (n + grid - 1) / grid;
+  const size_t smem =
+      sizeof(float) * ((size_t)m1 * s + (size_t)kWarps * s * (s + 1) / 2);
+  void* args[] = {(void*)&vt,   (void*)&q,  (void*)&c, (void*)&w_out,
+                  (void*)&part, (void*)&m1, (void*)&n, (void*)&cols};
+  e = launch_plain(kernel, grid, smem, args, stream);
+  if (e != cudaSuccess) return e;
+  return launch_reduce_partials(part, grid, s * s, 0, 0, g, stream);
+}
+
 }  // namespace repro
 
 // v (m1, n) f32 or bf16, row-major; w (s, n) and tin (s, s) f32; rows =
@@ -288,4 +561,33 @@ extern "C" int repro_block_gs_pass_shape(int v_bf16, int m1, int n, int s,
   out[1] = g ? (n + g - 1) / g : 0;
   out[2] = (int)repro::block_gs_smem_bytes(m1, s);
   return e;
+}
+
+// v (m1, n) f32 or bf16, row-major (every row is read); w (s, n), tin
+// (s, s) f32; q (s, n) f32 out; out (m1 + s, s) f32 = [C_hat; M]; part
+// holds (m1 + s) s grid floats.
+extern "C" int repro_block_gs_project_gram(const void* v, int v_bf16,
+                                           const float* w, const float* tin,
+                                           float* q, float* out, float* part,
+                                           int grid, int m1, int n, int s,
+                                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return v_bf16 ? repro::launch_project_gram<repro::bf16>(
+                      v, w, tin, q, out, part, grid, m1, n, s, st)
+                : repro::launch_project_gram<float>(v, w, tin, q, out, part,
+                                                    grid, m1, n, s, st);
+}
+
+// v (m1, n) f32 or bf16, row-major; q (s, n), c (m1, s) f32; w_out (s, n)
+// and g (s, s) f32 out; part holds s s grid floats.
+extern "C" int repro_block_gs_update(const void* v, int v_bf16,
+                                     const float* q, const float* c,
+                                     float* w_out, float* g, float* part,
+                                     int grid, int m1, int n, int s,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return v_bf16 ? repro::launch_block_update<repro::bf16>(
+                      v, q, c, w_out, g, part, grid, m1, n, s, st)
+                : repro::launch_block_update<float>(v, q, c, w_out, g, part,
+                                                    grid, m1, n, s, st);
 }

@@ -1,9 +1,10 @@
 // Device helpers shared by the port's kernels (matvec.cu, cgs2.cu,
 // arnoldi_fused.cu, spmv.cu, batched_cgs2.cu, matrix_powers.cu,
-// block_gs.cu): storage-type conversion, 16-byte row streaming with a warp,
-// block sums in a fixed order, the grid-synchronised classical Gram-Schmidt
-// pass, with the basis slice in shared memory or streamed, and the grid of
-// a persistent cooperative kernel.
+// block_gs.cu, sr_payload.cu): storage-type conversion, 16-byte row
+// streaming with a warp, block sums in a fixed order, the grid-synchronised
+// classical Gram-Schmidt pass, with the basis slice in shared memory or
+// streamed, partials of a plain launch and their reduction by a second one,
+// and the grid of a persistent cooperative kernel.
 //
 // Storage types are float and __nv_bfloat16; every sum is taken in float.
 #pragma once
@@ -436,6 +437,79 @@ cudaError_t stream_shape(Kernel kernel, int k, int m1, int n,
   last = key;
   last_shape = *out;
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// Partials of a plain (non-cooperative) launch, reduced by a second launch
+// (sr_payload.cu, block_gs.cu's single-reduce pair).  Entry e of block b
+// is stored at part[e * nb + b], [entry][block] as in gs_pass, so a warp's
+// reads of one entry are contiguous; no float atomics anywhere, so the sums
+// come out in one fixed order and the same bits every run.
+// ---------------------------------------------------------------------------
+
+// Sum each of the K per-thread accumulators over the block (warp shuffles,
+// then the warps in order) and store the first `kvalid` block sums at
+// part[(e0 + k) * nb + blockIdx.x].  `red` holds kWarps * K floats of
+// shared memory.  Every thread of the block must call it.
+template <int K>
+__device__ inline void block_partials(const float (&acc)[K], float* red,
+                                      float* part, int e0, int kvalid,
+                                      int nb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float t = warp_sum(acc[k]);
+    if (lane == 0) red[warp * K + k] = t;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kvalid; k += blockDim.x) {
+    float t = 0.f;
+    for (int q = 0; q < kWarps; ++q) t += red[q * K + k];
+    part[(size_t)(e0 + k) * nb + blockIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// The second launch: out[e] = sum_b part[e * nb + b] for e < n_out, one
+// warp per entry (lanes stride the blocks, then shuffles), entries in
+// [zero_lo, zero_hi) written as 0 without reading.  Its grid is
+// ceil(n_out / kWarps) blocks of kThreads.  (A template, so that every
+// source that launches it compiles its own copy.)
+template <int Unused = 0>
+__global__ void __launch_bounds__(kThreads)
+    reduce_partials_kernel(const float* __restrict__ part, int nb, int n_out,
+                           int zero_lo, int zero_hi, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (e >= n_out) return;
+  if (e >= zero_lo && e < zero_hi) {
+    if (lane == 0) out[e] = 0.f;
+    return;
+  }
+  float t = 0.f;
+  for (int b = lane; b < nb; b += 32) t += part[(size_t)e * nb + b];
+  t = warp_sum(t);
+  if (lane == 0) out[e] = t;
+}
+
+inline cudaError_t launch_reduce_partials(const float* part, int nb,
+                                          int n_out, int zero_lo,
+                                          int zero_hi, float* out,
+                                          cudaStream_t stream) {
+  const int grid = (n_out + kWarps - 1) / kWarps;
+  reduce_partials_kernel<0><<<grid, kThreads, 0, stream>>>(
+      part, nb, n_out, zero_lo, zero_hi, out);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory above the default 48 KB must be allowed per kernel
+// before the launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 // The grid of a persistent cooperative kernel (matrix_powers.cu,

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 Modules: ``matvec`` (GEMV / block GEMM), ``cgs2`` (fused Gram-Schmidt
-pass), ``arnoldi_fused`` (whole Arnoldi step), ``spmv`` (ELL, sliced ELL,
-banded), ``block_gs`` (s-step block pass, per-lane CGS2),
-``matrix_powers`` (the s-step cycle's powers).  Sources are in
-``repro_torch/csrc``; ``_build`` compiles them with ``nvcc`` at the first
-launch.  Importing these modules builds nothing.
+pass; the pipelined step's single-reduce payload and update),
+``arnoldi_fused`` (whole Arnoldi step), ``spmv`` (ELL, sliced ELL,
+banded), ``block_gs`` (s-step block passes, split and single-reduce;
+per-lane CGS2), ``matrix_powers`` (the s-step cycle's powers).  Sources
+are in ``repro_torch/csrc``; ``_build`` compiles them with ``nvcc`` at the
+first launch.  Importing these modules builds nothing.
 """

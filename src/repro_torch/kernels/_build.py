@@ -73,6 +73,17 @@ SIGNATURES = {
     "repro_block_gs_pass": (P, I, P, P, P, P, P, P, I, I, I, I, I, I, P),
     # v_bf16, m1, n, s, blocks_per_sm, out
     "repro_block_gs_pass_shape": (I, I, I, I, I, P),
+    # The single-reduce kernels (two launches each: partials, then their
+    # reduction; grid = tuning.sr_grid):
+    # v, v_bf16, z, out (m1 + 1, 2), partials, grid, m1, n, j, stream
+    "repro_sr_payload": (P, I, P, P, P, I, I, I, I, P),
+    # v, v_bf16, w, h, out, m1, n, stream
+    "repro_gs_update": (P, I, P, P, P, I, I, P),
+    # v, v_bf16, w, tin, q, out (m1 + s, s) = [c_hat; m], partials, grid,
+    # m1, n, s, stream
+    "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, P),
+    # v, v_bf16, q, c, w_out, g, partials, grid, m1, n, s, stream
+    "repro_block_gs_update": (P, I, P, P, P, P, P, I, I, I, I, P),
 }
 
 _LIB = None

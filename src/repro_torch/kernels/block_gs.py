@@ -1,12 +1,14 @@
-"""Block Gram-Schmidt kernels: the s-step pass and per-lane CGS2.
+"""Block Gram-Schmidt kernels: the s-step passes and per-lane CGS2.
 
 Counterpart of ``repro/kernels/block_gs.py``: ``block_gs_pass`` (the
-fused pass of the s-step cycle) and ``batched_cgs2`` (the block multi-RHS
-solver's per-lane CGS2).  The row-sharded pair (``block_gs_project``,
-``block_gs_update``) comes with the distributed slice, and the
-single-reduce ``block_gs_project_gram`` with the pipelined slice.  The
-kernels are ``csrc/block_gs.cu`` and ``csrc/batched_cgs2.cu``; their source
-notes give the designs and the bounds.
+fused pass of the s-step cycle), the single-reduce pass of
+``gs="cgs2_pipelined"`` (``block_gs_project_gram`` and ``block_gs_update``
+behind ``block_gs_pass_single_reduce``, its plain version
+``block_gs_pass_single_reduce_ref``) and ``batched_cgs2`` (the block
+multi-RHS solver's per-lane CGS2).  The row-sharded ``block_gs_project``
+comes with the distributed slice, which also reuses ``block_gs_update``.
+The kernels are ``csrc/block_gs.cu`` and ``csrc/batched_cgs2.cu``; their
+source notes give the designs and the bounds.
 
 ``block_gs_pass(v, w, tin, k_start)``: Q = T W, C = mask (V Q^T),
 W' = Q - C^T V, G = W' W'^T, with mask selecting basis rows 0..k_start
@@ -142,20 +144,43 @@ def block_gs_pass_plain(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
     return c, w2, w2 @ w2.T
 
 
-def _check_pass(v, w, tin, k_start: int) -> None:
+def _check_block(name: str, v, w, tin) -> None:
     if v.ndim != 2 or w.ndim != 2 or w.shape[1] != v.shape[1]:
-        raise TypeError(f"block_gs_pass: v {tuple(v.shape)} and w "
+        raise TypeError(f"{name}: v {tuple(v.shape)} and w "
                         f"{tuple(w.shape)} must share the vector length")
     s = w.shape[0]
     if tuple(tin.shape) != (s, s):
-        raise TypeError(f"block_gs_pass: tin {tuple(tin.shape)} must be "
+        raise TypeError(f"{name}: tin {tuple(tin.shape)} must be "
                         f"({s}, {s})")
-    if not 0 <= k_start < v.shape[0]:
-        raise ValueError(f"block_gs_pass: k_start = {k_start} outside "
-                         f"0..{v.shape[0] - 1}")
     if w.device != v.device or tin.device != v.device:
-        raise ValueError(f"block_gs_pass: v on {v.device}, w on {w.device}, "
+        raise ValueError(f"{name}: v on {v.device}, w on {w.device}, "
                          f"tin on {tin.device}")
+
+
+def _check_pass(v, w, tin, k_start: int,
+                name: str = "block_gs_pass") -> None:
+    _check_block(name, v, w, tin)
+    if not 0 <= k_start < v.shape[0]:
+        raise ValueError(f"{name}: k_start = {k_start} outside "
+                         f"0..{v.shape[0] - 1}")
+
+
+def _card_inputs(name: str, v, *fs):
+    """Check a card launch's operands: v float32 or bfloat16 and
+    contiguous, s within the kernel's accumulators.  Returns the float32
+    operands ``fs``, contiguous."""
+    if v.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {v.device}")
+    if v.dtype not in STORAGE or any(f.dtype not in STORAGE for f in fs):
+        raise TypeError(f"{name}: storage must be float32 or bfloat16, got "
+                        f"{[v.dtype, *(f.dtype for f in fs)]}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: v must be contiguous (row-major)")
+    s = fs[0].shape[0]
+    if not 1 <= s <= tuning.BLOCK_GS_MAX_S:
+        raise ValueError(f"{name}: s = {s}; the kernel takes "
+                         f"1..{tuning.BLOCK_GS_MAX_S}")
+    return [f.to(torch.float32).contiguous() for f in fs]
 
 
 def block_gs_pass(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
@@ -166,21 +191,10 @@ def block_gs_pass(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
     _check_pass(v, w, tin, k_start)
     if v.device.type == "cpu":
         return block_gs_pass_plain(v, w, tin, k_start)
-    if v.device.type != "cuda":
-        raise ValueError(f"block_gs_pass: unsupported device {v.device}")
-    if v.dtype not in STORAGE or w.dtype not in STORAGE:
-        raise TypeError(f"block_gs_pass: storage must be float32 or "
-                        f"bfloat16, got v {v.dtype}, w {w.dtype}")
-    if not v.is_contiguous():
-        raise ValueError("block_gs_pass: v must be contiguous (row-major)")
+    wf, tf = _card_inputs("block_gs_pass", v, w, tin)
     m1, n = v.shape
     s = w.shape[0]
-    if not 1 <= s <= tuning.BLOCK_GS_MAX_S:
-        raise ValueError(f"block_gs_pass: s = {s}; the kernel takes "
-                         f"1..{tuning.BLOCK_GS_MAX_S}")
     dev = v.device
-    wf = w.to(torch.float32).contiguous()
-    tf = tin.to(torch.float32).contiguous()
     c = torch.empty((m1, s), dtype=torch.float32, device=dev)
     w_out = torch.empty((s, n), dtype=torch.float32, device=dev)
     g = torch.empty((s, s), dtype=torch.float32, device=dev)
@@ -206,3 +220,150 @@ def block_gs_launch_shape(v_dtype, m1: int, n: int, s: int) -> dict:
     return _build.shape("repro_block_gs_pass_shape",
                         int(v_dtype == torch.bfloat16), m1, n, s,
                         tuning.BLOCK_GS_BLOCKS_PER_SM)
+
+
+# --------------------------------------------------------------------------
+# the single-reduce s-step pass (gs="cgs2_pipelined")
+# --------------------------------------------------------------------------
+def block_gs_project_gram_plain(v: torch.Tensor, w: torch.Tensor,
+                                tin: torch.Tensor):
+    """Q = T W, the unmasked C_hat = V Q^T and M = Q Q^T, in float32 or
+    wider."""
+    acc = torch.promote_types(w.dtype, torch.float32)
+    q = tin.to(acc) @ w.to(acc)
+    return q, v.to(acc) @ q.T, q @ q.T
+
+
+def block_gs_project_gram(v: torch.Tensor, w: torch.Tensor,
+                          tin: torch.Tensor):
+    """Single-reduce projection over every row of v.  v: (m1, n); w: (s, n);
+    tin: (s, s).  Returns ``(q, c_hat, m)``: (s, n), (m1, s), (s, s)."""
+    _check_block("block_gs_project_gram", v, w, tin)
+    if v.device.type == "cpu":
+        return block_gs_project_gram_plain(v, w, tin)
+    wf, tf = _card_inputs("block_gs_project_gram", v, w, tin)
+    m1, n = v.shape
+    s = w.shape[0]
+    dev = v.device
+    grid = tuning.sr_grid(dev, n)
+    q = torch.empty((s, n), dtype=torch.float32, device=dev)
+    out = torch.empty((m1 + s, s), dtype=torch.float32, device=dev)
+    part = torch.empty(((m1 + s) * s * grid,), dtype=torch.float32,
+                       device=dev)
+    rc = _build.library().repro_block_gs_project_gram(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        tf.data_ptr(), q.data_ptr(), out.data_ptr(), part.data_ptr(), grid,
+        m1, n, s, _build.stream_ptr(v))
+    _build.check("block_gs_project_gram", rc)
+    block_gs_project_gram.launches += 1
+    return q, out[:m1], out[m1:]
+
+
+block_gs_project_gram.launches = 0
+
+
+def block_gs_update_plain(v: torch.Tensor, q: torch.Tensor, c: torch.Tensor):
+    """W' = Q - C^T V and G = W' W'^T, in float32 or wider."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    w2 = q.to(acc) - c.to(acc).T @ v.to(acc)
+    return w2, w2 @ w2.T
+
+
+def block_gs_update(v: torch.Tensor, q: torch.Tensor, c: torch.Tensor):
+    """Update over every row of v.  v: (m1, n); q: (s, n); c: (m1, s).
+    Returns ``(w', g)``: (s, n), (s, s)."""
+    if v.ndim != 2 or q.ndim != 2 or q.shape[1] != v.shape[1] \
+            or tuple(c.shape) != (v.shape[0], q.shape[0]):
+        raise TypeError(f"block_gs_update: v {tuple(v.shape)} needs q (s, "
+                        f"{v.shape[1]}) and c ({v.shape[0]}, s); got "
+                        f"{tuple(q.shape)}, {tuple(c.shape)}")
+    if q.device != v.device or c.device != v.device:
+        raise ValueError(f"block_gs_update: v on {v.device}, q on "
+                         f"{q.device}, c on {c.device}")
+    if v.device.type == "cpu":
+        return block_gs_update_plain(v, q, c)
+    qf, cf = _card_inputs("block_gs_update", v, q, c)
+    m1, n = v.shape
+    s = q.shape[0]
+    dev = v.device
+    grid = tuning.sr_grid(dev, n)
+    w_out = torch.empty((s, n), dtype=torch.float32, device=dev)
+    g = torch.empty((s, s), dtype=torch.float32, device=dev)
+    part = torch.empty((s * s * grid,), dtype=torch.float32, device=dev)
+    rc = _build.library().repro_block_gs_update(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), qf.data_ptr(),
+        cf.data_ptr(), w_out.data_ptr(), g.data_ptr(), part.data_ptr(), grid,
+        m1, n, s, _build.stream_ptr(v))
+    _build.check("block_gs_update", rc)
+    block_gs_update.launches += 1
+    return w_out, g
+
+
+block_gs_update.launches = 0
+
+
+def _sr_recover_block(payload: torch.Tensor, mask: torch.Tensor,
+                      gram: torch.Tensor, m1: int):
+    """Recovery of (c, g, c_hat) from the stacked payload [C_hat; M].
+
+    With Gamma = ``gram`` the maintained basis Gram matrix (~= V V^T), the
+    CholQR Gram of the updated block W' = Q - C^T V is exactly
+
+        G = M - C_hat^T C - C^T C_hat + C^T Gamma C
+
+    so the W' W'^T reduction of the split pass is replaced by (m x s)
+    algebra on the card, with no sync.
+    """
+    acc = torch.promote_types(payload.dtype, gram.dtype)
+    payload = payload.to(acc)
+    c_hat, mm = payload[:m1], payload[m1:]
+    c = c_hat * mask.to(acc)[:, None]
+    g = mm - c_hat.T @ c - c.T @ c_hat + c.T @ (gram.to(acc) @ c)
+    return c, g, c_hat
+
+
+def block_gs_pass_single_reduce(v: torch.Tensor, w: torch.Tensor,
+                                tin: torch.Tensor, k_start: int,
+                                gram: torch.Tensor):
+    """One single-reduce block-GS pass: ``(c, w', g, c_hat)``.
+
+    The ``(c, w', g)`` contract of ``block_gs_pass`` plus the unmasked
+    ``c_hat`` column, with which the caller extends the basis Gram matrix
+    ``gram`` ((m1, m1), on v's device).  The projection kernel emits C_hat
+    and M = Q Q^T from one stream of V and W, the CholQR Gram is recovered
+    from them against ``gram`` (``_sr_recover_block``), and the update
+    kernel forms W' (its own Gram output is not needed here).
+
+    Both kernels read only the row prefix ``v[:k_start+1]``, and C_hat's
+    rows past k_start are taken as zero.  That is exact because the basis
+    rows past k_start are zero: the s-step cycle (``core/sstep.py``) builds
+    every cycle's basis from ``torch.zeros`` and fills it block by block.
+    """
+    k_start = int(k_start)
+    _check_pass(v, w, tin, k_start, "block_gs_pass_single_reduce")
+    m1, s = v.shape[0], w.shape[0]
+    rows = k_start + 1
+    vp = v[:rows]
+    q, c_hat_p, mm = block_gs_project_gram(vp, w, tin)
+    payload = torch.zeros((m1 + s, s), dtype=c_hat_p.dtype, device=v.device)
+    payload[:rows] = c_hat_p
+    payload[m1:] = mm
+    mask = torch.arange(m1, device=v.device) <= k_start
+    c, g, c_hat = _sr_recover_block(payload, mask, gram, m1)
+    w2, _ = block_gs_update(vp, q, c[:rows])
+    return c, w2, g, c_hat
+
+
+def block_gs_pass_single_reduce_ref(v: torch.Tensor, w: torch.Tensor,
+                                    tin: torch.Tensor, k_start: int,
+                                    gram: torch.Tensor):
+    """Plain version of ``block_gs_pass_single_reduce`` (JAX's
+    ``block_gs_pass_single_reduce_ref``): every row of v, the same payload
+    and recovery."""
+    acc = torch.promote_types(w.dtype, torch.float32)
+    va = v.to(acc)
+    q = tin.to(acc) @ w.to(acc)
+    payload = torch.cat([va @ q.T, q @ q.T])
+    mask = torch.arange(v.shape[0], device=v.device) <= k_start
+    c, g, c_hat = _sr_recover_block(payload, mask, gram, v.shape[0])
+    return c, q - c.T @ va, g, c_hat

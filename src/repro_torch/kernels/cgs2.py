@@ -1,16 +1,28 @@
-"""Fused Gram-Schmidt projection pass: h = mask*(V w); w' = w - h V.
+"""Gram-Schmidt kernels: the fused pass and the single-reduce pair.
 
-Counterpart of ``repro/kernels/cgs2.py::gs_project`` / ``cgs2`` (the fused
-single-shard pass only; the split-phase and payload kernels come with the
-distributed and pipelined solvers).  The kernel is ``csrc/cgs2.cu``; its
-source note gives the design and the bound.  A basis whose column slices
-do not fit shared memory (the sparse solver's n = 2^20) takes the kernel's
-streamed variant, chosen from the shape on the C side.
+Counterpart of ``repro/kernels/cgs2.py``: ``gs_project`` / ``cgs2`` (the
+fused single-shard pass, ``csrc/cgs2.cu``), and the pipelined step's
+``gs_project_norm_partial`` (the single-reduce payload) and ``gs_update``
+(``csrc/sr_payload.cu``).  The split-phase ``gs_project_partial`` comes
+with the distributed solver.  The source notes give the designs and the
+bounds.  A basis whose column slices do not fit shared memory (the sparse
+solver's n = 2^20) takes ``gs_project``'s streamed variant, chosen from
+the shape on the C side.
 
-The mask is the prefix of valid basis rows, so the wrappers take ``j``
-(rows 0..j valid) instead of a mask vector: the kernel then reads only
-those j+1 rows of V.  V is float32 or bfloat16, w is taken as float32 and
-h and w' come back in float32 (w' in w's dtype).
+The mask is the prefix of valid basis rows, so ``gs_project`` and
+``gs_project_norm_partial`` take ``j`` (rows 0..j valid) instead of a mask
+vector: the kernels then read only those j+1 rows of V.  V is float32 or
+bfloat16, w (z) is taken as float32 and h and w' come back in float32 (w'
+in w's dtype).
+
+``gs_project_norm_partial(v, z, j)`` returns the (m1 + 1, 2) payload
+``[mask * (V [z, v_j]); z.z, v_j.v_j]`` with v_j row j of V, widened to
+z's dtype as the JAX payload widens it (the JAX wrapper takes the stacked
+(n, 2) block; the port reads v_j from V instead).  ``gs_update(v, w, h)``
+returns w - h^T V over every row of v.  The pipelined cycle's h is zero
+past row j, so it passes the row prefix ``v[:j+1]`` (contiguous in row
+major) with ``h[:j+1]``: that is exact, since a zero row adds exactly 0
+in the kernel's and the plain version's row-ordered sums.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -30,14 +42,22 @@ def gs_project_plain(v: torch.Tensor, w: torch.Tensor, j: int):
     return h, w1.to(w.dtype)
 
 
-def _check(v: torch.Tensor, w: torch.Tensor, j: int) -> None:
+def _check(v: torch.Tensor, w: torch.Tensor, j: int,
+           name: str = "gs_project") -> None:
     if v.ndim != 2 or w.shape != (v.shape[1],):
-        raise TypeError(f"gs_project: v {tuple(v.shape)}, w {tuple(w.shape)}"
+        raise TypeError(f"{name}: v {tuple(v.shape)}, w {tuple(w.shape)}"
                         f" — need v (m1, n) and w (n,)")
     if not 0 <= j < v.shape[0]:
-        raise ValueError(f"gs_project: j = {j} outside 0..{v.shape[0] - 1}")
+        raise ValueError(f"{name}: j = {j} outside 0..{v.shape[0] - 1}")
     if v.device != w.device:
-        raise ValueError(f"gs_project: v on {v.device}, w on {w.device}")
+        raise ValueError(f"{name}: v on {v.device}, w on {w.device}")
+
+
+def _storage(name: str, *ts) -> None:
+    for t in ts:
+        if t.dtype not in STORAGE:
+            raise TypeError(f"{name}: storage must be float32 or bfloat16, "
+                            f"got {t.dtype}")
 
 
 def gs_project(v: torch.Tensor, w: torch.Tensor, j: int):
@@ -48,9 +68,7 @@ def gs_project(v: torch.Tensor, w: torch.Tensor, j: int):
         return gs_project_plain(v, w, j)
     if v.device.type != "cuda":
         raise ValueError(f"gs_project: unsupported device {v.device}")
-    if v.dtype not in STORAGE or w.dtype not in STORAGE:
-        raise TypeError(f"gs_project: storage must be float32 or bfloat16, "
-                        f"got v {v.dtype}, w {w.dtype}")
+    _storage("gs_project", v, w)
     if not v.is_contiguous():
         raise ValueError("gs_project: v must be contiguous (row-major)")
     m1, n = v.shape
@@ -86,3 +104,90 @@ def cgs2(v: torch.Tensor, w: torch.Tensor, j: int):
     h1, w1 = gs_project(v, w, j)
     h2, w2 = gs_project(v, w1, j)
     return h1 + h2, w2
+
+
+# --------------------------------------------------------------------------
+# the single-reduce pair of the pipelined step
+# --------------------------------------------------------------------------
+def gs_project_norm_partial_plain(v: torch.Tensor, z: torch.Tensor, j: int):
+    """The payload's arithmetic (JAX's ``sr_payload_ref``), in float32 or
+    wider."""
+    acc = torch.promote_types(z.dtype, torch.float32)
+    mask = ref.row_mask(v.shape[0], j, acc, v.device)
+    w2 = torch.stack([z, v[j].to(z.dtype)], dim=1).to(acc)
+    h = (v.to(acc) @ w2) * mask[:, None]
+    return torch.cat([h, (w2 * w2).sum(dim=0, keepdim=True)])
+
+
+def gs_project_norm_partial(v: torch.Tensor, z: torch.Tensor, j: int):
+    """Single-reduce payload over basis rows 0..j.  v: (m1, n), z: (n,).
+    Returns the (m1 + 1, 2) block (float32 on the card)."""
+    j = int(j)
+    _check(v, z, j, "gs_project_norm_partial")
+    if v.device.type == "cpu":
+        return gs_project_norm_partial_plain(v, z, j)
+    if v.device.type != "cuda":
+        raise ValueError(f"gs_project_norm_partial: unsupported device "
+                         f"{v.device}")
+    _storage("gs_project_norm_partial", v, z)
+    if not v.is_contiguous():
+        raise ValueError("gs_project_norm_partial: v must be contiguous")
+    m1, n = v.shape
+    zf = z.to(torch.float32).contiguous()
+    grid = tuning.sr_grid(v.device, n)
+    out = torch.empty((m1 + 1, 2), dtype=torch.float32, device=v.device)
+    part = torch.empty(2 * (m1 + 1) * grid, dtype=torch.float32,
+                       device=v.device)
+    rc = _build.library().repro_sr_payload(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), zf.data_ptr(),
+        out.data_ptr(), part.data_ptr(), grid, m1, n, j,
+        _build.stream_ptr(v))
+    _build.check("gs_project_norm_partial", rc)
+    gs_project_norm_partial.launches += 1
+    return out
+
+
+gs_project_norm_partial.launches = 0
+
+
+def gs_update_plain(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
+    """w - h^T V with the rows summed in order, as the kernel sums them (so
+    rows whose h is zero change nothing, to the bit)."""
+    acc = torch.promote_types(w.dtype, torch.float32)
+    vf, hf = v.to(acc), h.to(acc)
+    u = torch.zeros(v.shape[1], dtype=acc, device=v.device)
+    for i in range(v.shape[0]):
+        u = u + hf[i] * vf[i]
+    return (w.to(acc) - u).to(w.dtype)
+
+
+def gs_update(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
+    """w' = w - h^T V over every row of v.  v: (m1, n), w: (n,), h: (m1,)
+    on v's device.  Returns w' in w's dtype."""
+    if v.ndim != 2 or w.shape != (v.shape[1],) or h.shape != (v.shape[0],):
+        raise TypeError(f"gs_update: v {tuple(v.shape)}, w {tuple(w.shape)},"
+                        f" h {tuple(h.shape)} — need v (m1, n), w (n,) and "
+                        f"h (m1,)")
+    if w.device != v.device or h.device != v.device:
+        raise ValueError(f"gs_update: v on {v.device}, w on {w.device}, "
+                         f"h on {h.device}")
+    if v.device.type == "cpu":
+        return gs_update_plain(v, w, h)
+    if v.device.type != "cuda":
+        raise ValueError(f"gs_update: unsupported device {v.device}")
+    _storage("gs_update", v, w, h)
+    if not v.is_contiguous():
+        raise ValueError("gs_update: v must be contiguous (row-major)")
+    m1, n = v.shape
+    wf = w.to(torch.float32).contiguous()
+    hf = h.to(torch.float32).contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=v.device)
+    rc = _build.library().repro_gs_update(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        hf.data_ptr(), out.data_ptr(), m1, n, _build.stream_ptr(v))
+    _build.check("gs_update", rc)
+    gs_update.launches += 1
+    return out.to(w.dtype)
+
+
+gs_update.launches = 0

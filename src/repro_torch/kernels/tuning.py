@@ -10,6 +10,8 @@ no meaning here.  What the kernels need is
   (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu,
   csrc/matrix_powers.cu, csrc/block_gs.cu); the C side picks the grid from
   these with the occupancy calculator;
+- the grid of the single-reduce kernels (csrc/sr_payload.cu and the
+  single-reduce pair in csrc/block_gs.cu), plain launches: ``sr_grid``;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check.
@@ -55,6 +57,11 @@ SPMV_THREADS = 256        # rows per SpMV block, one thread per row
 POWERS_BLOCKS_PER_SM = 4
 BLOCK_GS_BLOCKS_PER_SM = 2
 BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
+# The single-reduce kernels stream V through a plain grid; four blocks per
+# SM keep enough loads in flight, and a slice of at most 2048 columns keeps
+# the (8, 2048) f32 slice of Q within 64 KB of shared memory.
+SR_BLOCKS_PER_SM = 4
+SR_MAX_COLS = 2048
 
 
 def gemv_launch(m: int) -> tuple[int, int]:
@@ -94,3 +101,14 @@ def persistent_grid(device, blocks_per_sm: int, max_grid: int) -> int:
     """Upper bound of a persistent kernel's grid (the C side may take fewer
     where occupancy is lower): the partials' capacity."""
     return max(1, min(partial_blocks(device, blocks_per_sm), max_grid))
+
+
+def sr_grid(device, n: int) -> int:
+    """Grid of the single-reduce kernels (csrc/sr_payload.cu's payload and
+    csrc/block_gs.cu's project-gram / update pair): plain launches whose
+    partials a second launch reduces, so any grid is valid.  SR_BLOCKS_PER_SM
+    blocks per SM, at least a thread's worth of columns each, and at most
+    SR_MAX_COLS columns per block (the project-gram kernel keeps an
+    (s, cols) slice of Q in shared memory)."""
+    g = min(SR_BLOCKS_PER_SM * sm_count(device), -(-n // (32 * GS_WARPS)))
+    return max(g, -(-n // SR_MAX_COLS), 1)

@@ -176,7 +176,33 @@ def test_gmres_batched_cycle_matches_jax():
 
 def test_gmres_batched_rejects_unported_scheme():
     op = convert.operator(_jax_operator("convdiff_banded"), device="cpu")
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        gmres_batched(op, torch.ones(2, op.shape[0]), gs="cgs2_pipelined")
     with pytest.raises(ValueError, match="unknown gram-schmidt"):
         gmres_batched(op, torch.ones(2, op.shape[0]), gs="householder")
+
+
+def test_gmres_batched_pipelined_runs_cgs2_as_jax_does(monkeypatch):
+    """The batched solver has no whole-cycle pipelining: "cgs2_pipelined"
+    runs CGS2 through batched_cgs2, as JAX's ``_CGS2_FAMILY`` does (the
+    system of tests/test_pipelined.py::
+    test_pipelined_batched_degrades_to_cgs2)."""
+    import jax
+
+    from repro.core import operators as jax_ops
+    from repro_torch.core import operators
+
+    n = 64
+    a = np.array(jax_ops.random_diagdom(jax.random.PRNGKey(0), n))
+    bb = np.array(jax.random.normal(jax.random.PRNGKey(1), (3, n)))
+    kw = dict(m=12, tol=1e-5, max_restarts=50)
+    want = jax_gmres_batched(jnp.asarray(a), jnp.asarray(bb),
+                             gs="cgs2_pipelined", **kw)
+    calls = []
+    monkeypatch.setattr(block_gs, "batched_cgs2",
+                        lambda *args: calls.append(1)
+                        or block_gs.batched_cgs2_plain(*args))
+    got = gmres_batched(operators.DenseOperator(torch.from_numpy(a),
+                                                device="cpu"),
+                        torch.from_numpy(bb), gs="cgs2_pipelined", **kw)
+    assert calls and bool(np.asarray(want.converged).all())
+    _assert_lanes_match(got, {f: np.asarray(getattr(want, f)) for f in
+                              ("x", "restarts", "converged", "done")})

@@ -336,13 +336,161 @@ def test_cuda_tensors_never_reach_plain_versions(dev, monkeypatch):
     for name in ("banded_powers_plain", "ell_powers_plain",
                  "dense_powers_plain"):
         monkeypatch.setattr(mp, name, refuse)
-    monkeypatch.setattr(block_gs, "block_gs_pass_plain", refuse)
+    for name in ("block_gs_pass_plain", "block_gs_project_gram_plain",
+                 "block_gs_update_plain", "block_gs_pass_single_reduce_ref"):
+        monkeypatch.setattr(block_gs, name, refuse)
+    for name in ("gs_project_norm_partial_plain", "gs_update_plain"):
+        monkeypatch.setattr(cgs2, name, refuse)
     b = torch.from_numpy(np.random.default_rng(2).standard_normal(1 << 16)
                          .astype(np.float32)).to(dev)
     for fmt in ("banded", "ell"):
         op = stencils.convection_diffusion_2d(256, 256, fmt=fmt, device=dev)
-        res = gmres_sstep(op, b, s=5, blocks=6, tol=1e-3, max_restarts=3)
+        for gs in ("cgs2", "cgs2_pipelined"):
+            res = gmres_sstep(op, b, s=5, blocks=6, tol=1e-3, max_restarts=3,
+                              gs=gs)
+            assert bool(torch.isfinite(res.x).all())
+        res = gmres(op, b, m=30, tol=1e-3, max_restarts=3,
+                    gs="cgs2_pipelined")
         assert bool(torch.isfinite(res.x).all())
     a = operators.random_diagdom(2000, seed=2, device=dev)
-    res = gmres_sstep(a, b[:2000], s=5, blocks=6, tol=1e-5)
+    for gs in ("cgs2", "cgs2_pipelined"):
+        res = gmres_sstep(a, b[:2000], s=5, blocks=6, tol=1e-5, gs=gs)
+        assert res.converged
+    res = gmres(operators.DenseOperator(a, backend="cuda"), b[:2000], m=30,
+                tol=1e-5, gs="cgs2_pipelined")
     assert res.converged
+
+
+# --------------------------------------------------------------------------
+# the pipelined slice: single-reduce payload, update, block pair, solves
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,j", [(300, 0), (10_000, 15), (100_003, 29),
+                                 (1 << 20, 15)])
+def test_payload_and_update_kernels_match_plain(dev, n, j, dtype):
+    m1 = 31
+    v = _basis(n, m1, j, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(n + j)
+    z = torch.randn(n, device=dev, generator=g)
+    before = (cgs2.gs_project_norm_partial.launches, cgs2.gs_update.launches)
+    p = cgs2.gs_project_norm_partial(v, z, j)
+    pp = cgs2.gs_project_norm_partial_plain(v, z, j)
+    h = torch.randn(m1, device=dev, generator=g)
+    h[j + 1:] = 0
+    w1 = cgs2.gs_update(v, z, h)
+    wp = cgs2.gs_update_plain(v, z, h)
+    w_prefix = cgs2.gs_update(v[:j + 1], z, h[:j + 1])
+    torch.cuda.synchronize()
+    assert (cgs2.gs_project_norm_partial.launches,
+            cgs2.gs_update.launches) == (before[0] + 1, before[1] + 2)
+    assert not p[j + 1:m1].any()
+    assert _relerr(p, pp) < TOL[dtype] and _relerr(w1, wp) < TOL[dtype]
+    assert torch.equal(w_prefix, w1)
+    # the same bits every run: partials reduced in one fixed order
+    assert torch.equal(cgs2.gs_project_norm_partial(v, z, j), p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 5, 8])
+@pytest.mark.parametrize("n,k_start", [(300, 0), (10_000, 10),
+                                       (100_003, 25)])
+def test_single_reduce_block_kernels_match_plain(dev, n, k_start, s, dtype):
+    from repro_torch.kernels import block_gs
+
+    m1 = 31
+    v = _basis(n, m1, k_start, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(n + s)
+    w = torch.randn(s, n, device=dev, generator=g)
+    tin = torch.triu(torch.randn(s, s, device=dev, generator=g)) \
+        + 2 * torch.eye(s, device=dev)
+    before = (block_gs.block_gs_project_gram.launches,
+              block_gs.block_gs_update.launches)
+    vp = v[:k_start + 1]
+    got = block_gs.block_gs_project_gram(vp, w, tin)
+    want = block_gs.block_gs_project_gram_plain(vp, w, tin)
+    c = torch.randn(k_start + 1, s, device=dev, generator=g)
+    got_u = block_gs.block_gs_update(vp, got[0], c)
+    want_u = block_gs.block_gs_update_plain(vp, got[0], c)
+    gram = torch.eye(m1, device=dev)
+    got_p = block_gs.block_gs_pass_single_reduce(v, w, tin, k_start, gram)
+    want_p = block_gs.block_gs_pass_single_reduce_ref(v, w, tin, k_start,
+                                                      gram)
+    torch.cuda.synchronize()
+    assert (block_gs.block_gs_project_gram.launches,
+            block_gs.block_gs_update.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    assert torch.equal(got[2], got[2].T)           # M symmetric to the bit
+    for gt, wt in zip((*got, *got_u, *got_p), (*want, *want_u, *want_p)):
+        assert _relerr(gt, wt) < TOL[dtype]
+
+
+def test_single_reduce_kernels_reject_float64(dev):
+    from repro_torch.kernels import block_gs
+
+    f64 = dict(device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        cgs2.gs_project_norm_partial(torch.zeros(4, 8, **f64),
+                                     torch.zeros(8, device=dev), 0)
+    with pytest.raises(TypeError):
+        cgs2.gs_update(torch.zeros(4, 8, device=dev), torch.zeros(8, **f64),
+                       torch.zeros(4, device=dev))
+    with pytest.raises(TypeError):
+        block_gs.block_gs_project_gram(torch.zeros(4, 8, **f64),
+                                       torch.zeros(2, 8, device=dev),
+                                       torch.eye(2, device=dev))
+
+
+@pytest.mark.parametrize("fmt", ["dense", "banded", "ell"])
+def test_pipelined_solves_count_launches(dev, fmt):
+    """gmres(gs="cgs2_pipelined") on the card against the CPU: one payload
+    and two updates per step, steps + 2 restarts + 1 mat-vecs (a prologue
+    per cycle, a residual per restart, the initial one), no fused pass;
+    gmres_sstep(gs="cgs2_pipelined"): both block kernels twice per block,
+    no block_gs_pass."""
+    from repro_torch.core import gmres_sstep, stencils
+    from repro_torch.kernels import block_gs, spmv
+
+    if fmt == "dense":
+        a = operators.random_diagdom(1000, dominance=0.3, seed=1,
+                                     device="cpu")
+        op_c = operators.DenseOperator(a, backend="cuda", device=dev)
+        op_h = operators.DenseOperator(a, device="cpu")
+        mv = matvec.block_matvec
+    else:
+        op_c = stencils.convection_diffusion_2d(32, 32, fmt=fmt, device=dev)
+        op_h = stencils.convection_diffusion_2d(32, 32, fmt=fmt,
+                                                device="cpu")
+        mv = {"banded": spmv.banded_matvec, "ell": spmv.ell_matvec}[fmt]
+    n = op_c.shape[0]
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32))
+    counters = {"payload": cgs2.gs_project_norm_partial,
+                "update": cgs2.gs_update, "project": cgs2.gs_project,
+                "mv": mv}
+    before = {k: f.launches for k, f in counters.items()}
+    res = gmres(op_c, b.to(dev), m=30, tol=1e-5, max_restarts=200,
+                gs="cgs2_pipelined")
+    d = {k: f.launches - before[k] for k, f in counters.items()}
+    ref = gmres(op_h, b, m=30, tol=1e-5, max_restarts=200,
+                gs="cgs2_pipelined")
+    assert res.converged and ref.converged
+    assert abs(res.restarts - ref.restarts) <= 1
+    assert float((res.x.cpu() - ref.x).norm() / ref.x.norm()) <= 1e-3
+    steps = res.inner_steps
+    assert d == {"payload": steps, "update": 2 * steps, "project": 0,
+                 "mv": steps + 2 * res.restarts + 1}
+
+    counters = {"gram": block_gs.block_gs_project_gram,
+                "update": block_gs.block_gs_update,
+                "pass": block_gs.block_gs_pass}
+    before = {k: f.launches for k, f in counters.items()}
+    res = gmres_sstep(op_c, b.to(dev), s=5, blocks=6, tol=1e-5,
+                      max_restarts=200, gs="cgs2_pipelined")
+    d = {k: f.launches - before[k] for k, f in counters.items()}
+    ref = gmres_sstep(op_h, b, s=5, blocks=6, tol=1e-5, max_restarts=200,
+                      gs="cgs2_pipelined")
+    assert res.converged and ref.converged
+    assert abs(res.restarts - ref.restarts) <= 1
+    assert float((res.x.cpu() - ref.x).norm() / ref.x.norm()) <= 1e-3
+    per = 2 * 6 * res.restarts
+    assert d == {"gram": per, "update": per, "pass": 0}
