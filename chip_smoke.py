@@ -148,6 +148,51 @@ The pipelined slice (gs = "cgs2_pipelined"):
               and composite yardsticks (no single library call computes
               any of them).
 
+The preconditioning slice (the 1024^2 stencil of phase 7):
+
+16. precond_kernels  each kernel against its plain version on the card
+              (the sweep's and the setup's plain versions on a host copy
+              of the same inputs), bars 1e-4 (float32) and 2e-2 (bfloat16
+              bands) relative to the largest entry of the plain result:
+              banded_cheb_apply at 1024^2 and 32^2, order 2, 4 and 8, the
+              interval of estimate_interval, float32 and bfloat16 bands;
+              banded_trisweep lower/unit, lower/non-unit and upper/non-unit
+              on the ILU(0) and line-Jacobi factors of the 1024^2 stencil
+              and a random (-2, -1, 0) pattern at n = 200 and 2^16, k = 1
+              and 4; ilu0_factor at 64^2, 128^2 and 1024^2 (relative error
+              1e-6, and whether the bits are the same) and at 1024^2 the
+              JAX test's property, (L U - A) on the pattern within 5e-5 of
+              max|A|, by banded products on the card.
+17. precond_solve  GMRES(30), tol 1e-5, 200 restarts, b from numpy seed
+              1: gmres(gs="cgs2_fused") with chebyshev(order=4),
+              banded_ilu0, line_jacobi and jacobi; gmres(gs=
+              "cgs2_pipelined") with chebyshev(4); gmres_sstep(s=5,
+              blocks=6) with chebyshev(4) and banded_ilu0; gmres_batched on
+              phase 8's 4-lane batch with chebyshev(4).  Checks: converged,
+              true relres <= 2 tol, x within 1e-3 of phase 7's
+              unpreconditioned cgs2_fused x, strictly fewer restarts than
+              it for Chebyshev, ILU(0) and line-Jacobi, and the 32^2 system
+              on the card against the CPU (restarts +-1, x 1e-3).
+              Counters zeroed around each setup (ILU(0) factors once,
+              Chebyshev's interval makes 8 mat-vecs) and each solve: one
+              apply per Arnoldi step and one per cycle (gmres), plus one
+              per cycle for the pipelined prologue, s x blocks + 1 per
+              cycle (gmres_sstep: the reference powers over A M^-1);
+              Chebyshev launches once per apply, ILU(0) sweeps twice; the
+              batched Chebyshev apply runs order - 1 block mat-vecs.
+18. precond_timing  each kernel cold at the path's shapes (order 4; the
+              ILU(0) and line-Jacobi L and U sweeps, k = 1; the ILU(0)
+              setup) with its launches, bound, plain version and
+              yardstick: for Chebyshev the composite of order - 1 CSR
+              torch.mv calls and the vector ops, for a sweep
+              torch.triangular_solve of the CSR factor (cuSPARSE) where
+              PyTorch runs it (the sweep's and the setup's plain versions,
+              thousands of small ops, by CUDA events over one call); the
+              setup times of estimate_interval and the preconditioners;
+              per solve wall, device and idle share
+              per Arnoldi step and the time to solution, beside the
+              unpreconditioned banded cgs2_fused solve timed in turn.
+
 Then one ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result line.  Without a
@@ -1570,6 +1615,425 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
     return errs, ctr.totals, timing
 
 
+def lu_on_pattern(l_bands, l_offsets, u_bands, u_offsets, offsets):
+    """The entries of L U (unit-diagonal L) at the band offsets, float64,
+    by banded products on the card: (L U)[i, i + o] = sum over l + u = o
+    of L[i, i + l] U[i + l, i + l + u]."""
+    n = u_bands.shape[1]
+    ls = {0: torch.ones(n, dtype=torch.float64, device=u_bands.device)}
+    ls.update({o: l_bands[d].double() for d, o in enumerate(l_offsets)})
+    us = {o: u_bands[d].double() for d, o in enumerate(u_offsets)}
+    out = {}
+    for o in offsets:
+        acc = torch.zeros(n, dtype=torch.float64, device=u_bands.device)
+        for lo, lb in ls.items():
+            if o - lo not in us:
+                continue
+            shifted = torch.zeros_like(acc)       # U[i + lo, .] at row i
+            a, e = max(0, -lo), min(n, n - lo)
+            if a < e:
+                shifted[a:e] = us[o - lo][a + lo:e + lo]
+            acc = acc + lb * shifted
+        out[o] = acc
+    return out
+
+
+def precond_phases(smi, gen, sparse_solves):
+    """Phases 16-18: the preconditioning slice.  ``sparse_solves``: phase
+    7's stencil solves by (fmt, gs).  Returns (max abs errors, main-path
+    launches, timing rows) of its kernels, keyed by wrapper name."""
+    from repro_torch.core import gmres, gmres_batched, gmres_sstep
+    from repro_torch.core import operators, stencils
+    from repro_torch.core import preconditioners as P
+    from repro_torch.kernels import block_gs, cgs2, spmv, trisolve
+    from repro_torch.kernels import matrix_powers as mp
+
+    ctr = Counters({"banded_cheb_apply": mp.banded_cheb_apply,
+                    "banded_trisweep": trisolve.banded_trisweep,
+                    "ilu0_factor": trisolve.ilu0_factor},
+                   banded_matvec=spmv.banded_matvec,
+                   gs_project=cgs2.gs_project,
+                   gs_project_norm_partial=cgs2.gs_project_norm_partial,
+                   gs_update=cgs2.gs_update,
+                   block_gs_pass=block_gs.block_gs_pass,
+                   batched_cgs2=block_gs.batched_cgs2,
+                   banded_powers=mp.banded_powers)
+    errs = {name: [] for name in ctr.kernels}
+    n = NX * NX
+    f32 = torch.float32
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    small = stencils.convection_diffusion_2d(32, 32, beta=BETA)
+
+    def compare(name, got, want, dtype, **info):
+        torch.cuda.synchronize()
+        got, want = got.cpu(), want.cpu()
+        rel, err = relerr(got, want), abserr(got, want)
+        errs[name].append(err)
+        emit(phase="precond_kernels", kernel=name, dtype=str(dtype),
+             max_rel_err=rel, max_abs_err=err, **info)
+        check(rel < TOLS[dtype], f"{name} {info} {dtype}: {rel}")
+
+    # ---- 16. kernels vs plain ---------------------------------------------
+    for o in (op, small):
+        lo, hi = P.estimate_interval(o)
+        nn = o.shape[0]
+        v = torch.randn(nn, device="cuda", generator=gen)
+        for dtype in (f32, torch.bfloat16):
+            bands = o.bands.to(dtype)
+            for order in (2, 4, 8):
+                theta, delta, rhos = P.cheb_coeffs(order, lo, hi)
+                kw = dict(theta=theta, delta=delta, rhos=rhos)
+                compare("banded_cheb_apply",
+                        mp.banded_cheb_apply(bands, v, o.offsets, **kw),
+                        mp.banded_cheb_apply_plain(bands, v, o.offsets, **kw),
+                        dtype, n=nn, order=order, interval=[lo, hi])
+
+    ilu, lj = P.banded_ilu0(op), P.line_jacobi(op)
+    cases = []
+    for name, pc in (("ilu0 1024^2", ilu), ("line_jacobi 1024^2", lj)):
+        cases += [(name, "lower/unit", pc.l_bands, pc.l_offsets, True, True),
+                  (name, "lower/non-unit",
+                   torch.cat([pc.l_bands, pc.u_bands[:1]]),
+                   pc.l_offsets + (0,), False, True),
+                  (name, "upper/non-unit", pc.u_bands, pc.u_offsets, False,
+                   False)]
+    for nr in (200, 1 << 16):
+        for direction, offs, unit, lower in (
+                ("lower/unit", (-2, -1, 0), True, True),
+                ("lower/non-unit", (-2, -1, 0), False, True),
+                ("upper/non-unit", (0, 1, 2), False, False)):
+            bands = torch.rand(3, nr, device="cuda", generator=gen) * 0.8 \
+                + 0.2
+            bands[offs.index(0)] += 2.0
+            cases.append((f"random n = {nr}", direction,
+                          trisolve._mask_oob(bands, offs).contiguous(), offs,
+                          unit, lower))
+    for system, direction, bands, offs, unit, lower in cases:
+        nb = bands.shape[1]
+        for k in (1, 4):
+            v = torch.randn(k, nb, device="cuda", generator=gen)
+            v = v[0] if k == 1 else v
+            got = trisolve.banded_trisweep(bands, v, offs, unit_diag=unit,
+                                           lower=lower)
+            want = trisolve.banded_trisweep_plain(
+                bands.cpu(), v.cpu(), offs, unit_diag=unit, lower=lower)
+            compare("banded_trisweep", got, want, f32, system=system,
+                    direction=direction, n=nb, k=k,
+                    chunk=min(trisolve.chunk_rows(offs, nb), 1024))
+
+    for nx in (64, 128, NX):
+        o = op if nx == NX else stencils.convection_diffusion_2d(
+            nx, nx, beta=BETA)
+        got = trisolve.ilu0_factor(o.bands, o.offsets)
+        want = trisolve.ilu0_factor_plain(o.bands.cpu(), o.offsets)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        rel = max(relerr(g.cpu(), w) for g, w in zip(got, want))
+        errs["ilu0_factor"].append(max(abserr(g.cpu(), w)
+                                       for g, w in zip(got, want)))
+        info = {"n": nx * nx, "same_bits": same, "max_rel_err": rel}
+        if nx == NX:        # the JAX test's property: L U = A on the pattern
+            l_off = tuple(sorted(x for x in o.offsets if x < 0))
+            u_off = tuple([0] + sorted(x for x in o.offsets if x > 0))
+            lu = lu_on_pattern(got[0], l_off, got[1], u_off, o.offsets)
+            a = trisolve._mask_oob(o.bands, o.offsets).double()
+            scale = float(a.abs().max())
+            info["lu_minus_a_on_pattern"] = max(
+                float((lu[x] - a[d]).abs().max()) / scale
+                for d, x in enumerate(o.offsets))
+            check(info["lu_minus_a_on_pattern"] <= 5e-5,
+                  f"ilu0_factor: (L U - A) on the pattern "
+                  f"{info['lu_minus_a_on_pattern']}")
+        emit(phase="precond_kernels", kernel="ilu0_factor", **info)
+        check(rel < 1e-6, f"ilu0_factor {nx}^2: {rel} from its plain version")
+    ctr.zero()
+
+    # ---- 17. preconditioned solves ----------------------------------------
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    ref = sparse_solves[("banded", "cgs2_fused")][0]
+    bands64 = op.bands.double()
+
+    def relres(x, rhs) -> float:
+        r = spmv.banded_matvec_plain(bands64, x.double(), op.offsets) \
+            - rhs.double()
+        return float(r.norm() / rhs.double().norm())
+
+    def x_rel(x, want):
+        return float((x - want).norm() / want.norm())
+
+    setups = {"chebyshev": {"banded_matvec": 8},      # power iterations
+              "banded_ilu0": {"ilu0_factor": 1},
+              "line_jacobi": {"ilu0_factor": 1}, "jacobi": {}}
+    pcs, setup_s = {}, {}
+    for name, expect in setups.items():
+        ctr.zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pcs[name] = P.make_preconditioner(name, op, order=4)
+        torch.cuda.synchronize()
+        setup_s[name] = time.perf_counter() - t0
+        ctr.expect(ctr.read(), expect, f"{name} setup")
+    emit(phase="precond_solve", setup_s=setup_s,
+         cheb_interval=[pcs["chebyshev"].lam_min, pcs["chebyshev"].lam_max])
+
+    s, blocks = SSTEP_S, SSTEP_BLOCKS
+    runs = [("chebyshev", "gmres", "cgs2_fused"),
+            ("banded_ilu0", "gmres", "cgs2_fused"),
+            ("line_jacobi", "gmres", "cgs2_fused"),
+            ("jacobi", "gmres", "cgs2_fused"),
+            ("chebyshev", "gmres", "cgs2_pipelined"),
+            ("chebyshev", "gmres_sstep", "cgs2"),
+            ("banded_ilu0", "gmres_sstep", "cgs2")]
+    solves = {}
+    for name, solver, gs in runs:
+        pc = pcs[name]
+        ctr.zero()
+        t0 = time.perf_counter()
+        if solver == "gmres":
+            res = gmres(op, b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
+                        gs=gs, precond=pc, history=SPARSE_RESTARTS + 8)
+        else:
+            res = gmres_sstep(op, b, s=s, blocks=blocks, tol=TOL,
+                              max_restarts=SPARSE_RESTARTS, gs=gs,
+                              precond=pc, history=SPARSE_RESTARTS + 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = ctr.read()
+        rr, xr = relres(res.x, b), x_rel(res.x, ref.x)
+        emit(phase="precond_solve", precond=name, solver=solver, gs=gs,
+             n=n, converged=res.converged, restarts=res.restarts,
+             unpreconditioned_restarts=ref.restarts,
+             inner_steps=res.inner_steps, true_relres=rr,
+             x_rel_to_unpreconditioned=xr, wall_s=wall, launches=d)
+        what = f"{name} {solver} {gs}"
+        check(res.converged and rr <= 2 * TOL,
+              f"{what}: converged {res.converged}, relres {rr}")
+        check(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,),
+              f"{what}: x not finite or wrong shape")
+        check(xr <= 1e-3, f"{what}: x differs from the unpreconditioned "
+                          f"solve's by {xr}")
+        if name != "jacobi":
+            check(res.restarts < ref.restarts,
+                  f"{what}: {res.restarts} restarts, not fewer than the "
+                  f"unpreconditioned {ref.restarts}")
+        steps, cyc = res.inner_steps, res.restarts
+        if solver == "gmres_sstep":
+            applies = (s * blocks + 1) * cyc
+            expect = {"banded_matvec": s * blocks * cyc + cyc + 1,
+                      "block_gs_pass": 2 * blocks * cyc}
+        elif gs == "cgs2_pipelined":
+            applies = steps + 2 * cyc
+            expect = {"banded_matvec": steps + 2 * cyc + 1,
+                      "gs_project_norm_partial": steps,
+                      "gs_update": 2 * steps}
+        else:
+            applies = steps + cyc
+            expect = {"banded_matvec": steps + cyc + 1,
+                      "gs_project": 2 * steps}
+        if name == "chebyshev":
+            expect["banded_cheb_apply"] = applies
+        elif name != "jacobi":
+            expect["banded_trisweep"] = 2 * applies
+        ctr.expect(d, expect, what)
+        solves[(name, solver, gs)] = res
+
+    # phase 8's 4-lane stencil batch, Chebyshev through the block mat-vec
+    b4 = torch.stack([torch.from_numpy(np.random.default_rng(seed)
+                                       .standard_normal(n).astype(np.float32))
+                      for seed in (1, 2, 3, 4)]).cuda()
+    ctr.zero()
+    t0 = time.perf_counter()
+    res = gmres_batched(op, b4, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
+                        precond=pcs["chebyshev"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = ctr.read()
+    rrs = [relres(res.x[lane], b4[lane]) for lane in range(4)]
+    xr = x_rel(res.x[0], ref.x)
+    emit(phase="precond_solve", precond="chebyshev", solver="gmres_batched",
+         k=4, converged=res.converged.tolist(),
+         restarts=res.restarts.tolist(), inner_steps=res.inner_steps.tolist(),
+         true_relres=rrs, lane0_x_rel_to_unpreconditioned=xr, wall_s=wall,
+         launches=d)
+    check(res.converged.all() and max(rrs) <= 2 * TOL and xr <= 1e-3,
+          f"chebyshev batch: converged {res.converged.tolist()}, relres "
+          f"{rrs}, lane 0 x {xr}")
+    lock, cyc = d["batched_cgs2"], int(res.restarts.max())
+    steps_mv = len(pcs["chebyshev"].rhos)      # block mat-vecs per apply
+    ctr.expect(d, {"batched_cgs2": lock,
+                   "banded_matvec": (steps_mv + 1) * lock
+                   + steps_mv * cyc + cyc + 1}, "chebyshev batch")
+    del res, b4
+
+    # the 32^2 system on the card against the CPU
+    b_s = np.random.default_rng(1).standard_normal(32 * 32).astype(np.float32)
+    host = stencils.convection_diffusion_2d(32, 32, beta=BETA, device="cpu")
+    for name in setups:
+        res = gmres(small, torch.from_numpy(b_s).cuda(), m=M, tol=TOL,
+                    max_restarts=SPARSE_RESTARTS, gs="cgs2_fused",
+                    precond=P.make_preconditioner(name, small, order=4))
+        want = gmres(host, torch.from_numpy(b_s), m=M, tol=TOL,
+                     max_restarts=SPARSE_RESTARTS, gs="cgs2_fused",
+                     precond=P.make_preconditioner(name, host, order=4))
+        diff = x_rel(res.x.cpu(), want.x)
+        emit(phase="precond_solve", reference="cpu", n=32 * 32,
+             precond=name, restarts=[res.restarts, want.restarts],
+             x_rel=diff)
+        check(res.converged and want.converged
+              and abs(res.restarts - want.restarts) <= 1 and diff <= 1e-3,
+              f"{name}: card and CPU disagree at 32^2 ({diff})")
+    for name, count in ctr.totals.items():
+        check(count > 0, f"{name} was never launched on the "
+                         f"preconditioned path")
+    emit(phase="precond_solve", launches_total=ctr.totals)
+    ctr.zero()
+
+    # ---- 18. timing -------------------------------------------------------
+    def event_ms(fn) -> float:
+        """CUDA-event time of one call after a warm one: the plain versions
+        of the sweep and the setup are thousands of small ops, whose
+        profile alone takes minutes."""
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    def measure(fn, plain, iters=50, plain_by_events=False,
+                composite_fn=None, library_fn=None, **info) -> dict:
+        row = dict(**timed(fn, iters=iters, warmup=min(iters, 5), cold=True),
+                   warm_ms=timed(fn, iters=iters,
+                                 warmup=min(iters, 5))["ms"],
+                   plain_ms=event_ms(plain) if plain_by_events
+                   else timed(plain, cold=True)["ms"],
+                   plain_timing="CUDA events, one call" if plain_by_events
+                   else "profiler, cold",
+                   library_ms=timed(library_fn, cold=True)["ms"]
+                   if library_fn else None,
+                   composite_ms=timed(composite_fn, cold=True)["ms"]
+                   if composite_fn else None, **info)
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
+        return row
+
+    timing = {}
+    nbands = op.bands.shape[0]
+    v = torch.randn(n, device="cuda", generator=gen)
+    cheb = pcs["chebyshev"]
+    kw = dict(theta=cheb.theta, delta=cheb.delta, rhos=cheb.rhos)
+    csr = csr_of(*(lambda e: (e.values, e.cols))(op.to_ell()))
+
+    def cheb_composite():
+        z, z_old = v / cheb.theta, torch.zeros_like(v)
+        for rho, rho_old in cheb.rhos:
+            z_new = rho * (2.0 / cheb.delta * (v - torch.mv(csr, z))
+                           + rho_old * (z - z_old)) + z
+            z_old, z = z, z_new
+        return z
+
+    apply_launches = ctr.totals
+    for dtype in (f32, torch.bfloat16):
+        sz = torch.empty((), dtype=dtype).element_size()
+        bands = op.bands.to(dtype)
+        row = measure(
+            lambda: mp.banded_cheb_apply(bands, v, op.offsets, **kw),
+            lambda: mp.banded_cheb_apply_plain(bands, v, op.offsets, **kw),
+            composite_fn=cheb_composite if dtype == f32 else None,
+            composite=f"{len(cheb.rhos)} x CSR torch.mv + the recurrence's "
+                      f"vector ops" if dtype == f32 else None,
+            n=n, order=cheb.order, bytes=nbands * n * sz + 8 * n,
+            flops=len(cheb.rhos) * (2 * nbands + 7) * n + n)
+        row["launches_per_path"] = apply_launches["banded_cheb_apply"]
+        emit(phase="precond_timing", kernel="banded_cheb_apply",
+             dtype=str(dtype), card=smi, **row)
+        if dtype == f32:
+            timing["banded_cheb_apply"] = row
+
+    for label, bands, offs, unit, lower in (
+            ("ILU(0) L", ilu.l_bands, ilu.l_offsets, True, True),
+            ("ILU(0) U", ilu.u_bands, ilu.u_offsets, False, False),
+            ("line-Jacobi L", lj.l_bands, lj.l_offsets, True, True),
+            ("line-Jacobi U", lj.u_bands, lj.u_offsets, False, False)):
+        mat = torch.cat([bands, torch.ones_like(bands[:1])]) if unit \
+            else bands
+        sp = operators.BandedOperator(
+            mat, offs + ((0,) if unit else ()), device="cuda").to_ell()
+        tri = csr_of(sp.values, sp.cols)
+        vv = v[:, None]
+        library, lib_note = None, None
+        try:
+            torch.triangular_solve(vv, tri, upper=not lower,
+                                   unitriangular=unit)
+            torch.cuda.synchronize()
+
+            def library():
+                return torch.triangular_solve(vv, tri, upper=not lower,
+                                              unitriangular=unit)
+            lib_note = "torch.triangular_solve(CSR factor) (cuSPARSE)"
+        except (RuntimeError, NotImplementedError) as exc:
+            lib_note = f"none: torch.triangular_solve raised {exc!r:.120}"
+        nb = bands.shape[0]
+        chunk = min(trisolve.chunk_rows(offs, n), 1024)
+        row = measure(
+            lambda: trisolve.banded_trisweep(bands, v, offs, unit_diag=unit,
+                                             lower=lower),
+            lambda: trisolve.banded_trisweep_plain(
+                bands, v, offs, unit_diag=unit, lower=lower),
+            plain_by_events=True, library_fn=library, library=lib_note, n=n,
+            offsets=list(offs), chunk=chunk, chunks=-(-n // chunk),
+            bytes=(nb * 4 + 8) * n, flops=(2 * nb + 2) * n)
+        row["launches_per_path"] = apply_launches["banded_trisweep"]
+        emit(phase="precond_timing", kernel=f"banded_trisweep {label}",
+             card=smi, **row)
+        if label == "ILU(0) L":
+            timing["banded_trisweep"] = row
+
+    lower = [x for x in op.offsets if x < 0]
+    pairs = sum(1 for lo in lower for up in op.offsets
+                if up > 0 and lo + up in op.offsets)
+    row = measure(lambda: trisolve.ilu0_factor(op.bands, op.offsets),
+                  lambda: trisolve.ilu0_factor_plain(op.bands, op.offsets),
+                  iters=3, plain_by_events=True, n=n,
+                  bytes=nbands * n * (4 + 4),
+                  flops=(len(lower) + 2 * pairs + 2 * nbands) * n)
+    row["launches_per_path"] = apply_launches["ilu0_factor"]
+    t0 = time.perf_counter()
+    P.estimate_interval(op)
+    torch.cuda.synchronize()
+    row["estimate_interval_s"] = time.perf_counter() - t0
+    row["setup_s"] = setup_s
+    emit(phase="precond_timing", kernel="ilu0_factor", card=smi, **row)
+    timing["ilu0_factor"] = row
+
+    # per solve: wall, device and idle per Arnoldi step and time to
+    # solution, beside the unpreconditioned banded cgs2_fused solve
+    turn = [("none", "gmres", "cgs2_fused", ref)]
+    turn += [(name, solver, gs, solves[(name, solver, gs)])
+             for name, solver, gs in runs]
+    for name, solver, gs, res in turn:
+        pc = pcs.get(name)
+        if solver == "gmres":
+            def run(pc=pc, gs=gs):
+                return gmres(op, b, m=M, tol=TOL,
+                             max_restarts=SPARSE_RESTARTS, gs=gs, precond=pc)
+        else:
+            def run(pc=pc, gs=gs):
+                return gmres_sstep(op, b, s=s, blocks=blocks, tol=TOL,
+                                   max_restarts=SPARSE_RESTARTS, gs=gs,
+                                   precond=pc)
+        r = solve_timing(run, res.inner_steps, phase="precond_timing",
+                         solve=f"{name} {solver} {gs}", restarts=res.restarts,
+                         card=smi)
+        emit(phase="precond_timing", solve=f"{name} {solver} {gs}",
+             restarts=res.restarts, time_to_solution_s=r["wall_ms"] / 1e3)
+    ctr.zero()
+    return errs, ctr.totals, timing
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device is available")
     from repro_torch.core import gmres, operators, strategies
@@ -1905,6 +2369,12 @@ def main() -> None:
     launches.update(p_launches)
     timing.update(p_timing)
 
+    # ---- 16-18. the preconditioning slice ---------------------------------
+    c_errs, c_launches, c_timing = precond_phases(smi, gen, sparse_solves)
+    errs.update(c_errs)
+    launches.update(c_launches)
+    timing.update(c_timing)
+
     sources = {"block_matvec": ("src/repro_torch/csrc/matvec.cu",
                                 "src/repro/kernels/matvec.py:80"),
                "gs_project": ("src/repro_torch/csrc/cgs2.cu",
@@ -1935,7 +2405,13 @@ def main() -> None:
                "block_gs_project_gram": ("src/repro_torch/csrc/block_gs.cu",
                                          "src/repro/kernels/block_gs.py:334"),
                "block_gs_update": ("src/repro_torch/csrc/block_gs.cu",
-                                   "src/repro/kernels/block_gs.py:259")}
+                                   "src/repro/kernels/block_gs.py:259"),
+               "banded_cheb_apply": ("src/repro_torch/csrc/matrix_powers.cu",
+                                     "src/repro/kernels/matrix_powers.py:518"),
+               "banded_trisweep": ("src/repro_torch/csrc/trisolve.cu",
+                                   "src/repro/kernels/trisolve.py:257"),
+               "ilu0_factor": ("src/repro_torch/csrc/trisolve.cu",
+                               "src/repro/kernels/trisolve.py:82")}
     emit(kernels=[{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": launches[name],

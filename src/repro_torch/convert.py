@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import givens
+from repro_torch.core import preconditioners as pc_mod
 from repro_torch.core.operators import (BandedOperator, DenseOperator,
                                         SlicedEllOperator, SparseOperator)
 
@@ -63,6 +64,45 @@ def operator(op, device="cuda"):
         return dense_operator(op, device)
     raise TypeError(f"convert.operator: {type(op).__name__} has no explicit "
                     f"storage the port knows")
+
+
+def preconditioner(jax_pc, device="cuda") -> pc_mod.Preconditioner:
+    """A JAX preconditioner as the port's member of the same class, its
+    state carried as it is (no setup runs again): ``inv_d`` (Jacobi,
+    Neumann), ``lu``/``piv`` (block Jacobi; the port's pivots are
+    1-based), the interval and recurrence scalars (Chebyshev), the factors
+    (ILU(0) and its restrictions).  Members that hold an operator get it
+    through ``operator``.  Dispatches on the class name, so this module
+    imports nothing of JAX.
+    """
+    name = type(jax_pc).__name__
+    cls = getattr(pc_mod, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, pc_mod.Preconditioner)):
+        raise TypeError(f"convert.preconditioner: {name} has no counterpart "
+                        f"in the port")
+    pc = object.__new__(cls)
+    pc.n = jax_pc.n
+    if hasattr(jax_pc, "op"):
+        pc.op = operator(jax_pc.op, device)
+    if name in ("JacobiPreconditioner", "NeumannPreconditioner"):
+        pc.inv_d = tensor(jax_pc.inv_d, device)
+    if name == "NeumannPreconditioner":
+        pc.order, pc.omega = jax_pc.order, jax_pc.omega
+    if name == "BlockJacobiPreconditioner":
+        pc.lu = tensor(jax_pc.lu, device)
+        pc.piv = tensor(np.asarray(jax_pc.piv) + 1, device).to(torch.int32)
+        pc.block = jax_pc.block
+    if name == "ChebyshevPreconditioner":
+        for f in ("order", "lam_min", "lam_max", "theta", "delta"):
+            setattr(pc, f, getattr(jax_pc, f))
+        pc.rhos = tuple((float(r), float(ro)) for r, ro in jax_pc.rhos)
+    if hasattr(jax_pc, "l_bands"):
+        pc.l_bands = tensor(jax_pc.l_bands, device)
+        pc.u_bands = tensor(jax_pc.u_bands, device)
+        pc.l_offsets = tuple(int(o) for o in jax_pc.l_offsets)
+        pc.u_offsets = tuple(int(o) for o in jax_pc.u_offsets)
+        pc.pattern = jax_pc.pattern
+    return pc
 
 
 def givens_state(state) -> givens.GivensState:

@@ -1,7 +1,7 @@
 """Solver core of the port: GMRES(m), the block multi-RHS solver and
 s-step GMRES, Arnoldi schemes, Givens QR, operators (dense, ELL, banded,
-sliced ELL, matrix-free), their Gershgorin bounds, stencils, graphs and the
-paper's offload strategies."""
+sliced ELL, matrix-free), the preconditioners (and the operators'
+Gershgorin bounds), stencils, graphs and the paper's offload strategies."""
 from repro_torch.core.gmres import (BREAKDOWN, HEALTHY, NAN_INF, STAGNATED,
                                     STATUS_NAMES, Diagnostics, GmresResult,
                                     classify_residuals, gmres, gmres_batched,
@@ -10,10 +10,12 @@ from repro_torch.core.operators import (BandedOperator, DenseOperator,
                                         FunctionOperator, SlicedEllOperator,
                                         SparseOperator, as_operator,
                                         random_diagdom, with_dtype)
+from repro_torch.core import preconditioners
 from repro_torch.core.sstep import gmres_sstep
 
 __all__ = ["gmres", "gmres_batched", "gmres_batched_cycle", "gmres_sstep",
            "GmresResult", "Diagnostics", "classify_residuals", "HEALTHY", "NAN_INF",
            "STAGNATED", "BREAKDOWN", "STATUS_NAMES", "DenseOperator",
            "SparseOperator", "BandedOperator", "SlicedEllOperator",
-           "FunctionOperator", "as_operator", "with_dtype", "random_diagdom"]
+           "FunctionOperator", "as_operator", "with_dtype", "random_diagdom",
+           "preconditioners"]

@@ -62,6 +62,31 @@
 //           the rows read it there.
 // The grid is sized by the occupancy calculator so the cooperative launch
 // is legal; banded and ELL use the same grid.
+//
+// The fused Chebyshev preconditioner apply, z ~= A^-1 v for a banded A:
+//
+//   z_0 = v / theta;  z_{t+1} = rho_t (c (v - A z_t) + rho_old_t (z_t -
+//   z_{t-1})) + z_t,  c = 2 / delta,  z_{-1} = 0,   t = 0..steps-1
+//
+// Replaces repro/kernels/matrix_powers.py::banded_cheb_apply (body
+// _banded_cheb_kernel).  The TPU kernel keeps the band stack, v and the
+// recurrence's vectors in VMEM and unrolls the `order - 1` steps at trace
+// time (theta, delta and the rhos are static floats).
+// Bound: bytes, nbands * n * s + 8 n (bands and v read once, z written
+// once): 29.4 MB at the 1024 x 1024 five-point stencil in f32 (0.0088 ms
+// at 3.35 TB/s), 18.9 MB with bf16 bands (0.0056 ms).  2 nbands + 7 flops
+// per row and step.
+// Design: one cooperative launch with the banded powers' row partition (a
+// thread per row, offsets by value at constant indices) and one grid sync
+// per step, as the powers have one per power.  z is published for the
+// neighbours' stencil in two scratch rows used in turn: step t reads z_t
+// from row t & 1 and writes z_{t+1} over z_{t-1} in the other row, each
+// thread reading its own rows' z_{t-1} there before it overwrites them, so
+// nothing but z is stored and no row is read while it is written.  The
+// last step writes the output instead.  v is read again at each step
+// (from L2: the stack, v and both rows, 33 MB at n = 2^20, fit the 50 MB
+// L2).  theta, c and the (rho, rho_old) pairs come by value.  No norm, no
+// reduction: the bits do not depend on the grid.
 #include "common.cuh"
 
 namespace repro {
@@ -220,6 +245,87 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kMaxChebSteps = 32;
+struct ChebRhos {
+  float rho[kMaxChebSteps];
+  float rho_old[kMaxChebSteps];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    banded_cheb_kernel(const T* __restrict__ bands, BandOffsets offs,
+                       int nbands, const float* __restrict__ v, float* zbuf,
+                       float* __restrict__ out, int n, float theta, float c,
+                       ChebRhos rhos, int steps) {
+  cg::grid_group grid = cg::this_grid();
+  int r0, r1;
+  row_range(n, &r0, &r1);
+  for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+    const float z0 = __ldg(v + i) / theta;
+    if (steps == 0)
+      out[i] = z0;
+    else
+      __stcg(zbuf + i, z0);
+  }
+  for (int t = 0; t < steps; ++t) {
+    grid.sync();
+    const float* z = zbuf + (size_t)(t & 1) * n;
+    float* znext = zbuf + (size_t)((t + 1) & 1) * n;
+    const float rho = rhos.rho[t], rho_old = rhos.rho_old[t];
+    const bool last = t == steps - 1;
+    for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+      float w = 0.f;
+#pragma unroll
+      for (int d = 0; d < kMaxBands; ++d) {   // offsets at constant indices
+        if (d >= nbands) break;
+        const int col = i + offs.off[d];
+        if (col < 0 || col >= n) continue;     // the zero halo
+        w = fmaf(to_f(bands[(size_t)d * n + i]), __ldcg(z + col), w);
+      }
+      const float zi = __ldcg(z + i);
+      const float zold = t == 0 ? 0.f : __ldcg(znext + i);
+      const float znew =
+          rho * (c * (__ldg(v + i) - w) + rho_old * (zi - zold)) + zi;
+      if (last)
+        out[i] = znew;
+      else
+        __stcg(znext + i, znew);
+    }
+  }
+}
+
+template <typename T>
+static cudaError_t launch_banded_cheb(const void* bands, const int* offsets,
+                                      int nbands, const float* v,
+                                      float* zbuf, float* out, int n,
+                                      float theta, float c, const float* rho,
+                                      const float* rho_old, int steps,
+                                      int blocks_per_sm,
+                                      cudaStream_t stream) {
+  if (n <= 0 || nbands <= 0 || nbands > kMaxBands || steps < 0 ||
+      steps > kMaxChebSteps)
+    return cudaErrorInvalidValue;
+  BandOffsets offs{};
+  for (int d = 0; d < nbands; ++d) offs.off[d] = offsets[d];
+  ChebRhos rhos{};
+  for (int t = 0; t < steps; ++t) {
+    rhos.rho[t] = rho[t];
+    rhos.rho_old[t] = rho_old[t];
+  }
+  int g = 0;
+  cudaError_t e = persistent_grid(banded_cheb_kernel<T>, 0, blocks_per_sm,
+                                  (n + kThreads - 1) / kThreads, &g);
+  if (e != cudaSuccess) return e;
+  const T* bt = static_cast<const T*>(bands);
+  void* args[] = {(void*)&bt, (void*)&offs,  (void*)&nbands, (void*)&v,
+                  (void*)&zbuf, (void*)&out, (void*)&n,     (void*)&theta,
+                  (void*)&c,  (void*)&rhos,  (void*)&steps};
+  e = cudaLaunchCooperativeKernel((const void*)banded_cheb_kernel<T>, g,
+                                  kThreads, args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 // Grid of the banded / ELL kernels: a thread per row at least.
 template <typename T, bool kEll>
 static cudaError_t sparse_grid(int n, int blocks_per_sm, int* grid) {
@@ -341,6 +447,25 @@ extern "C" int repro_dense_powers(const void* a, int a_bf16, const float* x,
                 : repro::launch_dense_powers<float>(
                       a, x, u, sigma, raw, part, part_blocks, n, s, eps,
                       smem_cap, blocks_per_sm, st);
+}
+
+// The fused Chebyshev apply: bands (nbands, n), offsets host memory; v (n,)
+// f32; zbuf 2 n floats of scratch; out (n,) f32; c = 2 / delta; rho and
+// rho_old host memory, `steps` floats each.
+extern "C" int repro_banded_cheb_apply(const void* bands, int b_bf16,
+                                       const int* offsets, int nbands,
+                                       const float* v, float* zbuf,
+                                       float* out, int n, float theta,
+                                       float c, const float* rho,
+                                       const float* rho_old, int steps,
+                                       int blocks_per_sm, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_CHEB(T)                                                        \
+  repro::launch_banded_cheb<T>(bands, offsets, nbands, v, zbuf, out, n,     \
+                               theta, c, rho, rho_old, steps, blocks_per_sm, \
+                               st)
+  return b_bf16 ? REPRO_CHEB(repro::bf16) : REPRO_CHEB(float);
+#undef REPRO_CHEB
 }
 
 // The launch shape of kind 0 (banded), 1 (ELL) or 2 (dense):

@@ -4,7 +4,8 @@ Modules: ``matvec`` (GEMV / block GEMM), ``cgs2`` (fused Gram-Schmidt
 pass; the pipelined step's single-reduce payload and update),
 ``arnoldi_fused`` (whole Arnoldi step), ``spmv`` (ELL, sliced ELL,
 banded), ``block_gs`` (s-step block passes, split and single-reduce;
-per-lane CGS2), ``matrix_powers`` (the s-step cycle's powers).  Sources
-are in ``repro_torch/csrc``; ``_build`` compiles them with ``nvcc`` at the
-first launch.  Importing these modules builds nothing.
+per-lane CGS2), ``matrix_powers`` (the s-step cycle's powers; the fused
+Chebyshev apply), ``trisolve`` (ILU(0) setup and triangular sweeps).
+Sources are in ``repro_torch/csrc``; ``_build`` compiles them with
+``nvcc`` at the first launch.  Importing these modules builds nothing.
 """

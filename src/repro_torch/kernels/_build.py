@@ -84,6 +84,18 @@ SIGNATURES = {
     "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, P),
     # v, v_bf16, q, c, w_out, g, partials, grid, m1, n, s, stream
     "repro_block_gs_update": (P, I, P, P, P, P, P, I, I, I, I, P),
+    # The preconditioning kernels:
+    # bands, b_bf16, offsets (host int[nbands]), nbands, v, zbuf (2 n),
+    # out, n, theta, 2 / delta, rho, rho_old (host float[steps]), steps,
+    # blocks_per_sm, stream
+    "repro_banded_cheb_apply": (P, I, P, I, P, P, P, I, F, F, P, P, I, I,
+                                P),
+    # bands, b_bf16, offsets (host int[nbands]), nbands, v (k, n), z (k, n),
+    # n, k, chunk, unit, reverse, stream
+    "repro_banded_trisweep": (P, I, P, I, P, P, I, I, I, I, I, P),
+    # bands, b_bf16, offsets (host int[nbands]), nbands, fact (nbands, n),
+    # n, eps, guard, stream
+    "repro_ilu0_factor": (P, I, P, I, P, I, F, F, P),
 }
 
 _LIB = None

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/kernels/matrix_powers.py`` (``banded_powers``,
 ``ell_powers``, ``dense_powers`` and the ``matrix_powers_ref`` oracle; the
-row-sharded ``banded_powers_halo`` comes with the distributed slice and
-``banded_cheb_apply`` with the preconditioning slice).  The kernels are
-``csrc/matrix_powers.cu``; its source note gives the design and the bound.
+row-sharded ``banded_powers_halo`` comes with the distributed slice), and
+``banded_cheb_apply``, the fused Chebyshev preconditioner apply.  The
+kernels are ``csrc/matrix_powers.cu``; its source note gives the designs
+and the bounds.
 
 Each computes, from u_0 = x,
 
@@ -23,6 +24,15 @@ launches the kernel or raises.  ``matrix_powers_ref(matvec, x, s, eps,
 shifts)`` is the JAX package's sequential reference over any mat-vec: the
 s-step solver runs it for the operators that have no powers kernel, and on
 the card its mat-vecs launch the operator's own GEMV or SpMV kernels.
+
+``banded_cheb_apply(bands, v, offsets, theta=, delta=, rhos=)`` runs the
+Chebyshev three-term recurrence from z = v / theta,
+
+    z' = rho (2 / delta (v - A z) + rho_old (z - z_old)) + z
+
+once per (rho, rho_old) pair, ``len(rhos)`` mat-vecs in one launch; theta,
+delta and rhos are host floats (``core/preconditioners.cheb_coeffs``).
+The result has the dtype bands and v promote to.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch
 from repro_torch.kernels import _build, ref, spmv, tuning
 
 STORAGE = (torch.float32, torch.bfloat16)
+MAX_CHEB_STEPS = 32     # (rho, rho_old) pairs the Chebyshev kernel takes
 _KIND = {"banded": 0, "ell": 1, "dense": 2}
 
 
@@ -92,6 +103,19 @@ def ell_powers_plain(values, cols, x, s: int, *, shifts=None):
 def dense_powers_plain(a, x, s: int):
     acc = _acc_dtype(a.dtype, x.dtype)
     return _plain(lambda u: ref.matvec(a, u), x, s, acc, None)
+
+
+def banded_cheb_apply_plain(bands, v, offsets, *, theta: float,
+                            delta: float, rhos):
+    acc = _acc_dtype(bands.dtype, v.dtype)
+    vv = v.to(acc)
+    z = vv / theta
+    z_old = torch.zeros_like(vv)
+    for rho, rho_old in rhos:
+        w = spmv.banded_matvec_plain(bands, z, offsets).to(acc)
+        z_new = rho * (2.0 / delta * (vv - w) + rho_old * (z - z_old)) + z
+        z_old, z = z, z_new
+    return z.to(torch.promote_types(bands.dtype, v.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -249,6 +273,55 @@ def dense_powers(a: torch.Tensor, x: torch.Tensor, s: int):
 
 
 dense_powers.launches = 0
+
+
+def banded_cheb_apply(bands: torch.Tensor, v: torch.Tensor, offsets, *,
+                      theta: float, delta: float, rhos) -> torch.Tensor:
+    """z ~= A^{-1} v by the fused Chebyshev recurrence (one launch).
+
+    bands: (nbands, n) as in ``spmv.banded_matvec``; v: (n,); theta, delta
+    and rhos ((rho, rho_old) pairs) from ``cheb_coeffs``.
+    """
+    offsets = tuple(int(o) for o in offsets)
+    rhos = tuple((float(r), float(ro)) for r, ro in rhos)
+    if bands.ndim != 2 or len(offsets) != bands.shape[0]:
+        raise TypeError(f"banded_cheb_apply: {bands.shape[0]} bands but "
+                        f"{len(offsets)} offsets")
+    _check_x("banded_cheb_apply", bands.shape[1], v, bands)
+    if bands.device.type == "cpu":
+        return banded_cheb_apply_plain(bands, v, offsets, theta=theta,
+                                       delta=delta, rhos=rhos)
+    _check_card("banded_cheb_apply", bands)
+    nbands, n = bands.shape
+    if nbands > spmv.MAX_BANDS:
+        raise ValueError(f"banded_cheb_apply: {nbands} bands; the kernel "
+                         f"takes at most {spmv.MAX_BANDS}")
+    if len(rhos) > MAX_CHEB_STEPS:
+        raise ValueError(f"banded_cheb_apply: {len(rhos)} steps; the kernel "
+                         f"takes at most {MAX_CHEB_STEPS} (order "
+                         f"{MAX_CHEB_STEPS + 1})")
+    if v.dtype not in STORAGE:
+        raise TypeError(f"banded_cheb_apply: v must be float32 or bfloat16 "
+                        f"on the card, got {v.dtype}")
+    vf = v.to(torch.float32).contiguous()
+    zbuf = torch.empty((2, n), dtype=torch.float32, device=v.device)
+    out = torch.empty_like(vf)
+    offs = (ctypes.c_int * nbands)(*offsets)
+    steps = len(rhos)
+    rho = (ctypes.c_float * max(steps, 1))(*(r for r, _ in rhos))
+    rho_old = (ctypes.c_float * max(steps, 1))(*(ro for _, ro in rhos))
+    rc = _build.library().repro_banded_cheb_apply(
+        bands.data_ptr(), int(bands.dtype == torch.bfloat16),
+        ctypes.addressof(offs), nbands, vf.data_ptr(), zbuf.data_ptr(),
+        out.data_ptr(), n, float(theta), 2.0 / float(delta),
+        ctypes.addressof(rho), ctypes.addressof(rho_old), steps,
+        tuning.CHEB_BLOCKS_PER_SM, _build.stream_ptr(bands))
+    _build.check("banded_cheb_apply", rc)
+    banded_cheb_apply.launches += 1
+    return out.to(torch.promote_types(bands.dtype, v.dtype))
+
+
+banded_cheb_apply.launches = 0
 
 
 def launch_shape(kind: str, dtype, n: int) -> dict:

@@ -12,6 +12,12 @@ no meaning here.  What the kernels need is
   these with the occupancy calculator;
 - the grid of the single-reduce kernels (csrc/sr_payload.cu and the
   single-reduce pair in csrc/block_gs.cu), plain launches: ``sr_grid``;
+- the preconditioning kernels' shapes: the fused Chebyshev apply
+  (csrc/matrix_powers.cu) is a persistent cooperative launch of
+  CHEB_BLOCKS_PER_SM blocks per SM at most; the triangular sweep
+  (csrc/trisolve.cu) is one block of 1024 threads per right-hand side,
+  walking chunks of ``trisolve.chunk_rows`` rows (at most 1024); the ILU(0)
+  setup is one thread;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check.
@@ -62,6 +68,9 @@ BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
 # the (8, 2048) f32 slice of Q within 64 KB of shared memory.
 SR_BLOCKS_PER_SM = 4
 SR_MAX_COLS = 2048
+# The fused Chebyshev apply takes the banded powers' row partition (a
+# thread per row), so the same value.
+CHEB_BLOCKS_PER_SM = POWERS_BLOCKS_PER_SM
 
 
 def gemv_launch(m: int) -> tuple[int, int]:

@@ -494,3 +494,137 @@ def test_pipelined_solves_count_launches(dev, fmt):
     assert float((res.x.cpu() - ref.x).norm() / ref.x.norm()) <= 1e-3
     per = 2 * 6 * res.restarts
     assert d == {"gram": per, "update": per, "pass": 0}
+
+
+# --------------------------------------------------------------------------
+# the preconditioning slice: Chebyshev apply, ILU(0) setup, sweeps, solves
+# --------------------------------------------------------------------------
+def _tri_cases(dev):
+    """(name, bands, offsets, unit, lower) of every sweep direction on the
+    ILU(0) and line-Jacobi factors of a stencil and a random (-2, -1, 0)
+    pattern (n = 4099: chunks of 2 rows)."""
+    from repro_torch.core import preconditioners, stencils
+    from repro_torch.kernels import trisolve
+
+    op = stencils.convection_diffusion_2d(64, 48, device=dev)
+    cases = []
+    for name, pc in (("ilu0", preconditioners.banded_ilu0(op)),
+                     ("line_jacobi", preconditioners.line_jacobi(op))):
+        cases.append((name, pc.l_bands, pc.l_offsets, True, True))
+        cases.append((name, pc.u_bands, pc.u_offsets, False, False))
+    g = torch.Generator(device=dev).manual_seed(7)
+    n = 4099
+    for lower, unit in ((True, True), (True, False), (False, False)):
+        offs = (-2, -1, 0) if lower else (0, 1, 2)
+        bands = torch.rand(3, n, device=dev, generator=g) * 0.8 + 0.2
+        bands[offs.index(0)] += 2.0
+        bands = trisolve._mask_oob(bands, offs).contiguous()
+        cases.append(("random", bands, offs, unit, lower))
+    return cases
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_trisweep_kernel_matches_plain(dev, k):
+    from repro_torch.kernels import trisolve
+
+    for name, bands, offs, unit, lower in _tri_cases(dev):
+        n = bands.shape[1]
+        g = torch.Generator(device=dev).manual_seed(k)
+        v = torch.randn(k, n, device=dev, generator=g)
+        v = v[0] if k == 1 else v
+        before = trisolve.banded_trisweep.launches
+        z = trisolve.banded_trisweep(bands, v, offs, unit_diag=unit,
+                                     lower=lower)
+        assert trisolve.banded_trisweep.launches == before + 1
+        zp = trisolve.banded_trisweep_plain(bands, v, offs, unit_diag=unit,
+                                            lower=lower)
+        torch.cuda.synchronize()
+        assert z.shape == v.shape
+        assert _relerr(z, zp) < TOL[torch.float32], (name, offs, unit, lower)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nx", [16, 48])
+def test_ilu0_kernel_matches_plain(dev, nx, dtype):
+    from repro_torch.core import stencils
+    from repro_torch.kernels import trisolve
+
+    op = stencils.convection_diffusion_2d(nx, nx, device=dev)
+    bands = op.bands.to(dtype)
+    cases = [(bands, op.offsets), (bands[1:4].contiguous(), (-1, 0, 1))]
+    if nx == 16:   # a pattern whose eliminations update lower slots
+        g = torch.Generator(device=dev).manual_seed(3)
+        b5 = torch.rand(5, 300, device=dev, generator=g) - 0.5
+        b5[2] += 3.0
+        cases.append((b5.to(dtype), (-2, -1, 0, 1, 2)))
+    else:          # a 3-D stencil: 7 bands, rows 10^4 apart
+        op3 = stencils.poisson_3d(100, 100, 10, device=dev)
+        cases.append((op3.bands.to(dtype), op3.offsets))
+    for b, offs in cases:
+        before = trisolve.ilu0_factor.launches
+        got = trisolve.ilu0_factor(b, offs)
+        assert trisolve.ilu0_factor.launches == before + 1
+        want = trisolve.ilu0_factor_plain(b.cpu(), offs)
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == torch.float32
+            assert _relerr(g_.cpu(), w_) < 1e-6, offs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", [1, 2, 4, 8])
+def test_banded_cheb_apply_kernel_matches_plain(dev, order, dtype):
+    from repro_torch.core import preconditioners, stencils
+    from repro_torch.kernels import matrix_powers as mp
+
+    for nx in (32, 256):
+        op = stencils.convection_diffusion_2d(nx, nx, device=dev)
+        pc = preconditioners.chebyshev(op, order=order)
+        bands = op.bands.to(dtype)
+        g = torch.Generator(device=dev).manual_seed(order)
+        v = torch.randn(nx * nx, device=dev, generator=g)
+        before = mp.banded_cheb_apply.launches
+        z = mp.banded_cheb_apply(bands, v, op.offsets, theta=pc.theta,
+                                 delta=pc.delta, rhos=pc.rhos)
+        assert mp.banded_cheb_apply.launches == before + 1
+        zp = mp.banded_cheb_apply_plain(bands, v, op.offsets, theta=pc.theta,
+                                        delta=pc.delta, rhos=pc.rhos)
+        torch.cuda.synchronize()
+        assert _relerr(z, zp) < TOL[dtype]
+
+
+@pytest.mark.parametrize("name", ["chebyshev", "banded_ilu0", "line_jacobi",
+                                  "jacobi"])
+def test_preconditioned_solves_count_launches(dev, name):
+    """gmres with a preconditioner on the card against the CPU: one apply
+    per Arnoldi step and one per cycle (x0 + M^-1 dx); Chebyshev launches
+    its kernel once per apply, ILU(0) two sweeps; the setup factors once."""
+    from repro_torch.core import preconditioners, stencils
+    from repro_torch.kernels import matrix_powers as mp
+    from repro_torch.kernels import spmv, trisolve
+
+    op_c = stencils.convection_diffusion_2d(32, 32, device=dev)
+    op_h = stencils.convection_diffusion_2d(32, 32, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(1024)
+                         .astype(np.float32))
+    counters = {"cheb": mp.banded_cheb_apply,
+                "sweep": trisolve.banded_trisweep,
+                "ilu": trisolve.ilu0_factor, "mv": spmv.banded_matvec}
+    before = {k: f.launches for k, f in counters.items()}
+    pc = preconditioners.make_preconditioner(name, op_c)
+    res = gmres(op_c, b.to(dev), m=30, tol=1e-5, max_restarts=200,
+                gs="cgs2_fused", precond=pc)
+    d = {k: f.launches - before[k] for k, f in counters.items()}
+    ref = gmres(op_h, b, m=30, tol=1e-5, max_restarts=200, gs="cgs2_fused",
+                precond=preconditioners.make_preconditioner(name, op_h))
+    assert res.converged and ref.converged
+    assert abs(res.restarts - ref.restarts) <= 1
+    assert float((res.x.cpu() - ref.x).norm() / ref.x.norm()) <= 1e-3
+    applies = res.inner_steps + res.restarts
+    mvs = res.inner_steps + res.restarts + 1
+    if name == "chebyshev":       # + the interval's 8 power iterations
+        want = {"cheb": applies, "sweep": 0, "ilu": 0, "mv": mvs + 8}
+    elif name == "jacobi":
+        want = {"cheb": 0, "sweep": 0, "ilu": 0, "mv": mvs}
+    else:
+        want = {"cheb": 0, "sweep": 2 * applies, "ilu": 1, "mv": mvs}
+    assert d == want
