@@ -193,6 +193,50 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               per Arnoldi step and the time to solution, beside the
               unpreconditioned banded cgs2_fused solve timed in turn.
 
+The row-sharded slice, on a one-rank NCCL process group (``file://``
+rendezvous in a temporary directory; the card has one GPU, and NCCL puts
+no two ranks on one device, so multi-rank NCCL is not run here):
+
+19. sharded_kernels  gs_project_partial, block_gs_project,
+              banded_powers_halo, banded_matvec_halo and ell_matvec_halo
+              against their plain versions on the card, float32 and
+              bfloat16 storage, phase 2's bars, at full width (the 1024^2
+              stencil, n = 2^20, j = 15, k_start 25, s = 5, the band stack
+              pre-scaled as the s-step solver scales it), and split four
+              ways in one process: the shards' halos cut from the global
+              vectors as halo_exchange delivers them, the partials summed
+              in rank order, held to the full-width call.
+20. sharded_solve  gmres_sharded and gmres_sstep_sharded at full width on
+              the dense n = 10,000 dominance-0.015 system and the 1024^2
+              stencil (banded, ELL, sliced ELL) under gs = cgs2_fused and
+              cgs2_pipelined; s-step banded (s = 5, 6 blocks) under cgs2
+              and cgs2_pipelined; chebyshev(4), jacobi and
+              banded_block_jacobi on the banded stencil and block_jacobi on
+              the dense system.  Each held to the one-device port solve of
+              the same system (phases 3, 7, 11 where they ran it, else run
+              here; banded_block_jacobi on one rank is banded_ilu0):
+              converged, true relres <= 2 tol, restarts within +-1 (10% on
+              the 70-restart stencil), x within 1e-3.  Counters zeroed
+              around each solve and held to the scheme, and the
+              collectives (tuning.COLLECTIVES) to the JAX package's count
+              per step (per block) plus the solve's own; the 32^2 system on
+              the card (NCCL) against the CPU (a gloo group).
+21. sharded_timing  each new kernel cold (L2 emptied) and warm at the
+              path's shapes, float32 and bfloat16, beside its bound, its
+              plain version, a composite over the rows the kernel reads
+              (row 4: torch.mv(V[:j+1], w) + pad; row 10: two
+              torch.matmul over V[:k_start+1] + pad; row 15: s CSR
+              torch.mv + norms) and a library call (row 4: the cuBLAS
+              GEMV torch.mv(V[:j+1], w); the halo SpMVs: the CSR torch.mv
+              of the same matrix, cuSPARSE); then the dense and banded
+              cgs2_fused, banded cgs2_pipelined and banded s-step solves
+              over their first TIMING_RESTARTS cycles, one device and
+              sharded in turn (one device, sharded, sharded, one
+              device): wall and device ms
+              per step, idle share, and the time spent in collectives per
+              step (host, around the calls, and per call by kind; device,
+              the NCCL kernels in the profile).
+
 Then one ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result line.  Without a
@@ -250,6 +294,8 @@ SSTEP_BASES = ("monomial", "newton")
 # single-reduce block pair at k_start = 0 and 25 (s = 5).
 PIPE_J = (0, 15, 29)
 PIPE_K = (0, 25)
+# The sharded slice's timing runs the first 10 of the stencil's 70 cycles.
+TIMING_RESTARTS = 10
 
 
 T0 = time.perf_counter()
@@ -2034,6 +2080,561 @@ def precond_phases(smi, gen, sparse_solves):
     return errs, ctr.totals, timing
 
 
+class Collectives:
+    """Host time spent in the row-sharded solvers' collective calls (the
+    all-reduces, all-gathers and halo exchanges), by wrapping the three
+    entry points the port routes every collective through: seconds in
+    all, and seconds and calls by entry point.  A call that issues no
+    collective (``all_reduce(x, None)`` on one device's path, a zero-width
+    halo) counts neither time nor call."""
+
+    def __init__(self):
+        from repro_torch.kernels import spmv, tuning
+        self.targets = ((tuning, "all_reduce"), (tuning, "all_gather"),
+                        (spmv, "halo_exchange"))
+        self.seconds = 0.0
+        self.by_name = {name: [0.0, 0] for _, name in self.targets}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.targets]
+        from repro_torch.kernels import tuning
+        issued = tuning.COLLECTIVES
+
+        for (mod, name), fn in zip(self.targets, self.saved):
+            def timed_call(*a, _fn=fn, _name=name, **k):
+                before = sum(issued.values())
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    dt = time.perf_counter() - t0
+                    if sum(issued.values()) > before:
+                        self.seconds += dt
+                        self.by_name[_name][0] += dt
+                        self.by_name[_name][1] += 1
+            setattr(mod, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+
+def sharded_expected(fmt, solver, gs, pc, res, blocks, n_rhos):
+    """Kernel launches, collectives and collectives per Arnoldi step (per
+    s-step block) of one sharded solve on one rank (phase 20): the counts
+    the CPU tests take from the JAX package per step, plus the solve's own
+    (||b||, the true residuals, the final gather of x; s-step: the band
+    exchange and theta).  ``n_rhos``: mat-vecs per Chebyshev apply."""
+    st, rs = res.inner_steps, res.restarts
+    mv = {"dense": "block_matvec", "banded": "banded_matvec_halo",
+          "ell": "ell_matvec_halo",
+          "sell": "ell_matvec_halo"}[fmt]
+    coll = {"all_reduce": 0, "all_gather": 1, "halo": 0}  # x gather
+    op_coll = "all_gather" if fmt == "dense" else "halo"
+    if solver == "sstep":
+        nb = blocks * rs
+        launches = {"banded_powers_halo": nb,
+                    "block_gs_update": 2 * nb, mv: rs + 1,
+                    ("block_gs_project" if gs == "cgs2"
+                     else "block_gs_project_gram"): 2 * nb}
+        per_block = 5 if gs == "cgs2" else 3
+        # bnorm, residuals, theta; bands once, u_0 per block
+        coll["all_reduce"] += per_block * nb + rs + 3
+        coll["halo"] += nb + rs + 2
+        return launches, coll, {"all_reduce": per_block,
+                                "halo": 1, "all_gather": 0}
+    mvs = st + rs + 1 + (rs if gs == "cgs2_pipelined" else 0)
+    launches = {mv: mvs, "gs_update": 2 * st}
+    if gs == "cgs2_pipelined":
+        launches["gs_project_norm_partial"] = st
+        coll["all_reduce"] += st + rs + 2
+        per_step = {"all_reduce": 1}
+    else:
+        launches["gs_project_partial"] = 2 * st
+        coll["all_reduce"] += 3 * st + rs + 2
+        per_step = {"all_reduce": 3}
+    per_step[op_coll] = 1
+    if pc == "chebyshev":     # the interval's 8 power iterations
+        launches["banded_matvec"] = 8
+        launches[mv] += n_rhos * (st + rs)
+        per_step["halo"] += n_rhos
+    elif pc == "banded_block_jacobi":
+        launches["ilu0_factor"] = 1
+        launches["banded_trisweep"] = 2 * (st + rs)
+    coll[op_coll] += launches[mv]
+    return launches, coll, dict({"all_reduce": 0, "all_gather": 0,
+                                 "halo": 0}, **per_step)
+
+
+def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
+    """Phases 19-21: the row-sharded slice on a one-rank NCCL group.
+    ``dense_fused``: phase 3's dense cgs2_fused solve; ``sparse_solves``
+    phase 7's stencil solves by (fmt, gs); ``sstep_solves`` phase 11's by
+    (system, basis).  Returns (max abs errors, main-path launches, timing
+    rows) of its kernels, keyed by wrapper name."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import (gmres, gmres_sharded, gmres_sstep,
+                                  gmres_sstep_sharded, operators, stencils)
+    from repro_torch.core import preconditioners as P
+    from repro_torch.kernels import (arnoldi_fused, block_gs, cgs2, matvec,
+                                     spmv, trisolve, tuning)
+    from repro_torch.kernels import matrix_powers as mp
+
+    ctr = Counters({"gs_project_partial": cgs2.gs_project_partial,
+                    "block_gs_project": block_gs.block_gs_project,
+                    "banded_powers_halo": mp.banded_powers_halo,
+                    "banded_matvec_halo": spmv.banded_matvec_halo,
+                    "ell_matvec_halo": spmv.ell_matvec_halo},
+                   banded_matvec=spmv.banded_matvec,
+                   ell_matvec=spmv.ell_matvec, sell_matvec=spmv.sell_matvec,
+                   block_matvec=matvec.block_matvec,
+                   gs_project=cgs2.gs_project,
+                   arnoldi_step=arnoldi_fused.arnoldi_step,
+                   gs_project_norm_partial=cgs2.gs_project_norm_partial,
+                   gs_update=cgs2.gs_update,
+                   block_gs_pass=block_gs.block_gs_pass,
+                   block_gs_project_gram=block_gs.block_gs_project_gram,
+                   block_gs_update=block_gs.block_gs_update,
+                   banded_powers=mp.banded_powers,
+                   banded_cheb_apply=mp.banded_cheb_apply,
+                   banded_trisweep=trisolve.banded_trisweep,
+                   ilu0_factor=trisolve.ilu0_factor)
+    errs = {name: [] for name in ctr.kernels}
+    f32 = torch.float32
+    n, halo, s, blocks = NX * NX, NX, SSTEP_S, SSTEP_BLOCKS
+    j, k_start = 15, 25
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    ell = op.to_ell()
+    offsets = op.offsets
+    # the band stack as the s-step solver pre-scales it (theta >= ||A||_inf)
+    scaled = op.bands / op.bands.abs().sum(dim=0).max()
+    pad = torch.nn.functional.pad
+
+    def compare(name, got, want, dtype, **info):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        rel = max(relerr(g, w) for g, w in zip(got, want))
+        err = max(abserr(g, w) for g, w in zip(got, want))
+        errs[name].append(err)
+        emit(phase="sharded_kernels", kernel=name, dtype=str(dtype),
+             max_rel_err=rel, max_abs_err=err, **info)
+        check(rel < TOLS[dtype], f"{name} {info} {dtype}: {rel}")
+
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/pg",
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        cpu_group = dist.new_group(ranks=[0], backend="gloo")
+        # ---- 19. the per-shard kernels vs plain ---------------------------
+        for dtype in (f32, torch.bfloat16):
+            v = basis(n, M + 1, j, dtype, gen)
+            w = torch.randn(n, device="cuda", generator=gen)
+            vb = basis(n, M + 1, k_start, dtype, gen)
+            wb = torch.randn(s, n, device="cuda", generator=gen)
+            tin = torch.eye(s, device="cuda") + 0.1 * torch.randn(
+                s, s, device="cuda", generator=gen)
+            bands = scaled.to(dtype)
+            x = torch.randn(n, device="cuda", generator=gen)
+            xk = torch.randn(n, 4, device="cuda", generator=gen)
+            vals = ell.values.to(dtype)
+            full = {
+                "gs_project_partial": cgs2.gs_project_partial(v, w, j),
+                "block_gs_project": block_gs.block_gs_project(vb, wb, tin,
+                                                              k_start),
+                "banded_powers_halo": mp.banded_powers_halo(
+                    pad(bands, (s * halo, s * halo)).contiguous(),
+                    pad(x, (s * halo, s * halo)), offsets, s),
+                "banded_matvec_halo": spmv.banded_matvec_halo(
+                    bands, pad(xk, (0, 0, halo, halo)), offsets),
+                "ell_matvec_halo": spmv.ell_matvec_halo(
+                    vals, ell.cols + halo, pad(xk, (0, 0, halo, halo)))}
+            plain = {
+                "gs_project_partial": cgs2.gs_project_partial_plain(v, w, j),
+                "block_gs_project": block_gs.block_gs_project_plain(
+                    vb, wb, tin, k_start),
+                "banded_powers_halo": mp.banded_powers_halo_plain(
+                    pad(bands, (s * halo, s * halo)),
+                    pad(x, (s * halo, s * halo)), offsets, s),
+                "banded_matvec_halo": spmv.banded_matvec_halo_plain(
+                    bands, pad(xk, (0, 0, halo, halo)), offsets),
+                "ell_matvec_halo": spmv.ell_matvec_halo_plain(
+                    vals, ell.cols + halo, pad(xk, (0, 0, halo, halo)))}
+            for name in full:
+                compare(name, full[name], plain[name], dtype, n=n,
+                        width="full", j=j, k_start=k_start, s=s)
+            # four shards in one process: halos cut from the global
+            # vectors as halo_exchange delivers them, partials summed in
+            # rank order, against the full-width call
+            nl = n // 4
+            ex = (s - 1) * halo
+            bands_ex = pad(bands, (ex, ex))
+            x_s = pad(x, (s * halo, s * halo))
+            xk_h = pad(xk, (0, 0, halo, halo))
+            parts = {name: [] for name in full}
+            for p in range(4):
+                r0, rows = p * nl, slice(p * nl, (p + 1) * nl)
+                parts["gs_project_partial"].append(cgs2.gs_project_partial(
+                    v[:, rows].contiguous(), w[rows], j))
+                parts["block_gs_project"].append(block_gs.block_gs_project(
+                    vb[:, rows].contiguous(), wb[:, rows].contiguous(), tin,
+                    k_start))
+                parts["banded_powers_halo"].append(mp.banded_powers_halo(
+                    pad(bands_ex[:, r0:r0 + nl + 2 * ex],
+                        (halo, halo)).contiguous(),
+                    x_s[r0:r0 + nl + 2 * s * halo].contiguous(), offsets, s))
+                parts["banded_matvec_halo"].append(spmv.banded_matvec_halo(
+                    bands[:, rows].contiguous(),
+                    xk_h[r0:r0 + nl + 2 * halo].contiguous(), offsets))
+                cols_p = torch.clamp(ell.cols[rows] - r0 + halo, 0,
+                                     nl + 2 * halo - 1).contiguous()
+                parts["ell_matvec_halo"].append(spmv.ell_matvec_halo(
+                    vals[rows].contiguous(), cols_p,
+                    xk_h[r0:r0 + nl + 2 * halo].contiguous()))
+            c_sum = parts["block_gs_project"][0][1].clone()
+            nrm_sum = parts["banded_powers_halo"][0][1].clone()
+            h_sum = parts["gs_project_partial"][0].clone()
+            for p in range(1, 4):                 # rank order
+                h_sum += parts["gs_project_partial"][p]
+                c_sum += parts["block_gs_project"][p][1]
+                nrm_sum += parts["banded_powers_halo"][p][1]
+            split = {
+                "gs_project_partial": h_sum,
+                "block_gs_project": (torch.cat(
+                    [q for q, _ in parts["block_gs_project"]], dim=1), c_sum),
+                "banded_powers_halo": (torch.cat(
+                    [z for z, _ in parts["banded_powers_halo"]], dim=1),
+                    nrm_sum),
+                "banded_matvec_halo": torch.cat(parts["banded_matvec_halo"]),
+                "ell_matvec_halo": torch.cat(parts["ell_matvec_halo"])}
+            for name in full:
+                compare(name, split[name], full[name], dtype, n=n,
+                        width="4 shards in rank order vs full", j=j,
+                        k_start=k_start, s=s)
+            del v, vb, wb, parts, split, full, plain
+
+        # ---- 20. the sharded solves --------------------------------------
+        b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                             .astype(np.float32)).cuda()
+        a_d = operators.random_diagdom(N, dominance=0.015, seed=0)
+        b_d = torch.from_numpy(np.random.default_rng(1).standard_normal(N)
+                               .astype(np.float32)).cuda()
+        dense = operators.DenseOperator(a_d, backend="cuda")
+        systems = {"banded": op, "ell": ell,
+                   "sell": operators.SlicedEllOperator.from_ell(ell),
+                   "dense": dense}
+        bands64 = op.bands.double()
+
+        def relres(fmt, x):
+            if fmt == "dense":
+                r = torch.mv(a_d.double(), x.double()) - b_d.double()
+                return float(r.norm() / b_d.double().norm())
+            r = spmv.banded_matvec_plain(bands64, x.double(), offsets) \
+                - b.double()
+            return float(r.norm() / b.double().norm())
+
+        n_rhos = len(P.cheb_coeffs(4, 0.5, 1.0)[2])
+        runs = [(fmt, "gmres", gs, None)
+                for gs in ("cgs2_fused", "cgs2_pipelined")
+                for fmt in ("dense", "banded", "ell", "sell")]
+        runs += [("banded", "sstep", gs, None)
+                 for gs in ("cgs2", "cgs2_pipelined")]
+        runs += [("banded", "gmres", "cgs2_fused", pc)
+                 for pc in ("chebyshev", "jacobi", "banded_block_jacobi")]
+        runs += [("dense", "gmres", "cgs2_fused", "block_jacobi")]
+
+        def sharded(fmt, solver, gs, pc, budget=SPARSE_RESTARTS):
+            rhs = b_d if fmt == "dense" else b
+            if solver == "sstep":
+                return lambda: gmres_sstep_sharded(
+                    group, systems[fmt], rhs, s=s, blocks=blocks, tol=TOL,
+                    max_restarts=budget, gs=gs, precond=pc)
+            return lambda: gmres_sharded(
+                group, systems[fmt], rhs, m=M, tol=TOL, max_restarts=budget,
+                gs=gs, precond=pc)
+
+        def single(fmt, solver, gs, pc, budget=SPARSE_RESTARTS):
+            rhs = b_d if fmt == "dense" else b
+            if pc == "banded_block_jacobi":   # one rank: the whole block
+                pc_obj = P.banded_ilu0(op)
+            elif pc == "block_jacobi":
+                pc_obj = P.block_jacobi(a_d, N)
+            else:
+                pc_obj = None if pc is None else P.make_preconditioner(
+                    pc, systems[fmt], order=4)
+            if solver == "sstep":
+                return lambda: gmres_sstep(systems[fmt], rhs, s=s,
+                                           blocks=blocks, tol=TOL,
+                                           max_restarts=budget, gs=gs,
+                                           precond=pc_obj)
+            return lambda: gmres(systems[fmt], rhs, m=M, tol=TOL,
+                                 max_restarts=budget, gs=gs, precond=pc_obj)
+
+        refs = {("banded", "gmres", "cgs2_fused", None):
+                sparse_solves[("banded", "cgs2_fused")][0],
+                ("ell", "gmres", "cgs2_fused", None):
+                sparse_solves[("ell", "cgs2_fused")][0],
+                ("sell", "gmres", "cgs2_fused", None):
+                sparse_solves[("sell", "cgs2_fused")][0],
+                ("dense", "gmres", "cgs2_fused", None): dense_fused,
+                ("banded", "sstep", "cgs2", None):
+                sstep_solves[("banded", "monomial")]}
+        results = {}
+        for key in runs:
+            fmt, solver, gs, pc = key
+            if key not in refs:
+                refs[key] = single(*key)()
+            ref = refs[key]
+            ctr.zero()
+            for kind in tuning.COLLECTIVES:
+                tuning.COLLECTIVES[kind] = 0
+            t0 = time.perf_counter()
+            res = sharded(*key)()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d = ctr.read()
+            coll = dict(tuning.COLLECTIVES)
+            rr = relres(fmt, res.x)
+            diff = float((res.x - ref.x).norm() / ref.x.norm())
+            launches, want_coll, per_step = sharded_expected(
+                *key, res, blocks, n_rhos)
+            emit(phase="sharded_solve", fmt=fmt, solver=solver, gs=gs,
+                 precond=pc, n=res.x.shape[0], converged=res.converged,
+                 restarts=res.restarts, single_restarts=ref.restarts,
+                 inner_steps=res.inner_steps, true_relres=rr,
+                 x_rel_to_single=diff, wall_s=wall, launches=d,
+                 collectives=coll, collectives_per_step=per_step)
+            what = f"sharded {fmt}/{solver}/{gs}/{pc}"
+            check(res.converged, f"{what} did not converge")
+            check(rr <= 2 * TOL, f"{what}: true relres {rr}")
+            check(bool(torch.isfinite(res.x).all())
+                  and res.x.shape == ref.x.shape, f"{what}: x not finite")
+            check(abs(res.restarts - ref.restarts)
+                  <= max(1, 0.1 * ref.restarts),
+                  f"{what}: {res.restarts} restarts vs {ref.restarts}")
+            check(diff <= 1e-3, f"{what}: x differs from one device by "
+                                f"{diff}")
+            ctr.expect(d, launches, what)
+            check(coll == want_coll, f"{what}: collectives {coll}, "
+                                     f"expected {want_coll}")
+            results[key] = res
+        for name, count in ctr.totals.items():
+            check(count > 0, f"{name} was never launched on the sharded "
+                             f"path")
+        launches_total = dict(ctr.totals)
+        emit(phase="sharded_solve", launches_total=launches_total)
+
+        # the 32^2 system on the card against the same solve on the CPU
+        b_s = np.random.default_rng(1).standard_normal(32 * 32) \
+            .astype(np.float32)
+        for solver in ("gmres", "sstep"):
+            got, want = [
+                (gmres_sstep_sharded if solver == "sstep" else
+                 gmres_sharded)(
+                    g, stencils.convection_diffusion_2d(
+                        32, 32, beta=BETA, device=dv), b_s,
+                    **(dict(s=s, blocks=blocks) if solver == "sstep"
+                       else dict(m=M)), tol=TOL,
+                    max_restarts=SPARSE_RESTARTS, device=dv)
+                for g, dv in ((group, "cuda"), (cpu_group, "cpu"))]
+            diff = float((got.x.cpu() - want.x).norm() / want.x.norm())
+            emit(phase="sharded_solve", reference="cpu", n=32 * 32,
+                 solver=solver, restarts=[got.restarts, want.restarts],
+                 x_rel=diff)
+            check(got.converged and want.converged
+                  and abs(got.restarts - want.restarts) <= 1
+                  and diff <= 1e-3,
+                  f"sharded {solver}: card and CPU disagree at 32^2 "
+                  f"({diff})")
+        ctr.zero()
+
+        # ---- 21. timing ---------------------------------------------------
+        timing = {}
+        nbands = op.bands.shape[0]
+        csr = csr_of(ell.values, ell.cols)
+        w = torch.randn(n, device="cuda", generator=gen)
+        wb = torch.randn(s, n, device="cuda", generator=gen)
+        tin = torch.eye(s, device="cuda") + 0.1 * torch.randn(
+            s, s, device="cuda", generator=gen)
+        x = torch.randn(n, device="cuda", generator=gen)
+        csr_name = "CSR torch.mv of the same matrix (cuSPARSE)"
+        per_path = {"gs_project_partial": "gs_project_partial",
+                    "block_gs_project": "block_gs_project",
+                    "banded_powers_halo": "banded_powers_halo",
+                    "banded_matvec_halo": "banded_matvec_halo",
+                    "ell_matvec_halo": "ell_matvec_halo"}
+        for dtype in (f32, torch.bfloat16):
+            sz = torch.empty((), dtype=dtype).element_size()
+            v = basis(n, M + 1, j, dtype, gen)
+            vb = basis(n, M + 1, k_start, dtype, gen)
+            bands_pad = pad(scaled, (s * halo, s * halo)).to(dtype) \
+                .contiguous()
+            width = n + 2 * s * halo
+            x_s = pad(x, (s * halo, s * halo))
+            x_h = pad(x, (halo, halo))
+            bands = op.bands.to(dtype)
+            vals = ell.values.to(dtype)
+            cols_h = (ell.cols + halo).contiguous()
+            vf, vbf = v.float(), vb.float()
+
+            def powers_composite():
+                z, out = x, []
+                for _ in range(s):
+                    z = torch.mv(csr, z)
+                    out.append(z)
+                zs = torch.stack(out)
+                return zs, (zs * zs).sum(dim=1)
+
+            rows = {
+                "gs_project_partial": dict(
+                    fn=lambda: cgs2.gs_project_partial(v, w, j),
+                    plain=lambda: cgs2.gs_project_partial_plain(v, w, j),
+                    composite=lambda: pad(torch.mv(vf[:j + 1], w),
+                                          (0, M - j)),
+                    composite_name="torch.mv(V[:j+1], w) + pad",
+                    library=lambda: torch.mv(v[:j + 1], w),
+                    library_name="torch.mv(V[:j+1], w) (cuBLAS GEMV)",
+                    bytes=((j + 1) * sz + 4) * n, flops=2 * (j + 1) * n),
+                "block_gs_project": dict(
+                    fn=lambda: block_gs.block_gs_project(vb, wb, tin,
+                                                         k_start),
+                    plain=lambda: block_gs.block_gs_project_plain(
+                        vb, wb, tin, k_start),
+                    composite=lambda: (lambda q: (q, pad(
+                        vbf[:k_start + 1] @ q.T, (0, 0, 0, M - k_start))))(
+                        torch.matmul(tin, wb)),
+                    composite_name="2 torch.matmul (T W, V[:k+1] Q^T) + pad",
+                    library=None,
+                    bytes=((k_start + 1) * sz + 8 * s) * n,
+                    flops=2 * s * s * n + 2 * (k_start + 1) * s * n),
+                "banded_powers_halo": dict(
+                    fn=lambda: mp.banded_powers_halo(bands_pad, x_s,
+                                                     offsets, s),
+                    plain=lambda: mp.banded_powers_halo_plain(
+                        bands_pad, x_s, offsets, s),
+                    composite=powers_composite,
+                    composite_name=f"{s} CSR torch.mv + norms",
+                    library=None,
+                    bytes=nbands * width * sz + 4 * width + 4 * s * n
+                    + 4 * s,
+                    flops=s * (2 * nbands * width + 2 * n)),
+                "banded_matvec_halo": dict(
+                    fn=lambda: spmv.banded_matvec_halo(bands, x_h, offsets),
+                    plain=lambda: spmv.banded_matvec_halo_plain(
+                        bands, x_h, offsets),
+                    composite=None, composite_name=None,
+                    library=lambda: torch.mv(csr, x),
+                    library_name=csr_name,
+                    bytes=nbands * n * sz + 4 * (n + 2 * halo) + 4 * n,
+                    flops=2 * nbands * n),
+                "ell_matvec_halo": dict(
+                    fn=lambda: spmv.ell_matvec_halo(vals, cols_h, x_h),
+                    plain=lambda: spmv.ell_matvec_halo_plain(vals, cols_h,
+                                                             x_h),
+                    composite=None, composite_name=None,
+                    library=lambda: torch.mv(csr, x),
+                    library_name=csr_name,
+                    bytes=ell.values.numel() * (sz + 4)
+                    + 4 * (n + 2 * halo) + 4 * n,
+                    flops=2 * ell.values.numel())}
+            for name, spec in rows.items():
+                row = dict(**timed(spec["fn"], cold=True),
+                           warm_ms=timed(spec["fn"])["ms"],
+                           plain_ms=timed(spec["plain"], cold=True)["ms"]
+                           if dtype == f32 else None,
+                           composite_ms=timed(spec["composite"],
+                                              cold=True)["ms"]
+                           if spec["composite"] and dtype == f32 else None,
+                           composite=spec["composite_name"],
+                           library_ms=timed(spec["library"], cold=True)["ms"]
+                           if spec["library"] and dtype == f32 else None,
+                           library=spec.get("library_name"),
+                           bytes=spec["bytes"], flops=spec["flops"], n=n,
+                           j=j, k_start=k_start, s=s,
+                           launches_per_path=launches_total[per_path[name]])
+                row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                         row["flops"])
+                emit(phase="sharded_timing", kernel=name, dtype=str(dtype),
+                     card=smi, **row)
+                if dtype == f32:
+                    timing[name] = row
+            del v, vb, bands_pad
+
+        # per solve: wall, device, idle share and collectives per step of
+        # each sharded solve beside its one-device solve, in turn
+        # (one device, sharded, sharded, one device), over the first
+        # TIMING_RESTARTS cycles (whole cycles of m steps: the per-step
+        # mix of the full solve at a seventh of its time)
+        def one_run(run):
+            with Collectives() as cl:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            return res, wall, cl
+
+        def profiled(run):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            by = kernel_ms(prof)
+            return (sum(by.values()),
+                    sum(ms for key, ms in by.items() if "nccl" in key.lower()))
+
+        pairs = [("dense", "gmres", "cgs2_fused", None),
+                 ("banded", "gmres", "cgs2_fused", None),
+                 ("banded", "gmres", "cgs2_pipelined", None),
+                 ("banded", "sstep", "cgs2", None)]
+        for key in pairs:
+            walls = {"single": [], "sharded": []}
+            steps, colls = {}, []
+            for which in ("single", "sharded", "sharded", "single"):
+                run = (single if which == "single" else sharded)(
+                    *key, budget=TIMING_RESTARTS)
+                res, wall, cl = one_run(run)
+                walls[which].append(wall)
+                steps[which] = res.inner_steps
+                if which == "sharded":
+                    colls.append(cl)
+            dev_single, _ = profiled(single(*key, budget=TIMING_RESTARTS))
+            dev_sharded, nccl = profiled(sharded(*key,
+                                                 budget=TIMING_RESTARTS))
+            st, st1 = steps["sharded"], steps["single"]
+            cl = min(colls, key=lambda c: c.seconds)
+            row = dict(
+                solve="/".join(str(k) for k in key), steps=st,
+                single_steps=st1, restarts=TIMING_RESTARTS,
+                wall_ms_per_step=min(walls["sharded"]) / st,
+                single_wall_ms_per_step=min(walls["single"]) / st1,
+                walls_ms=walls,
+                device_ms_per_step=dev_sharded / st,
+                single_device_ms_per_step=dev_single / st1,
+                device_idle_share=1 - dev_sharded / min(walls["sharded"]),
+                single_device_idle_share=1 - dev_single
+                / min(walls["single"]),
+                collective_host_ms_per_step=cl.seconds * 1e3 / st,
+                collective_host_ms_per_call={
+                    name: sec * 1e3 / calls
+                    for name, (sec, calls) in cl.by_name.items() if calls},
+                collective_calls_per_step={
+                    name: calls / st
+                    for name, (sec, calls) in cl.by_name.items()},
+                nccl_device_ms_per_step=nccl / st, card=smi)
+            emit(phase="sharded_timing", **row)
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return errs, launches_total, timing
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device is available")
     from repro_torch.core import gmres, operators, strategies
@@ -2375,6 +2976,13 @@ def main() -> None:
     launches.update(c_launches)
     timing.update(c_timing)
 
+    # ---- 19-21. the row-sharded slice (one-rank NCCL group) ---------------
+    d_errs, d_launches, d_timing = sharded_phases(
+        smi, gen, solves[(0.015, "cgs2_fused")], sparse_solves, sstep_solves)
+    errs.update(d_errs)
+    launches.update(d_launches)
+    timing.update(d_timing)
+
     sources = {"block_matvec": ("src/repro_torch/csrc/matvec.cu",
                                 "src/repro/kernels/matvec.py:80"),
                "gs_project": ("src/repro_torch/csrc/cgs2.cu",
@@ -2411,7 +3019,18 @@ def main() -> None:
                "banded_trisweep": ("src/repro_torch/csrc/trisolve.cu",
                                    "src/repro/kernels/trisolve.py:257"),
                "ilu0_factor": ("src/repro_torch/csrc/trisolve.cu",
-                               "src/repro/kernels/trisolve.py:82")}
+                               "src/repro/kernels/trisolve.py:82"),
+               "gs_project_partial": ("src/repro_torch/csrc/sr_payload.cu",
+                                      "src/repro/kernels/cgs2.py:194"),
+               "block_gs_project": ("src/repro_torch/csrc/block_gs.cu",
+                                    "src/repro/kernels/block_gs.py:216"),
+               "banded_powers_halo": (
+                   "src/repro_torch/csrc/matrix_powers.cu",
+                   "src/repro/kernels/matrix_powers.py:253"),
+               "banded_matvec_halo": ("src/repro_torch/csrc/spmv.cu",
+                                      "src/repro/kernels/spmv.py:286"),
+               "ell_matvec_halo": ("src/repro_torch/csrc/spmv.cu",
+                                   "src/repro/kernels/spmv.py:138")}
     emit(kernels=[{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": launches[name],

@@ -15,7 +15,13 @@ Counterpart of ``repro/core/arnoldi.py``.  Schemes:
 
 The basis ``V`` is stored row-major (m+1, n): basis vector j is row j.
 Every step returns a device-resident ``ArnoldiStep``; nothing here syncs
-with the host.  Row-sharded execution is not ported yet.
+with the host.
+
+Every scheme takes an optional ``axis_name``: a ``torch.distributed``
+process group (JAX's mesh axis).  Vectors are then the local shard of a
+row-sharded vector and every inner product is completed by an all-reduce
+over the group (``kernels/tuning.py::all_reduce``, JAX's ``psum``);
+``cgs2_fused`` runs the split-phase kernel pair (``cgs2_split``).
 """
 from __future__ import annotations
 
@@ -25,11 +31,20 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import cgs2 as cgs2_k
+from repro_torch.kernels import tuning
 from repro_torch.kernels.ref import row_mask
 
 
-def norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(v, v))
+def _psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    return tuning.all_reduce(x, axis_name)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, axis_name) -> torch.Tensor:
+    return _psum(torch.dot(a, b), axis_name)
+
+
+def norm(v: torch.Tensor, axis_name=None) -> torch.Tensor:
+    return torch.sqrt(_dot(v, v, axis_name))
 
 
 class ArnoldiStep(NamedTuple):
@@ -43,42 +58,49 @@ def _basis(v_basis: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return v_basis.to(torch.promote_types(v_basis.dtype, w.dtype))
 
 
-def cgs_step(v_basis, w, j: int) -> ArnoldiStep:
+def cgs_step(v_basis, w, j: int, axis_name=None) -> ArnoldiStep:
     """Classical GS (the paper's listing): one projection pass."""
     v = _basis(v_basis, w)
-    h = (v @ w) * row_mask(v.shape[0], j, w.dtype, w.device)
+    h = _psum(v @ w, axis_name) * row_mask(v.shape[0], j, w.dtype, w.device)
     w = w - h @ v
-    return finalize(w, h, j)
+    return finalize(w, h, j, axis_name)
 
 
-def cgs2_step(v_basis, w, j: int) -> ArnoldiStep:
+def cgs2_step(v_basis, w, j: int, axis_name=None) -> ArnoldiStep:
     """CGS2: classical GS applied twice (full reorthogonalization)."""
     v = _basis(v_basis, w)
     mask = row_mask(v.shape[0], j, w.dtype, w.device)
-    h1 = (v @ w) * mask
+    h1 = _psum(v @ w, axis_name) * mask
     w = w - h1 @ v
-    h2 = (v @ w) * mask
+    h2 = _psum(v @ w, axis_name) * mask
     w = w - h2 @ v
-    return finalize(w, h1 + h2, j)
+    return finalize(w, h1 + h2, j, axis_name)
 
 
-def mgs_step(v_basis, w, j: int) -> ArnoldiStep:
-    """Modified GS: sequential projections over the valid rows 0..j."""
+def mgs_step(v_basis, w, j: int, axis_name=None) -> ArnoldiStep:
+    """Modified GS: sequential projections over the valid rows 0..j (one
+    all-reduce per row when sharded; the JAX loop runs all m+1 rows with
+    the rows past j masked, and so pays m+1)."""
     v = _basis(v_basis, w)
     hs = []
     for i in range(j + 1):
-        hi = torch.dot(v[i], w)
+        hi = _dot(v[i], w, axis_name)
         w = w - hi * v[i]
         hs.append(hi)
     h = torch.zeros(v.shape[0], dtype=w.dtype, device=w.device)
     h[: j + 1] = torch.stack(hs)
-    return finalize(w, h, j)
+    return finalize(w, h, j, axis_name)
 
 
-def cgs2_fused_step(v_basis, w, j: int) -> ArnoldiStep:
-    """CGS2 through the fused GS kernel (two launches per step)."""
-    h, w2 = cgs2_k.cgs2(v_basis, w, j)
-    return finalize(w2.to(w.dtype), h.to(w.dtype), j)
+def cgs2_fused_step(v_basis, w, j: int, axis_name=None) -> ArnoldiStep:
+    """CGS2 through the kernels: the fused GS pass (two launches per step),
+    or row-sharded the split-phase pair (project, all-reduce, update,
+    twice)."""
+    if axis_name is None:
+        h, w2 = cgs2_k.cgs2(v_basis, w, j)
+    else:
+        h, w2 = cgs2_k.cgs2_split(v_basis, w, j, axis_name)
+    return finalize(w2.to(w.dtype), h.to(w.dtype), j, axis_name)
 
 
 # --------------------------------------------------------------------------
@@ -114,9 +136,10 @@ def cgs2_fused_step(v_basis, w, j: int) -> ArnoldiStep:
 # basis as built; each restart still recomputes the TRUE residual, which
 # is what the +-1-restart parity contract absorbs.
 #
-# In the port there is no psum (one card): the payload is one kernel launch
-# (``kernels/cgs2.py::gs_project_norm_partial``) whose (m1+1, 2) result is
-# the step's one copy to the host, and the recovery runs there, in numpy.
+# In the port the payload is one kernel launch
+# (``kernels/cgs2.py::gs_project_norm_partial``), all-reduced once by the
+# cycle when row-sharded; its (m1+1, 2) result is the step's one copy to
+# the host, and the recovery runs there, in numpy.
 
 
 def sr_payload_ref(v_basis, z, j: int) -> torch.Tensor:
@@ -128,7 +151,10 @@ def sr_payload_ref(v_basis, z, j: int) -> torch.Tensor:
 
 def sr_payload(v_basis, z, j: int) -> torch.Tensor:
     """The single-reduce payload through the payload kernel (its plain
-    version for CPU tensors)."""
+    version for CPU tensors).  Row-sharded, this is one shard's partial:
+    the pipelined cycle all-reduces it itself, after it has issued the
+    next mat-vec (and so that mat-vec's halo exchange), the one order of
+    collectives every rank keeps."""
     return cgs2_k.gs_project_norm_partial(v_basis, z, j)
 
 
@@ -160,12 +186,12 @@ def sr_recover(payload: np.ndarray, gram: np.ndarray, j: int):
     return h_tot, s_norm, zeta, gram
 
 
-def finalize(w, h, j: int) -> ArnoldiStep:
+def finalize(w, h, j: int, axis_name=None) -> ArnoldiStep:
     """Normalize the orthogonalized w and record the h[j+1] breakdown probe.
 
     Shared epilogue of every scheme and of the fused Arnoldi-step kernel.
     """
-    h_last = norm(w)
+    h_last = norm(w, axis_name)
     eps = torch.finfo(w.dtype).tiny ** 0.5
     v_next = w / torch.clamp(h_last, min=eps)   # breakdown-guarded
     h = h.clone()

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -94,14 +94,16 @@ def classify_residuals(history, *, converged: bool) -> int:
     return HEALTHY
 
 
-@dataclasses.dataclass
-class GmresResult:
+class GmresResult(NamedTuple):
+    """The JAX package's ``GmresResult``: a named tuple in the same field
+    order, so it unpacks and ``_replace``s as the JAX one does."""
     x: torch.Tensor          # solution, on b's device
     residual: float          # final true residual norm ||b - A x||
     restarts: int            # number of restart cycles executed
     converged: bool
     inner_steps: int         # total Arnoldi steps actually taken
-    done: bool               # converged OR restart budget exhausted
+    # converged OR restart budget exhausted (per lane for gmres_batched)
+    done: Optional[bool] = None
     diagnostics: Optional[Diagnostics] = None
 
     @property
@@ -122,18 +124,20 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return np.dtype(str(dtype).removeprefix("torch."))
 
 
-def _make_step_fn(matvec, precond, gs: str, *, identity_precond: bool,
-                  m: int, n: int, basis_dtype) -> Callable:
+def _make_step_fn(matvec, precond, gs: str, axis_name=None, *,
+                  identity_precond: bool, m: int, n: int,
+                  basis_dtype) -> Callable:
     """Build ``step_fn(v_basis, j) -> ArnoldiStep`` for the inner loop.
 
-    ``gs="fused"`` needs an unpreconditioned ``DenseOperator`` whose basis
-    slices fit the kernel's shared memory (``tuning.fused_step_fits``);
-    otherwise it degrades to ``"cgs2_fused"``.  The choice is made here,
-    from shapes, before any launch.
+    ``gs="fused"`` needs an unpreconditioned single-shard
+    ``DenseOperator`` whose basis slices fit the kernel's shared memory
+    (``tuning.fused_step_fits``); otherwise it degrades to
+    ``"cgs2_fused"`` (row-sharded: the split-phase pair).  The choice is
+    made here, from shapes, before any launch.
     """
     if gs in _FUSED_STEP_SCHEMES:
         dev = matvec.a.device if isinstance(matvec, DenseOperator) else None
-        if (identity_precond and dev is not None
+        if (axis_name is None and identity_precond and dev is not None
                 and tuning.fused_step_fits(m + 1, n, tuning.sm_count(dev))):
             # A compute dtype narrower than A's storage also narrows the A
             # stream; cast once per solve, outside the loop.  The
@@ -154,7 +158,7 @@ def _make_step_fn(matvec, precond, gs: str, *, identity_precond: bool,
 
     def step(v_basis, j):
         w = matvec(precond(v_basis[j]))
-        return gs_step(v_basis, w, j)
+        return gs_step(v_basis, w, j, axis_name)
 
     return step
 
@@ -238,7 +242,7 @@ def _beside(side, fn, x):
 
 
 def _gmres_cycle_pipelined(op, x0, r0, beta, m, tol_abs, precond,
-                           basis_dtype, bufs):
+                           basis_dtype, bufs, axis_name=None):
     """One restart cycle of depth-1 pipelined single-reduce GMRES.
 
     Counterpart of the JAX ``_gmres_cycle_pipelined`` (its
@@ -267,6 +271,17 @@ def _gmres_cycle_pipelined(op, x0, r0, beta, m, tol_abs, precond,
     rounding is bounded by the true residual recomputed at every restart.
     The done test is relative, ``||w''|| <= 100 eps ||z||``, so the scheme
     is scale-invariant.
+
+    Row-sharded (``axis_name`` a process group) the payload is all-reduced,
+    the step's one collective, and the mat-vec exchanges its operand.  Both
+    are issued in one fixed order on every rank, as NCCL requires of
+    collectives and point-to-point calls alike: the payload launch, then
+    the next mat-vec (its halo exchange or all-gather) on the side stream,
+    then the payload's all-reduce, so that on the card the mat-vec does
+    not wait for the all-reduce (the current stream, which the side stream
+    waits for, waits for the all-reduce once it is issued).  That order is
+    not verified across ranks on NCCL: the tests run it on gloo across
+    processes, the card on a one-rank group.
     """
     dev = x0.device
     n = x0.shape[0]
@@ -291,6 +306,7 @@ def _gmres_cycle_pipelined(op, x0, r0, beta, m, tol_abs, precond,
         j = steps
         payload = arnoldi.sr_payload(v, z, j)
         u = _beside(side, op, z)
+        payload = arnoldi._psum(payload, axis_name)
         p = payload.cpu().numpy()                 # the step's one sync
         h_tot, s_norm, zeta, gram = arnoldi.sr_recover(p, gram, j)
         h_tot = h_tot.astype(np_dtype)
@@ -370,7 +386,12 @@ def gmres(
         to the host per step while the next mat-vec runs on the card; the
         payload and update kernels).
       precond: right preconditioner M^{-1} as a callable (identity default).
-      axis_name: row-sharded solves are not ported yet; must be None.
+      axis_name: None, or the ``torch.distributed`` process group of a
+        row-sharded solve (JAX's mesh axis): ``a`` then maps a local shard
+        to a local shard (explicit operators take their per-shard paths
+        inside ``tuning.shard_context``, which ``core/distributed.py``
+        enters), ``b`` is the local shard, and every reduction is
+        all-reduced over the group.  Anything else raises ``TypeError``.
       compute_dtype: Krylov-basis storage dtype (e.g. ``torch.bfloat16``);
         reductions still accumulate in f32 and the per-restart true
         residual bounds the rounding.  With ``gs="fused"`` a narrower
@@ -380,10 +401,7 @@ def gmres(
 
     Returns GmresResult; residual is the TRUE residual recomputed from x.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "gmres(axis_name=...): row-sharded solves are not ported yet; "
-            "they arrive with the torch.distributed slice")
+    tuning.check_group(axis_name)
     b = _rhs(b)
     matvec = as_operator(a, device=b.device)
     if x0 is None:
@@ -400,17 +418,18 @@ def gmres(
             return matvec(precond(zv))
         bufs = _PipelineBuffers.for_device(b.device, m, b.dtype)
     else:
-        step_fn = _make_step_fn(matvec, precond, gs,
+        step_fn = _make_step_fn(matvec, precond, gs, axis_name,
                                 identity_precond=identity_precond, m=m,
                                 n=b.shape[0], basis_dtype=basis_dtype)
 
     np_dtype = _np_dtype(b.dtype)
-    tol_abs = max(np_dtype.type(tol) * np_dtype.type(arnoldi.norm(b).item()),
+    bnorm = arnoldi.norm(b, axis_name).item()
+    tol_abs = max(np_dtype.type(tol) * np_dtype.type(bnorm),
                   np_dtype.type(0))
 
     def resid_of(x):
         r = b - matvec(x)
-        return r, np_dtype.type(arnoldi.norm(r).item())
+        return r, np_dtype.type(arnoldi.norm(r, axis_name).item())
 
     r, beta = resid_of(x0)
     # Chronological ring, inf-padded on the left, seeded with ||b - A x0||.
@@ -421,7 +440,7 @@ def gmres(
         if pipelined:
             x, inner = _gmres_cycle_pipelined(op_fn, x, r, beta, m,
                                               tol_abs, precond, basis_dtype,
-                                              bufs)
+                                              bufs, axis_name)
         else:
             x, inner = _gmres_cycle(step_fn, x, r, beta, m, tol_abs,
                                     precond, basis_dtype)

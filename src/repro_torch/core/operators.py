@@ -10,9 +10,23 @@ Counterpart of ``repro/core/operators.py``:
   BandedOperator     DIA band stack + diagonal offsets (stencils)
   FunctionOperator   matrix-free ``v -> A @ v`` callable
 
-plus ``with_dtype``, ``as_operator`` and the test matrices.  The JAX
-package's row-sharded paths (``_sharded_call``) come with the distributed
-slice.
+plus ``with_dtype``, ``as_operator`` and the test matrices.
+
+Row-sharded (inside ``kernels/tuning.py::shard_context``, which
+``core/distributed.py`` enters), an operator holds one rank's rows and
+maps a local shard of v to the local shard of A v, as the JAX package's
+``_sharded_call`` paths do:
+
+  dense       all-gather v, then the local (n_local, n) rows' GEMV
+  ELL         a halo exchange and the ELL kernel's halo mode over the
+              columns in the halo frame; without a halo bound that fits a
+              shard, all-gather v and the same kernel over it
+  banded      a halo exchange and the banded kernel's halo mode (halo >
+              n_local: JAX's all-gather window)
+  sliced ELL  with a halo bound that fits a shard, the rank's rows of
+              ``to_ell_arrays()`` as an ELL shard; else the payload is
+              replicated: all-gather, the sorted product and the rank's
+              rows of it
 
 ``DenseOperator`` takes ``backend=`` to select its mat-vec path:
 
@@ -43,7 +57,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.kernels import matvec as matvec_k
-from repro_torch.kernels import spmv
+from repro_torch.kernels import spmv, tuning
 
 BACKENDS = ("torch", "cuda")
 
@@ -77,7 +91,11 @@ class DenseOperator:
         self.backend = backend
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        # v: (n,) or (n, k)
+        # v: (n,) or (n, k); row-sharded, the local shard: dense rows touch
+        # every column, so the operand gather is irreducible.
+        group = tuning.shard_axis()
+        if group is not None:
+            v = tuning.all_gather(v, group)
         if self.backend == "cuda":
             if v.ndim == 1:
                 return matvec_k.matvec(self.a, v)
@@ -117,11 +135,17 @@ class SparseOperator:
     indices in ``cols[i, :]``, padded to the shared width (padding slots
     hold value 0 at column 0, so every gather stays in bounds).  ``halo``
     is the bandwidth bound max |col - row| over the nonzeros, recorded by
-    the constructors for the row-sharded solve of a later slice.
+    the constructors for the row-sharded solve.
+
+    A rank's shard (``core/distributed.py::local_operator``) holds its rows
+    with global ``cols``, and, when ``halo`` fits a shard, ``halo_cols``:
+    the same columns in the rank's halo frame (global - rank * n_local +
+    halo, clipped as JAX clips them: a padding slot, value 0 at column 0,
+    lands in range and adds 0).
     """
 
     def __init__(self, values, cols, halo: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", halo_cols=None):
         self.values = device_mod.as_tensor(values, device)
         self.cols = device_mod.as_tensor(cols, device).to(torch.int32)
         if self.values.ndim != 2 or self.cols.shape != self.values.shape:
@@ -130,9 +154,21 @@ class SparseOperator:
                             f"{tuple(self.cols.shape)} must be one (n, "
                             f"width) shape")
         self.halo = halo
+        self.halo_cols = halo_cols
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return spmv.ell_matvec(self.values, self.cols, v)
+        group = tuning.shard_axis()
+        if group is None:
+            return spmv.ell_matvec(self.values, self.cols, v)
+        # Row-sharded: the halo exchange and the ELL kernel's halo mode;
+        # without halo columns, the same kernel over the all-gathered
+        # operand, whose frame the global columns already are.
+        if self.halo_cols is not None:
+            return spmv.ell_matvec_halo(
+                self.values, self.halo_cols,
+                spmv.halo_exchange(v, self.halo, group))
+        return spmv.ell_matvec_halo(self.values, self.cols,
+                                    tuning.all_gather(v, group))
 
     @classmethod
     def from_dense(cls, a, *, width: int | None = None,
@@ -202,7 +238,27 @@ class BandedOperator:
                             f"band, got {len(self.offsets)}")
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        group = tuning.shard_axis()
+        if group is not None:
+            return self._sharded_call(v, group)
         return spmv.banded_matvec(self.bands, v, self.offsets)
+
+    def _sharded_call(self, v: torch.Tensor, group) -> torch.Tensor:
+        """Halo exchange and the banded kernel's halo mode over the local
+        (nbands, n_local) slice of the band stack; the edge ranks' zero
+        halos are the single-device kernel's zero reads.  A stencil wider
+        than a shard takes JAX's all-gather window."""
+        n = self.bands.shape[1]
+        halo = max(abs(o) for o in self.offsets)
+        if halo > n:
+            x_full = tuning.all_gather(v, group)
+            pad = torch.zeros((halo,) + tuple(v.shape[1:]), dtype=v.dtype,
+                              device=v.device)
+            start = group.rank() * n
+            x_halo = torch.cat([pad, x_full, pad])[start:start + n + 2 * halo]
+        else:
+            x_halo = spmv.halo_exchange(v, halo, group)
+        return spmv.banded_matvec_halo(self.bands, x_halo, self.offsets)
 
     def to_ell(self) -> SparseOperator:
         """Convert to ELL form (width = nbands; OOB slots become padding)."""
@@ -272,8 +328,22 @@ class SlicedEllOperator:
         self._perm_index = None if self.identity_perm else self.perm.long()
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        group = tuning.shard_axis()
+        if group is not None:
+            return self._sharded_call(v, group)
         return self._unsort(spmv.sell_matvec(self.bin_values, self.bin_cols,
                                              v))
+
+    def _sharded_call(self, v: torch.Tensor, group) -> torch.Tensor:
+        """The replicated payload (a halo bound too wide for a shard: with
+        one that fits, ``local_operator`` hands each rank its rows as ELL):
+        all-gather v, the sorted product, and the rank's rows of it."""
+        nl = v.shape[0]
+        p = group.rank()
+        x_full = tuning.all_gather(v, group)
+        y = self._unsort(spmv.sell_matvec(self.bin_values, self.bin_cols,
+                                          x_full))
+        return y[p * nl:(p + 1) * nl]
 
     def _unsort(self, y_sorted: torch.Tensor) -> torch.Tensor:
         if self.identity_perm:
@@ -466,7 +536,8 @@ def with_dtype(op, dtype):
         return DenseOperator(op.a.to(dtype), op.backend, device=op.a.device)
     if isinstance(op, SparseOperator):
         return SparseOperator(op.values.to(dtype), op.cols, op.halo,
-                              device=op.values.device)
+                              device=op.values.device,
+                              halo_cols=op.halo_cols)
     if isinstance(op, BandedOperator):
         return BandedOperator(op.bands.to(dtype), op.offsets,
                               device=op.bands.device)

@@ -11,9 +11,8 @@ Counterpart of ``repro/core/preconditioners.py``.  Every member follows the
   cost       ``pc.cost()`` -> ``PrecondCost``: modeled setup and apply flops,
              HBM bytes and ``matvec_equiv`` (the apply in operator mat-vecs).
   shard      ``pc.shard_aware`` + ``pc.rebind(op_local)``: rebuild against a
-             local operator shard.  The row-sharded solvers are not ported
-             yet (ROADMAP queue 1 item 10); ``rebind`` is ported where it is
-             local, and the dense-shard branch of Jacobi's raises.
+             local operator shard (``core/distributed.py`` calls it per
+             rank; Jacobi takes the rank's own diagonal entries).
   identity   ``pc.n`` / ``pc.requires_fmt``: the operator dimension and the
              storage format a member needs.
 
@@ -25,7 +24,8 @@ the JAX package uses ``jax.scipy.linalg`` outside any kernel); ``neumann``
 estimated by ``estimate_interval``; on a ``BandedOperator`` a single
 vector runs the whole recurrence in one launch,
 ``kernels/matrix_powers.banded_cheb_apply``, everything else runs the
-recurrence through the operator's own mat-vec); ``banded_ilu0`` (ILU(0) on
+recurrence through the operator's own mat-vec, as every row-sharded
+apply does); ``banded_ilu0`` (ILU(0) on
 a ``BandedOperator``'s band pattern: ``kernels/trisolve.banded_ilu0`` for
 the setup, two ``banded_trisweep`` launches per apply) and ``line_jacobi``
 (the same on the (-1, 0, +1) bands, the exact tridiagonal factorization);
@@ -47,7 +47,7 @@ import torch
 from repro_torch.core.operators import (BandedOperator, DenseOperator,
                                         SlicedEllOperator, SparseOperator,
                                         as_operator)
-from repro_torch.kernels import matrix_powers, trisolve
+from repro_torch.kernels import matrix_powers, trisolve, tuning
 
 
 def _sell_rowreduce(op: SlicedEllOperator, fn: Callable) -> torch.Tensor:
@@ -239,13 +239,35 @@ class JacobiPreconditioner(Preconditioner):
         return self.inv_d[None, :] * vs
 
     def rebind(self, op_local):
+        # The local operator's storage is the local rows, so setup in local
+        # coordinates is construction again, except where the diagonal is
+        # not where a square local matrix would hold it: a dense (rows, n)
+        # shard keeps it in its own diagonal block (columns rows * rank
+        # on), a shard of ELL rows (global columns; a sliced-ELL operator's
+        # shard too, when its halo fits) at column rows * rank + i of local
+        # row i, and a replicated sliced-ELL payload at the rank's rows.
+        # (JAX constructs again in every one of these cases, which reads
+        # the wrong entries on every rank past 0: ROADMAP queue 3.)
+        group = tuning.shard_axis()
+        rank = 0 if group is None else group.rank()
         if isinstance(op_local, DenseOperator) and (
                 op_local.a.shape[0] != op_local.a.shape[1]):
-            raise NotImplementedError(
-                "JacobiPreconditioner.rebind on a dense (rows, n) shard "
-                "reads the shard's index on the mesh axis; row-sharded "
-                "solves are not ported yet (ROADMAP queue 1 item 10)")
-        return JacobiPreconditioner(op_local)
+            rows = op_local.a.shape[0]
+            return JacobiPreconditioner(
+                op_local.a[:, rank * rows:(rank + 1) * rows])
+        if isinstance(op_local, SparseOperator) and rank:
+            rows = op_local.values.shape[0]
+            shifted = SparseOperator(op_local.values,
+                                     op_local.cols - rank * rows,
+                                     device=op_local.values.device)
+            return JacobiPreconditioner(shifted)
+        pc = JacobiPreconditioner(op_local)
+        if isinstance(op_local, SlicedEllOperator) and group is not None:
+            # the replicated payload: the rank's rows of the diagonal
+            rows = pc.n // group.size()
+            pc.inv_d = pc.inv_d[rank * rows:(rank + 1) * rows]
+            pc.n = rows
+        return pc
 
     def cost(self):
         return PrecondCost(setup_flops=float(self.n or 0),
@@ -402,11 +424,12 @@ class ChebyshevPreconditioner(Preconditioner):
     """Chebyshev polynomial preconditioner for spectra in [lam_min, lam_max]
     (estimated by ``estimate_interval`` when not given).
 
-    Dispatch: a single vector on a ``BandedOperator`` goes to
-    ``matrix_powers.banded_cheb_apply`` (the kernel on the card, at any n;
-    its plain version on the CPU).  Everything else (dense, ELL, sliced
-    ELL, matrix-free, the (k, n) ``batched`` form) runs ``_apply_ref``
-    through the operator's own mat-vec.
+    Dispatch: a single vector on a ``BandedOperator`` of one device goes
+    to ``matrix_powers.banded_cheb_apply`` (the kernel on the card, at any
+    n; its plain version on the CPU).  Everything else (dense, ELL, sliced
+    ELL, matrix-free, the (k, n) ``batched`` form, and every row-sharded
+    apply, whose mat-vecs must exchange the neighbours' rows) runs
+    ``_apply_ref`` through the operator's own mat-vec.
     """
 
     name = "chebyshev"
@@ -437,7 +460,8 @@ class ChebyshevPreconditioner(Preconditioner):
 
     def __call__(self, v):
         op = self.op
-        if isinstance(op, BandedOperator) and v.ndim == 1:
+        if (tuning.shard_axis() is None and isinstance(op, BandedOperator)
+                and v.ndim == 1):
             return matrix_powers.banded_cheb_apply(
                 op.bands, v, op.offsets, theta=self.theta, delta=self.delta,
                 rhos=self.rhos)

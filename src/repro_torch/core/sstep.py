@@ -23,6 +23,22 @@ VMEM gates, ``tuning.powers_fits`` and friends):
             ``gs="cgs2_pipelined"`` ``block_gs_pass_single_reduce`` twice
             per block (``block_gs_project_gram`` + ``block_gs_update``).
 
+Row-sharded (``axis_name`` a process group, inside the distributed
+wrapper's ``tuning.shard_context``; JAX ``core/sstep.py:128-225``):
+
+  powers    an unpreconditioned ``BandedOperator`` with s * halo <= n_local
+            and the monomial basis runs the communication-avoiding block:
+            the band stack's (s-1) halo neighbour columns exchanged once
+            per solve and pre-scaled by theta = max row sum (all-reduced
+            with max), then per block one halo exchange of u_0 at width
+            s halo, ``banded_powers_halo`` and one all-reduce of the s
+            squared norms, sigma_j = theta ||z_j|| / ||z_{j-1}||.  Every
+            other operator runs ``matrix_powers_ref`` with one all-reduce
+            per power.
+  block GS  ``block_gs_pass_sharded`` (project, all-reduce C, update,
+            all-reduce G) twice per block; under ``gs="cgs2_pipelined"``
+            the single-reduce pass with one stacked all-reduce per pass.
+
 Where the data lives.  The JAX solver is one XLA program.  Here every
 block of a cycle is enqueued on b's device with no host sync between
 them (``_block_orth``): the powers, both block-GS passes and the (s, s)
@@ -51,7 +67,7 @@ from repro_torch.core.operators import (EXPLICIT_OPERATORS, BandedOperator,
                                         DenseOperator, SparseOperator,
                                         as_operator, with_dtype)
 from repro_torch.core.preconditioners import spectral_bounds
-from repro_torch.kernels import block_gs
+from repro_torch.kernels import block_gs, spmv, tuning
 from repro_torch.kernels import matrix_powers as mp
 
 
@@ -86,7 +102,7 @@ def _newton_shifts(op, s: int) -> torch.Tensor:
 
 
 def _make_block_fns(op, s: int, dtype, gs: str = "cgs2", precond=None,
-                    shifts=None):
+                    shifts=None, axis_name=None):
     """Dispatch: ``(powers_fn, gs_pass)`` for the block step.
 
     ``powers_fn(u0) -> (u (s, n), sigma (s,))``; ``gs_pass(v, w, tin,
@@ -106,7 +122,7 @@ def _make_block_fns(op, s: int, dtype, gs: str = "cgs2", precond=None,
     # over the composed mat-vec.
     identity_pc = precond is None or getattr(precond, "is_identity", False)
     powers_fn = None
-    if identity_pc:
+    if identity_pc and axis_name is None:
         if isinstance(op, BandedOperator):
             powers_fn = lambda u0: mp.banded_powers(  # noqa: E731
                 op.bands, u0, op.offsets, s, shifts=shifts)
@@ -115,13 +131,57 @@ def _make_block_fns(op, s: int, dtype, gs: str = "cgs2", precond=None,
                 op.values, op.cols, u0, s, shifts=shifts)
         elif isinstance(op, DenseOperator) and shifts is None:
             powers_fn = lambda u0: mp.dense_powers(op.a, u0, s)  # noqa: E731
+    elif (identity_pc and shifts is None and isinstance(op, BandedOperator)
+          and axis_name is not None and tuning.shard_axis() is axis_name):
+        powers_fn = _halo_powers_fn(op, s, axis_name, guard)
     if powers_fn is None:
         pmatvec = op if identity_pc else (lambda v: op(precond(v)))
         powers_fn = lambda u0: mp.matrix_powers_ref(  # noqa: E731
-            pmatvec, u0, s, guard, shifts=shifts)
+            pmatvec, u0, s, guard, axis_name, shifts=shifts)
+    if axis_name is None:
+        return powers_fn, (block_gs.block_gs_pass_single_reduce
+                           if gs == "cgs2_pipelined"
+                           else block_gs.block_gs_pass)
     if gs == "cgs2_pipelined":
-        return powers_fn, block_gs.block_gs_pass_single_reduce
-    return powers_fn, block_gs.block_gs_pass
+        return powers_fn, lambda v, w, tin, k, gram: \
+            block_gs.block_gs_pass_single_reduce(v, w, tin, k, gram,
+                                                 axis_name)
+    return powers_fn, lambda v, w, tin, k: \
+        block_gs.block_gs_pass_sharded(v, w, tin, k, axis_name)
+
+
+def _halo_powers_fn(op: BandedOperator, s: int, group, guard: float):
+    """The communication-avoiding powers of one shard of a banded operator
+    (None where a shard is narrower than s halos: the reference powers
+    then carry the block)."""
+    halo = max(abs(o) for o in op.offsets)
+    if s * halo > op.bands.shape[1]:
+        return None
+    # The bands do not change during the solve: exchange the (s-1) halo
+    # neighbour columns once, here, and zero-pad the outer halo margin.
+    bands_ex = spmv.halo_exchange(op.bands.T, (s - 1) * halo, group).T
+    bands_pad = torch.nn.functional.pad(bands_ex, (halo, halo))
+    # The raw powers grow like ||A||^s, enough to overflow float32 for a
+    # scaled system: pre-scale by theta >= ||A||_inf (the row sums, the
+    # max over ranks), so the kernel powers B = A / theta with
+    # ||B||_inf <= 1, and recover sigma_j = theta ||z_j|| / ||z_{j-1}||
+    # exactly.  This also makes the path scale-invariant.
+    row_sums = op.bands.float().abs().sum(dim=0)
+    theta = tuning.all_reduce(row_sums.max(), group, op="max")
+    theta = torch.clamp(theta, min=guard)
+    bands_pad = (bands_pad.float() / theta).to(op.bands.dtype).contiguous()
+
+    def powers_fn(u0):
+        # One neighbour exchange and one all-reduce for all s powers.
+        x_halo = spmv.halo_exchange(u0.to(torch.float32), s * halo, group)
+        z, nrm = mp.banded_powers_halo(bands_pad, x_halo, op.offsets, s)
+        znorm = torch.sqrt(tuning.all_reduce(nrm, group))
+        prev = torch.cat([torch.ones(1, dtype=znorm.dtype,
+                                     device=znorm.device), znorm[:-1]])
+        sigma = theta.to(znorm.dtype) * znorm / torch.clamp(prev, min=guard)
+        return z / torch.clamp(znorm, min=guard)[:, None], sigma
+
+    return powers_fn
 
 
 def _block_orth(powers_fn, gs_pass, v_basis: torch.Tensor, k_start: int,
@@ -246,6 +306,9 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
     ``gs``: "cgs2" (two fused block passes per block) or "cgs2_pipelined"
     (two single-reduce passes per block, each one projection launch and
     one update launch, with the basis Gram matrix maintained on the card).
+    ``axis_name``: None, or the process group of a row-sharded solve (see
+    the module docstring; ``core/distributed.py`` is the entry point); any
+    other value raises ``TypeError``.
     ``precond``: right preconditioner ``v -> M^{-1} v``;
     the power block is built over ``A M^{-1}`` by the reference powers and
     the update un-preconditions, ``x += M^{-1} (y V)``.  ``basis``:
@@ -256,10 +319,7 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
     CholQR, Hessenberg and Givens algebra and the per-restart residual stay
     in ``b.dtype``.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "gmres_sstep(axis_name=...): row-sharded solves are not ported "
-            "yet; they arrive with the torch.distributed slice")
+    tuning.check_group(axis_name)
     if basis not in ("monomial", "newton"):
         raise ValueError(f"gmres_sstep: unknown basis {basis!r}; options: "
                          f"['monomial', 'newton']")
@@ -274,7 +334,8 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
     eps = float(np_dtype.type(np.finfo(np_dtype).eps * 100))  # relative
     guard = np_dtype.type(np.finfo(np_dtype).tiny ** 0.5)
     m = s * blocks
-    tol_abs = max(np_dtype.type(tol) * np_dtype.type(arnoldi.norm(b).item()),
+    bnorm = arnoldi.norm(b, axis_name).item()
+    tol_abs = max(np_dtype.type(tol) * np_dtype.type(bnorm),
                   np_dtype.type(0))
     shifts = _newton_shifts(matvec, s) if basis == "newton" else None
     identity_pc = precond is None or getattr(precond, "is_identity", False)
@@ -285,7 +346,8 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
             and basis_dtype.itemsize < matvec.dtype.itemsize):
         power_op = with_dtype(matvec, basis_dtype)
     powers_fn, gs_pass = _make_block_fns(power_op, s, basis_dtype, gs,
-                                         precond=precond, shifts=shifts)
+                                         precond=precond, shifts=shifts,
+                                         axis_name=axis_name)
     happy_eps = np_dtype.type(eps)
 
     host_shifts = None if shifts is None else shifts.cpu()
@@ -325,7 +387,7 @@ def gmres_sstep(a, b, x0=None, *, s: int = 4, blocks: int = 5,
 
     def resid_of(x):
         r = b - matvec(x)
-        return r, np_dtype.type(arnoldi.norm(r).item())
+        return r, np_dtype.type(arnoldi.norm(r, axis_name).item())
 
     r, beta = resid_of(x)
     # Chronological ring, inf-padded on the left, seeded with ||b - A x0||.

@@ -291,10 +291,22 @@ static cudaError_t launch_block_gs(const void* v, const float* w,
 //   order (eight loads in flight), W' = Q - u, and the upper triangle of G.
 // Every row of the V passed is read: the s-step cycle passes the valid
 // prefix V[:k_start+1] (the rows past it are zero in its fresh basis).
+//
+// The row-sharded split pass (gs = "cgs2" across shards) has its own
+// projection, block_gs_project:  Q = T W,  C = mask * (V Q^T),  mask =
+// rows 0..k_start.  It replaces repro/kernels/block_gs.py::block_gs_project
+// (one Pallas grid step over the VMEM-resident shard) and is the
+// project-gram kernel without M (kGram false): the rows 0..k_start are
+// read, their C partials reduced in the same fixed order, the rows past
+// k_start written as zeros by the reduction launch.  The caller
+// all-reduces C over the shards and runs block_gs_update.  Bound: bytes,
+// ((k_start + 1) s_V + 8 s) n, 0.045 ms at k_start 25, s = 5, n = 2^20,
+// f32, as the pair above.
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory: ts[S * S], qs[S * cols], red[kWarps * kRowChunk * S]
-template <typename TV, int S>
+// kGram false: no M (block_gs_project).
+template <typename TV, int S, bool kGram>
 __global__ void __launch_bounds__(kThreads)
     block_gs_project_gram_kernel(const TV* __restrict__ v,
                                  const float* __restrict__ w,
@@ -332,26 +344,30 @@ __global__ void __launch_bounds__(kThreads)
       qs[(size_t)a * cols + c] = t;
       q_out[(size_t)a * n + c0 + c] = t;
     }
-    int k = 0;
+    if constexpr (kGram) {
+      int k = 0;
 #pragma unroll
-    for (int a = 0; a < S; ++a)
+      for (int a = 0; a < S; ++a)
 #pragma unroll
-      for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(q[a], q[b], gacc[k]);
+        for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(q[a], q[b], gacc[k]);
+    }
   }
+  if constexpr (kGram) {
 #pragma unroll
-  for (int k = 0; k < kG; ++k) {
-    const float t = warp_sum(gacc[k]);
-    if (lane == 0) red[warp * kG + k] = t;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < kG; k += blockDim.x) {
-    float t = 0.f;
-    for (int r = 0; r < kWarps; ++r) t += red[r * kG + k];
-    int a = 0, kk = k;   // entry k of the upper triangle, row by row
-    while (kk >= S - a) kk -= S - a++;
-    const size_t e0 = (size_t)m1 * S;
-    part[(e0 + a * S + a + kk) * nb + blockIdx.x] = t;
-    part[(e0 + (a + kk) * S + a) * nb + blockIdx.x] = t;
+    for (int k = 0; k < kG; ++k) {
+      const float t = warp_sum(gacc[k]);
+      if (lane == 0) red[warp * kG + k] = t;
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < kG; k += blockDim.x) {
+      float t = 0.f;
+      for (int r = 0; r < kWarps; ++r) t += red[r * kG + k];
+      int a = 0, kk = k;   // entry k of the upper triangle, row by row
+      while (kk >= S - a) kk -= S - a++;
+      const size_t e0 = (size_t)m1 * S;
+      part[(e0 + a * S + a + kk) * nb + blockIdx.x] = t;
+      part[(e0 + (a + kk) * S + a) * nb + blockIdx.x] = t;
+    }
   }
   __syncthreads();
 
@@ -448,12 +464,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TV>
+template <typename TV, bool kGram>
 static cudaError_t project_gram_kernel_for(int s, const void** kernel) {
   switch (s) {
-#define REPRO_CASE(S)                                               \
-  case S:                                                           \
-    *kernel = (const void*)block_gs_project_gram_kernel<TV, S>;     \
+#define REPRO_CASE(S)                                                   \
+  case S:                                                               \
+    *kernel = (const void*)block_gs_project_gram_kernel<TV, S, kGram>;  \
     return cudaSuccess;
     REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
     REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
@@ -494,7 +510,7 @@ static cudaError_t launch_project_gram(const void* v, const float* w,
                                        int s, cudaStream_t stream) {
   if (m1 <= 0 || n <= 0 || grid < 1 || grid > n) return cudaErrorInvalidValue;
   const void* kernel = nullptr;
-  cudaError_t e = project_gram_kernel_for<TV>(s, &kernel);
+  cudaError_t e = project_gram_kernel_for<TV, true>(s, &kernel);
   if (e != cudaSuccess) return e;
   const TV* vt = static_cast<const TV*>(v);
   int cols = (n + grid - 1) / grid;
@@ -506,6 +522,31 @@ static cudaError_t launch_project_gram(const void* v, const float* w,
   if (e != cudaSuccess) return e;
   // out = [C_hat (m1, s); M (s, s)]
   return launch_reduce_partials(part, grid, (m1 + s) * s, 0, 0, out, stream);
+}
+
+// block_gs_project: the kernel reads rows 0..rows-1 of V; c (m1, s) comes
+// back with the rows past them zero.
+template <typename TV>
+static cudaError_t launch_block_project(const void* v, const float* w,
+                                        const float* tin, float* q, float* c,
+                                        float* part, int grid, int m1,
+                                        int rows, int n, int s,
+                                        cudaStream_t stream) {
+  if (m1 <= 0 || rows <= 0 || rows > m1 || n <= 0 || grid < 1 || grid > n)
+    return cudaErrorInvalidValue;
+  const void* kernel = nullptr;
+  cudaError_t e = project_gram_kernel_for<TV, false>(s, &kernel);
+  if (e != cudaSuccess) return e;
+  const TV* vt = static_cast<const TV*>(v);
+  int cols = (n + grid - 1) / grid;
+  const size_t smem = sizeof(float) * ((size_t)s * s + (size_t)s * cols +
+                                       (size_t)kWarps * kRowChunk * s);
+  void* args[] = {(void*)&vt, (void*)&w, (void*)&tin, (void*)&q,
+                  (void*)&part, (void*)&rows, (void*)&n, (void*)&cols};
+  e = launch_plain(kernel, grid, smem, args, stream);
+  if (e != cudaSuccess) return e;
+  return launch_reduce_partials(part, grid, m1 * s, rows * s, m1 * s, c,
+                                stream);
 }
 
 template <typename TV>
@@ -590,4 +631,18 @@ extern "C" int repro_block_gs_update(const void* v, int v_bf16,
                       v, q, c, w_out, g, part, grid, m1, n, s, st)
                 : repro::launch_block_update<float>(v, q, c, w_out, g, part,
                                                     grid, m1, n, s, st);
+}
+
+// v (m1, n) f32 or bf16, row-major, rows 0..rows-1 read; w (s, n), tin
+// (s, s) f32; q (s, n) and c (m1, s) f32 out; part holds rows s grid floats.
+extern "C" int repro_block_gs_project(const void* v, int v_bf16,
+                                      const float* w, const float* tin,
+                                      float* q, float* c, float* part,
+                                      int grid, int m1, int rows, int n,
+                                      int s, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return v_bf16 ? repro::launch_block_project<repro::bf16>(
+                      v, w, tin, q, c, part, grid, m1, rows, n, s, st)
+                : repro::launch_block_project<float>(
+                      v, w, tin, q, c, part, grid, m1, rows, n, s, st);
 }

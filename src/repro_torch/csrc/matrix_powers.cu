@@ -87,6 +87,31 @@
 // (from L2: the stack, v and both rows, 33 MB at n = 2^20, fit the 50 MB
 // L2).  theta, c and the (rho, rho_old) pairs come by value.  No norm, no
 // reduction: the bits do not depend on the grid.
+//
+// The row-sharded banded powers (communication-avoiding), for one shard:
+//
+//   x = u_0 over the padded width W = n_local + 2 s halo (s halo exchanged
+//   rows each side);  w_p = B w_{p-1} over all W rows (reads outside
+//   [0, W) count as zero);  z_p = rows [s halo, s halo + n_local) of w_p;
+//   nrm_p = ||z_p||^2 (this shard's part)                  p = 1..s
+//
+// with B the band stack padded the same way ((nbands, W): (s - 1) halo
+// exchanged columns each side, then halo zeros) and pre-scaled by the
+// caller (core/sstep.py) so the raw powers cannot overflow.  Rows closer
+// than p halo to an edge go stale at power p; the centre rows stay exact.
+// Replaces repro/kernels/matrix_powers.py::banded_powers_halo (a
+// sequential grid over the powers, the operand carried in VMEM scratch;
+// the raw powers are not normalised between powers, so no collective
+// stands between them: one all-reduce of the s squared norms follows).
+// Bound: bytes, nbands W s_B + 4 W + 4 s n_local + 4 s (the padded stack
+// and operand once, z and the norms once): 0.014 ms at 1024^2, s = 5,
+// f32, as banded_powers.  Design: banded_powers' cooperative launch (a
+// thread per row of W, the offsets by value at constant indices, the raw
+// power in two alternating scratch rows read through L2) with no
+// normalisation, so one grid sync per power and no norm between powers;
+// each block writes its centre rows of z_p and stores its partial of
+// ||z_p||^2 at part[p][block], and a second launch (common.cuh's
+// reduce_partials_kernel) sums them in one fixed order.
 #include "common.cuh"
 
 namespace repro {
@@ -173,6 +198,42 @@ __global__ void __launch_bounds__(kThreads)
     const float sg = grid_norm(part + (size_t)p * gridDim.x, red);
     denom = fmaxf(sg, eps);
     finish_power(sg, denom, p, out, u, sigma, n, r0, r1);
+    cur = out;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    banded_powers_halo_kernel(const T* __restrict__ bands, BandOffsets offs,
+                              int nbands, const float* __restrict__ x,
+                              float* __restrict__ z, float* raw, float* part,
+                              int width, int ln, int center, int s) {
+  __shared__ float red[kWarps + 1];
+  cg::grid_group grid = cg::this_grid();
+  int r0, r1;
+  row_range(width, &r0, &r1);
+  const float* cur = x;
+  for (int p = 0; p < s; ++p) {
+    float* out = raw + (size_t)(p & 1) * width;
+    float sq = 0.f;
+    for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < kMaxBands; ++d) {   // offsets at constant indices
+        if (d >= nbands) break;
+        const int c = i + offs.off[d];
+        if (c < 0 || c >= width) continue;     // the zero margin
+        acc = fmaf(to_f(bands[(size_t)d * width + i]), __ldcg(cur + c), acc);
+      }
+      if (p + 1 < s) __stcg(out + i, acc);
+      if (i >= center && i < center + ln) {
+        z[(size_t)p * ln + (i - center)] = acc;
+        sq = fmaf(acc, acc, sq);
+      }
+    }
+    sq = block_sum(sq, red);
+    if (threadIdx.x == 0) part[(size_t)p * gridDim.x + blockIdx.x] = sq;
+    if (p + 1 < s) grid.sync();
     cur = out;
   }
 }
@@ -334,6 +395,41 @@ static cudaError_t sparse_grid(int n, int blocks_per_sm, int* grid) {
 }
 
 template <typename T>
+static cudaError_t launch_banded_powers_halo(
+    const void* bands, const int* offsets, int nbands, const float* x,
+    float* z, float* nrm, float* raw, float* part, int part_blocks, int width,
+    int s, int blocks_per_sm, cudaStream_t stream) {
+  if (width <= 0 || s <= 0 || nbands <= 0 || nbands > kMaxBands)
+    return cudaErrorInvalidValue;
+  BandOffsets offs{};
+  int halo = 0;
+  for (int d = 0; d < nbands; ++d) {
+    offs.off[d] = offsets[d];
+    const int a = offsets[d] < 0 ? -offsets[d] : offsets[d];
+    halo = a > halo ? a : halo;
+  }
+  int center = s * halo;
+  int ln = width - 2 * center;
+  if (ln <= 0) return cudaErrorInvalidValue;
+  int g = 0;
+  cudaError_t e = persistent_grid(banded_powers_halo_kernel<T>, 0,
+                                  blocks_per_sm,
+                                  (width + kThreads - 1) / kThreads, &g);
+  if (e != cudaSuccess) return e;
+  if (g > part_blocks) return cudaErrorInvalidValue;
+  const T* bt = static_cast<const T*>(bands);
+  void* args[] = {(void*)&bt,  (void*)&offs, (void*)&nbands, (void*)&x,
+                  (void*)&z,   (void*)&raw,  (void*)&part,   (void*)&width,
+                  (void*)&ln,  (void*)&center, (void*)&s};
+  e = cudaLaunchCooperativeKernel((const void*)banded_powers_halo_kernel<T>,
+                                  g, kThreads, args, 0, stream);
+  if (e != cudaSuccess) return e;
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_reduce_partials(part, g, s, 0, 0, nrm, stream);
+}
+
+template <typename T>
 static cudaError_t dense_grid(int n, int blocks_per_sm, int* grid) {
   return persistent_grid(dense_powers_kernel<T>, sizeof(float) * (size_t)n,
                          blocks_per_sm, (n + kWarps - 1) / kWarps, grid);
@@ -466,6 +562,24 @@ extern "C" int repro_banded_cheb_apply(const void* bands, int b_bf16,
                                st)
   return b_bf16 ? REPRO_CHEB(repro::bf16) : REPRO_CHEB(float);
 #undef REPRO_CHEB
+}
+
+// The row-sharded banded powers: bands (nbands, width), offsets host
+// memory; x (width,) f32; z (s, width - 2 s halo) and nrm (s,) f32 out; raw
+// holds 2 width floats and part s * part_blocks floats of scratch.
+extern "C" int repro_banded_powers_halo(const void* bands, int b_bf16,
+                                        const int* offsets, int nbands,
+                                        const float* x, float* z, float* nrm,
+                                        float* raw, float* part,
+                                        int part_blocks, int width, int s,
+                                        int blocks_per_sm, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_HALO(T)                                                       \
+  repro::launch_banded_powers_halo<T>(bands, offsets, nbands, x, z, nrm,   \
+                                      raw, part, part_blocks, width, s,    \
+                                      blocks_per_sm, st)
+  return b_bf16 ? REPRO_HALO(repro::bf16) : REPRO_HALO(float);
+#undef REPRO_HALO
 }
 
 // The launch shape of kind 0 (banded), 1 (ELL) or 2 (dense):

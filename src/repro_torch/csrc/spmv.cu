@@ -48,6 +48,18 @@
 //           thread per row reaches about half the bound: its five 4-byte
 //           loads in flight are too few, and several rows per thread in
 //           vector loads is the lever (PERF.md).
+//
+// Halo modes, for one shard of a row-sharded solve (replace the same two
+// TPU kernels behind repro/kernels/spmv.py::banded_matvec_halo and
+// ::ell_matvec_halo).  The operand is the shard's rows with `halo`
+// neighbour rows exchanged on each side, (n_local + 2 halo, k):
+//   banded  row i reads x[i + halo + off_d]: every read is in range (the
+//           edge ranks' halos hold zeros), so no range test;
+//   ELL     the column indices are remapped into the padded frame by the
+//           caller; the gather kernel is the same, over an operand longer
+//           than the row count.
+// Each mode has its own C entry point.  Bound: bytes, as above, with the
+// operand's 2 halo k extra rows read once.
 #include "common.cuh"
 
 namespace repro {
@@ -78,11 +90,12 @@ __global__ void __launch_bounds__(256)
   for (int k = 0; k < K; ++k) yp[k] = acc[k];
 }
 
-template <typename T, int K>
+// kHalo: x holds n + 2 halo rows and row i reads x[i + halo + off].
+template <typename T, int K, bool kHalo>
 __global__ void __launch_bounds__(256)
     banded_kernel(const T* __restrict__ bands, BandOffsets offs, int nbands,
                   const float* __restrict__ x, int ldx, float* __restrict__ y,
-                  int ldy, int n) {
+                  int ldy, int n, int halo) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float acc[K];
@@ -94,8 +107,12 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int d = 0; d < kMaxBands; ++d) {
     if (d >= nbands) break;
-    const int c = i + offs.off[d];
-    if (c < 0 || c >= n) continue;   // the zero halo
+    int c = i + offs.off[d];
+    if constexpr (kHalo) {
+      c += halo;                       // exchanged rows: always in range
+    } else if (c < 0 || c >= n) {
+      continue;                        // the zero halo
+    }
     const float a = to_f(bands[(size_t)d * n + i]);
     const float* xp = x + (size_t)c * ldx;
 #pragma unroll
@@ -142,22 +159,32 @@ static cudaError_t launch_ell(const void* values, const int* cols,
   return cudaSuccess;
 }
 
+// halo < 0: the zero-halo product over x (n, k); halo >= 0: the halo mode
+// over x (n + 2 halo, k), every |offset| <= halo.
 template <typename T>
 static cudaError_t launch_banded(const void* bands, const int* offsets,
                                  int nbands, const float* x, float* y, int n,
-                                 int k, int threads, cudaStream_t stream) {
+                                 int halo, int k, int threads,
+                                 cudaStream_t stream) {
   if (n <= 0 || nbands <= 0 || nbands > kMaxBands || k <= 0 || threads <= 0)
     return cudaErrorInvalidValue;
   BandOffsets offs{};
-  for (int d = 0; d < nbands; ++d) offs.off[d] = offsets[d];
+  for (int d = 0; d < nbands; ++d) {
+    offs.off[d] = offsets[d];
+    if (halo >= 0 && (offsets[d] > halo || offsets[d] < -halo))
+      return cudaErrorInvalidValue;
+  }
   const T* bt = static_cast<const T*>(bands);
   const int grid = (n + threads - 1) / threads;
   for (int c0 = 0; c0 < k; c0 += kSpmvMaxK) {
     const int kc = k - c0 < kSpmvMaxK ? k - c0 : kSpmvMaxK;
-#define REPRO_BANDED_LAUNCH(K)                                        \
-  banded_kernel<T, K><<<grid, threads, 0, stream>>>(bt, offs, nbands,  \
-                                                    x + c0, k, y + c0, \
-                                                    k, n)
+#define REPRO_BANDED_LAUNCH(K)                                              \
+  if (halo >= 0)                                                             \
+    banded_kernel<T, K, true><<<grid, threads, 0, stream>>>(                 \
+        bt, offs, nbands, x + c0, k, y + c0, k, n, halo);                    \
+  else                                                                       \
+    banded_kernel<T, K, false><<<grid, threads, 0, stream>>>(                \
+        bt, offs, nbands, x + c0, k, y + c0, k, n, 0)
     REPRO_SPMV_SWITCH(kc, REPRO_BANDED_LAUNCH)
 #undef REPRO_BANDED_LAUNCH
     const cudaError_t e = cudaGetLastError();
@@ -189,7 +216,33 @@ extern "C" int repro_banded_matvec(const void* bands, int b_bf16,
                                    int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return b_bf16 ? repro::launch_banded<repro::bf16>(bands, offsets, nbands, x,
-                                                    y, n, k, threads, s)
+                                                    y, n, -1, k, threads, s)
                 : repro::launch_banded<float>(bands, offsets, nbands, x, y, n,
-                                              k, threads, s);
+                                              -1, k, threads, s);
+}
+
+// The halo mode: x (n + 2 halo, k) f32, y (n, k) f32.
+extern "C" int repro_banded_matvec_halo(const void* bands, int b_bf16,
+                                        const int* offsets, int nbands,
+                                        const float* x, float* y, int n,
+                                        int halo, int k, int threads,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (halo < 0) return cudaErrorInvalidValue;
+  return b_bf16 ? repro::launch_banded<repro::bf16>(bands, offsets, nbands, x,
+                                                    y, n, halo, k, threads, s)
+                : repro::launch_banded<float>(bands, offsets, nbands, x, y, n,
+                                              halo, k, threads, s);
+}
+
+// The halo mode of the ELL product: x (x_rows, k) f32 with x_rows >= rows,
+// the columns already in x's frame; y (rows, k) f32.
+extern "C" int repro_ell_matvec_halo(const void* values, int v_bf16,
+                                     const int* cols, const float* x,
+                                     int x_rows, float* y, int rows,
+                                     int width, int k, int threads,
+                                     void* stream) {
+  if (x_rows < rows) return cudaErrorInvalidValue;
+  return repro_ell_matvec(values, v_bf16, cols, x, y, rows, width, k,
+                          threads, stream);
 }

@@ -38,6 +38,21 @@
 // stream_update).  A row whose h is 0 adds exactly 0, so the pipelined
 // cycle passes the row prefix V[:j+1] (h is 0 past row j there) and gets
 // the bits of the full call.
+//
+// The split-phase projection of the row-sharded CGS2 step:
+//
+//   partial   h = mask * (V w)                                 (m1,)
+//
+// replaces repro/kernels/cgs2.py::gs_project_partial (its Pallas kernel
+// accumulates mask * (V_local w_local) over a sequential grid of column
+// tiles; the caller all-reduces it across the shards, then runs gs_update).
+// Bound: bytes, ((j + 1) s_V + 4) n: rows 0..j of V and w once, 0.021 ms
+// at n = 2^20, j = 15, f32, as the payload.  Design: the payload kernel
+// with one column and no norm row: w's slice staged in shared memory,
+// rows 0..j eight at a time, partials [entry][block], then the same
+// fixed-order reduction launch.  Rows past j are never read (written as
+// zeros by the reduction), so one rank gives the bits of the partials'
+// order alone, and the all-reduce's order is the only other.
 #include "common.cuh"
 
 namespace repro {
@@ -92,6 +107,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Dynamic shared memory: ws[cols], red[kWarps * kRowChunk].
+template <typename TV>
+__global__ void __launch_bounds__(kThreads)
+    gs_partial_kernel(const TV* __restrict__ v, const float* __restrict__ w,
+                      float* __restrict__ part, int n, int j, int cols) {
+  extern __shared__ float smem[];
+  float* ws = smem;
+  float* red = ws + cols;
+  const int nb = gridDim.x;
+  const int c0 = blockIdx.x * cols;
+  const int len = max(0, min(cols, n - c0));
+  const int rows = j + 1;
+  for (int c = threadIdx.x; c < len; c += blockDim.x) ws[c] = w[c0 + c];
+  __syncthreads();
+  for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
+    const int nr = rows - r0 < kRowChunk ? rows - r0 : kRowChunk;
+    float acc[kRowChunk];
+#pragma unroll
+    for (int r = 0; r < kRowChunk; ++r) acc[r] = 0.f;
+    const TV* vr = v + (size_t)r0 * n + c0;
+    for (int c = threadIdx.x; c < len; c += blockDim.x) {
+      float vv[kRowChunk];
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r)
+        vv[r] = r < nr ? to_f(vr[(size_t)r * n + c]) : 0.f;
+      const float wc = ws[c];
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r) acc[r] = fmaf(vv[r], wc, acc[r]);
+    }
+    block_partials<kRowChunk>(acc, red, part, r0, nr, nb);
+  }
+}
+
 template <typename TV>
 __global__ void __launch_bounds__(kThreads)
     gs_update_kernel(const TV* __restrict__ v, const float* __restrict__ w,
@@ -125,6 +173,26 @@ static cudaError_t launch_sr_payload(const void* v, const float* z,
   // rows j+1..m1-1 of the payload are masked to zero
   return launch_reduce_partials(part, grid, 2 * (m1 + 1), 2 * (j + 1),
                                 2 * m1, out, stream);
+}
+
+template <typename TV>
+static cudaError_t launch_gs_partial(const void* v, const float* w,
+                                     float* out, float* part, int grid,
+                                     int m1, int n, int j,
+                                     cudaStream_t stream) {
+  if (m1 <= 0 || n <= 0 || j < 0 || j >= m1 || grid < 1 || grid > n)
+    return cudaErrorInvalidValue;
+  auto kernel = gs_partial_kernel<TV>;
+  const int cols = (n + grid - 1) / grid;
+  const size_t smem = sizeof(float) * ((size_t)cols + kWarps * kRowChunk);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const TV*>(v), w, part,
+                                           n, j, cols);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // rows j+1..m1-1 are masked to zero
+  return launch_reduce_partials(part, grid, m1, j + 1, m1, out, stream);
 }
 
 template <typename TV>
@@ -162,4 +230,17 @@ extern "C" int repro_gs_update(const void* v, int v_bf16, const float* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_bf16 ? repro::launch_gs_update<repro::bf16>(v, w, h, out, m1, n, s)
                 : repro::launch_gs_update<float>(v, w, h, out, m1, n, s);
+}
+
+// v (m1, n) f32 or bf16, row-major; w (n,) f32; out (m1,) f32; part holds
+// m1 grid floats; rows 0..j valid.
+extern "C" int repro_gs_project_partial(const void* v, int v_bf16,
+                                        const float* w, float* out,
+                                        float* part, int grid, int m1, int n,
+                                        int j, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return v_bf16 ? repro::launch_gs_partial<repro::bf16>(v, w, out, part, grid,
+                                                        m1, n, j, s)
+                : repro::launch_gs_partial<float>(v, w, out, part, grid, m1,
+                                                  n, j, s);
 }

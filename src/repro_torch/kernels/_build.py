@@ -51,6 +51,12 @@ SIGNATURES = {
     # bands, b_bf16, offsets (host int[nbands]), nbands, x, y, n, k,
     # threads, stream
     "repro_banded_matvec": (P, I, P, I, P, P, I, I, I, P),
+    # The halo modes of a row-sharded solve's shard:
+    # bands, b_bf16, offsets, nbands, x (n + 2 halo, k), y, n, halo, k,
+    # threads, stream
+    "repro_banded_matvec_halo": (P, I, P, I, P, P, I, I, I, I, P),
+    # values, v_bf16, cols, x, x_rows, y, rows, width, k, threads, stream
+    "repro_ell_matvec_halo": (P, I, P, P, I, P, I, I, I, I, P),
     # v, v_bf16, w, j (device int[k]), h, w_out, partials, partial_blocks,
     # k, m1, n, blocks_per_sm, stream
     "repro_batched_cgs2": (P, I, P, P, P, P, P, I, I, I, I, I, P),
@@ -68,6 +74,10 @@ SIGNATURES = {
     "repro_dense_powers": (P, I, P, P, P, P, P, I, I, I, F, I, I, P),
     # kind (0 banded, 1 ELL, 2 dense), bf16, n, blocks_per_sm, out
     "repro_matrix_powers_shape": (I, I, I, I, P),
+    # The row-sharded banded powers: bands, b_bf16, offsets (host
+    # int[nbands]), nbands, x, z, nrm, raw, partials, partial_blocks, width,
+    # s, blocks_per_sm, stream
+    "repro_banded_powers_halo": (P, I, P, I, P, P, P, P, P, I, I, I, I, P),
     # v, v_bf16, w, tin, c, w_out, g, partials, partial_blocks, m1, n, s,
     # rows, blocks_per_sm, stream
     "repro_block_gs_pass": (P, I, P, P, P, P, P, P, I, I, I, I, I, I, P),
@@ -79,11 +89,18 @@ SIGNATURES = {
     "repro_sr_payload": (P, I, P, P, P, I, I, I, I, P),
     # v, v_bf16, w, h, out, m1, n, stream
     "repro_gs_update": (P, I, P, P, P, I, I, P),
+    # The split-phase projection of a row-sharded CGS2 step:
+    # v, v_bf16, w, out (m1,), partials, grid, m1, n, j, stream
+    "repro_gs_project_partial": (P, I, P, P, P, I, I, I, I, P),
     # v, v_bf16, w, tin, q, out (m1 + s, s) = [c_hat; m], partials, grid,
     # m1, n, s, stream
     "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, P),
     # v, v_bf16, q, c, w_out, g, partials, grid, m1, n, s, stream
     "repro_block_gs_update": (P, I, P, P, P, P, P, I, I, I, I, P),
+    # The row-sharded split pass's projection:
+    # v, v_bf16, w, tin, q, c (m1, s), partials, grid, m1, rows, n, s,
+    # stream
+    "repro_block_gs_project": (P, I, P, P, P, P, P, I, I, I, I, I, P),
     # The preconditioning kernels:
     # bands, b_bf16, offsets (host int[nbands]), nbands, v, zbuf (2 n),
     # out, n, theta, 2 / delta, rho, rho_old (host float[steps]), steps,

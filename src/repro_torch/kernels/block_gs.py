@@ -5,10 +5,13 @@ fused pass of the s-step cycle), the single-reduce pass of
 ``gs="cgs2_pipelined"`` (``block_gs_project_gram`` and ``block_gs_update``
 behind ``block_gs_pass_single_reduce``, its plain version
 ``block_gs_pass_single_reduce_ref``) and ``batched_cgs2`` (the block
-multi-RHS solver's per-lane CGS2).  The row-sharded ``block_gs_project``
-comes with the distributed slice, which also reuses ``block_gs_update``.
-The kernels are ``csrc/block_gs.cu`` and ``csrc/batched_cgs2.cu``; their
-source notes give the designs and the bounds.
+multi-RHS solver's per-lane CGS2), and the row-sharded pass
+``block_gs_pass_sharded``: the projection ``block_gs_project``, the
+all-reduce of C, ``block_gs_update``, the all-reduce of G
+(``block_gs_pass_single_reduce`` takes a process group too: one stacked
+all-reduce per pass).  The kernels are ``csrc/block_gs.cu`` and
+``csrc/batched_cgs2.cu``; their source notes give the designs and the
+bounds.
 
 ``block_gs_pass(v, w, tin, k_start)``: Q = T W, C = mask (V Q^T),
 W' = Q - C^T V, G = W' W'^T, with mask selecting basis rows 0..k_start
@@ -302,6 +305,62 @@ def block_gs_update(v: torch.Tensor, q: torch.Tensor, c: torch.Tensor):
 block_gs_update.launches = 0
 
 
+def block_gs_project_plain(v: torch.Tensor, w: torch.Tensor,
+                           tin: torch.Tensor, k_start: int):
+    """Q = T W and C = mask (V Q^T), mask = rows 0..k_start, in float32 or
+    wider."""
+    acc = torch.promote_types(w.dtype, torch.float32)
+    mask = (torch.arange(v.shape[0], device=v.device) <= k_start).to(acc)
+    q = tin.to(acc) @ w.to(acc)
+    return q, (v.to(acc) @ q.T) * mask[:, None]
+
+
+def block_gs_project(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
+                     k_start: int):
+    """One shard's projection before the all-reduce.  v: (m1, n_local),
+    rows 0..k_start valid; w: (s, n_local); tin: (s, s).  Returns
+    ``(q, c_partial)``: (s, n_local) and (m1, s), C's rows past k_start
+    zero.  Only rows 0..k_start of V are read."""
+    k_start = int(k_start)
+    _check_pass(v, w, tin, k_start, "block_gs_project")
+    if v.device.type == "cpu":
+        return block_gs_project_plain(v, w, tin, k_start)
+    wf, tf = _card_inputs("block_gs_project", v, w, tin)
+    m1, n = v.shape
+    s = w.shape[0]
+    dev = v.device
+    grid = tuning.sr_grid(dev, n)
+    q = torch.empty((s, n), dtype=torch.float32, device=dev)
+    c = torch.empty((m1, s), dtype=torch.float32, device=dev)
+    part = torch.empty(((k_start + 1) * s * grid,), dtype=torch.float32,
+                       device=dev)
+    rc = _build.library().repro_block_gs_project(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        tf.data_ptr(), q.data_ptr(), c.data_ptr(), part.data_ptr(), grid,
+        m1, k_start + 1, n, s, _build.stream_ptr(v))
+    _build.check("block_gs_project", rc)
+    block_gs_project.launches += 1
+    return q, c
+
+
+block_gs_project.launches = 0
+
+
+def block_gs_pass_sharded(v: torch.Tensor, w: torch.Tensor,
+                          tin: torch.Tensor, k_start: int, group):
+    """One row-sharded block-GS pass: ``block_gs_project``, the all-reduce
+    of C over ``group``, ``block_gs_update`` on the valid rows
+    V[:k_start+1] (C is zero past them), the all-reduce of G.  The
+    ``(c, w', g)`` contract of ``block_gs_pass`` with c and g global and
+    w' this shard's columns."""
+    k_start = int(k_start)
+    rows = k_start + 1
+    q, c = block_gs_project(v, w, tin, k_start)
+    c = tuning.all_reduce(c, group)
+    w2, g = block_gs_update(v[:rows], q, c[:rows])
+    return c, w2, tuning.all_reduce(g, group)
+
+
 def _sr_recover_block(payload: torch.Tensor, mask: torch.Tensor,
                       gram: torch.Tensor, m1: int):
     """Recovery of (c, g, c_hat) from the stacked payload [C_hat; M].
@@ -324,7 +383,7 @@ def _sr_recover_block(payload: torch.Tensor, mask: torch.Tensor,
 
 def block_gs_pass_single_reduce(v: torch.Tensor, w: torch.Tensor,
                                 tin: torch.Tensor, k_start: int,
-                                gram: torch.Tensor):
+                                gram: torch.Tensor, axis_name=None):
     """One single-reduce block-GS pass: ``(c, w', g, c_hat)``.
 
     The ``(c, w', g)`` contract of ``block_gs_pass`` plus the unmasked
@@ -338,6 +397,9 @@ def block_gs_pass_single_reduce(v: torch.Tensor, w: torch.Tensor,
     rows past k_start are taken as zero.  That is exact because the basis
     rows past k_start are zero: the s-step cycle (``core/sstep.py``) builds
     every cycle's basis from ``torch.zeros`` and fills it block by block.
+
+    Row-sharded (``axis_name`` a process group): the stacked payload
+    [C_hat; M] is all-reduced once, the pass's one collective.
     """
     k_start = int(k_start)
     _check_pass(v, w, tin, k_start, "block_gs_pass_single_reduce")
@@ -348,6 +410,7 @@ def block_gs_pass_single_reduce(v: torch.Tensor, w: torch.Tensor,
     payload = torch.zeros((m1 + s, s), dtype=c_hat_p.dtype, device=v.device)
     payload[:rows] = c_hat_p
     payload[m1:] = mm
+    payload = tuning.all_reduce(payload, axis_name)      # the one collective
     mask = torch.arange(m1, device=v.device) <= k_start
     c, g, c_hat = _sr_recover_block(payload, mask, gram, m1)
     w2, _ = block_gs_update(vp, q, c[:rows])

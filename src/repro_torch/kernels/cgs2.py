@@ -3,9 +3,10 @@
 Counterpart of ``repro/kernels/cgs2.py``: ``gs_project`` / ``cgs2`` (the
 fused single-shard pass, ``csrc/cgs2.cu``), and the pipelined step's
 ``gs_project_norm_partial`` (the single-reduce payload) and ``gs_update``
-(``csrc/sr_payload.cu``).  The split-phase ``gs_project_partial`` comes
-with the distributed solver.  The source notes give the designs and the
-bounds.  A basis whose column slices do not fit shared memory (the sparse
+(``csrc/sr_payload.cu``), and the row-sharded step's split-phase
+projection ``gs_project_partial`` (``csrc/sr_payload.cu``) with
+``cgs2_split``, the project / all-reduce / update pair run twice.  The
+source notes give the designs and the bounds.  A basis whose column slices do not fit shared memory (the sparse
 solver's n = 2^20) takes ``gs_project``'s streamed variant, chosen from
 the shape on the C side.
 
@@ -191,3 +192,60 @@ def gs_update(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
 
 
 gs_update.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the row-sharded split-phase pair
+# --------------------------------------------------------------------------
+def gs_project_partial_plain(v: torch.Tensor, w: torch.Tensor, j: int):
+    """mask * (V w) over rows 0..j, in float32 or wider."""
+    acc = torch.promote_types(w.dtype, torch.float32)
+    mask = ref.row_mask(v.shape[0], j, acc, v.device)
+    return (v.to(acc) @ w.to(acc)) * mask
+
+
+def gs_project_partial(v: torch.Tensor, w: torch.Tensor, j: int):
+    """One shard's projection h = mask * (V_local w_local) before the
+    all-reduce.  v: (m1, n_local), rows 0..j valid; w: (n_local,).
+    Returns (m1,) (float32 on the card)."""
+    j = int(j)
+    _check(v, w, j, "gs_project_partial")
+    if v.device.type == "cpu":
+        return gs_project_partial_plain(v, w, j)
+    if v.device.type != "cuda":
+        raise ValueError(f"gs_project_partial: unsupported device "
+                         f"{v.device}")
+    _storage("gs_project_partial", v, w)
+    if not v.is_contiguous():
+        raise ValueError("gs_project_partial: v must be contiguous")
+    m1, n = v.shape
+    wf = w.to(torch.float32).contiguous()
+    grid = tuning.sr_grid(v.device, n)
+    out = torch.empty(m1, dtype=torch.float32, device=v.device)
+    part = torch.empty(m1 * grid, dtype=torch.float32, device=v.device)
+    rc = _build.library().repro_gs_project_partial(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        out.data_ptr(), part.data_ptr(), grid, m1, n, j,
+        _build.stream_ptr(v))
+    _build.check("gs_project_partial", rc)
+    gs_project_partial.launches += 1
+    return out
+
+
+gs_project_partial.launches = 0
+
+
+def cgs2_split(v: torch.Tensor, w: torch.Tensor, j: int, group):
+    """Row-sharded CGS2 through the split-phase pair: per pass one
+    ``gs_project_partial`` launch, the all-reduce of its (m1,) result over
+    ``group`` and one ``gs_update`` launch on the valid rows V[:j+1] (h is
+    zero past row j: the same bits as the full update).  Two rounds, the
+    collective minimum of the reorthogonalized scheme.  Returns (h, w''):
+    h the global Hessenberg column, w'' this shard's rows."""
+    j = int(j)
+    vp = v[:j + 1]
+    h1 = tuning.all_reduce(gs_project_partial(v, w, j), group)
+    w1 = gs_update(vp, w, h1[:j + 1])
+    h2 = tuning.all_reduce(gs_project_partial(v, w1, j), group)
+    w2 = gs_update(vp, w1, h2[:j + 1])
+    return (h1 + h2).to(w.dtype), w2

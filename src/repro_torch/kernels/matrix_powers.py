@@ -1,9 +1,9 @@
 """The s-step cycle's matrix powers: s normalized powers in one launch.
 
 Counterpart of ``repro/kernels/matrix_powers.py`` (``banded_powers``,
-``ell_powers``, ``dense_powers`` and the ``matrix_powers_ref`` oracle; the
-row-sharded ``banded_powers_halo`` comes with the distributed slice), and
-``banded_cheb_apply``, the fused Chebyshev preconditioner apply.  The
+``ell_powers``, ``dense_powers``, the row-sharded ``banded_powers_halo``
+and the ``matrix_powers_ref`` oracle), and ``banded_cheb_apply``, the
+fused Chebyshev preconditioner apply.  The
 kernels are ``csrc/matrix_powers.cu``; its source note gives the designs
 and the bounds.
 
@@ -21,9 +21,16 @@ in JAX.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  ``matrix_powers_ref(matvec, x, s, eps,
-shifts)`` is the JAX package's sequential reference over any mat-vec: the
-s-step solver runs it for the operators that have no powers kernel, and on
-the card its mat-vecs launch the operator's own GEMV or SpMV kernels.
+axis_name, shifts=)`` is the JAX package's sequential reference over any
+mat-vec: the s-step solver runs it for the operators that have no powers
+kernel, and on the card its mat-vecs launch the operator's own GEMV or
+SpMV kernels; row-sharded (``axis_name`` a process group) each power's
+squared norm is all-reduced, one collective per power.
+
+``banded_powers_halo(bands_pad, x_halo, offsets, s)`` is one shard's
+communication-avoiding block: the s raw (unnormalised) powers over a
+halo-padded shard, returning the shard's rows of each, (s, n_local), and
+their squared norms (s,), which one all-reduce completes.
 
 ``banded_cheb_apply(bands, v, offsets, theta=, delta=, rhos=)`` runs the
 Chebyshev three-term recurrence from z = v / theta,
@@ -57,12 +64,13 @@ def guard(dtype) -> float:
     return float(torch.finfo(dtype).tiny) ** 0.5
 
 
-def matrix_powers_ref(matvec, x: torch.Tensor, s: int, eps,
+def matrix_powers_ref(matvec, x: torch.Tensor, s: int, eps, axis_name=None,
                       shifts: torch.Tensor | None = None):
     """s normalized powers by s sequential mat-vecs (the JAX reference).
 
     Runs in the dtype the mat-vec returns; ``shifts`` (s,) selects the
-    Newton basis.  Returns ``(u (s, n), sigma (s,))``.
+    Newton basis; under ``axis_name`` (a process group) each squared norm
+    is all-reduced.  Returns ``(u (s, n), sigma (s,))``.
     """
     us, sigmas = [], []
     u = x
@@ -70,9 +78,9 @@ def matrix_powers_ref(matvec, x: torch.Tensor, s: int, eps,
         w = matvec(u)
         if shifts is not None:
             w = w - shifts[p] * u
-        sigma = torch.sqrt((w.float() * w.float()).sum()
-                           if w.dtype == torch.bfloat16
-                           else torch.dot(w, w))
+        nrm2 = ((w.float() * w.float()).sum() if w.dtype == torch.bfloat16
+                else torch.dot(w, w))
+        sigma = torch.sqrt(tuning.all_reduce(nrm2, axis_name))
         sigma = sigma.to(w.dtype)
         u = w / torch.clamp(sigma, min=eps)
         us.append(u)
@@ -85,7 +93,7 @@ def matrix_powers_ref(matvec, x: torch.Tensor, s: int, eps,
 # --------------------------------------------------------------------------
 def _plain(matvec, x, s, acc, shifts):
     sh = None if shifts is None else shifts.to(acc)
-    return matrix_powers_ref(matvec, x.to(acc), s, guard(acc), sh)
+    return matrix_powers_ref(matvec, x.to(acc), s, guard(acc), shifts=sh)
 
 
 def banded_powers_plain(bands, x, offsets, s: int, *, shifts=None):
@@ -103,6 +111,24 @@ def ell_powers_plain(values, cols, x, s: int, *, shifts=None):
 def dense_powers_plain(a, x, s: int):
     acc = _acc_dtype(a.dtype, x.dtype)
     return _plain(lambda u: ref.matvec(a, u), x, s, acc, None)
+
+
+def banded_powers_halo_plain(bands_pad, x_halo, offsets, s: int):
+    """s raw powers over the padded width, reads outside it zero; returns
+    each power's centre rows and their squared norms (JAX's kernel
+    arithmetic, in the accumulation dtype)."""
+    acc = _acc_dtype(bands_pad.dtype, x_halo.dtype)
+    halo = max(abs(int(o)) for o in offsets)
+    center = s * halo
+    ln = bands_pad.shape[1] - 2 * center
+    cur = x_halo.to(acc)
+    zs, nrm = [], []
+    for _ in range(s):
+        cur = spmv.banded_matvec_plain(bands_pad, cur, offsets).to(acc)
+        zc = cur[center:center + ln]
+        zs.append(zc)
+        nrm.append((zc * zc).sum())
+    return torch.stack(zs), torch.stack(nrm)
 
 
 def banded_cheb_apply_plain(bands, v, offsets, *, theta: float,
@@ -209,6 +235,59 @@ def banded_powers(bands: torch.Tensor, x: torch.Tensor, offsets, s: int, *,
 
 
 banded_powers.launches = 0
+
+
+def banded_powers_halo(bands_pad: torch.Tensor, x_halo: torch.Tensor,
+                       offsets, s: int):
+    """All s raw powers of one shard of a row-sharded banded operator.
+
+    bands_pad: (nbands, W), W = n_local + 2 s halo: the shard's band stack
+    with (s - 1) halo exchanged neighbour columns each side and then halo
+    zeros each side (built once per solve by ``core/sstep.py``, which also
+    pre-scales it); x_halo: (W,), ``halo_exchange`` of the starting vector
+    at width s halo.  Returns ``(z, nrm)``: z (s, n_local) the shard's rows
+    of z_p = B^p x, nrm (s,) their squared norms, before the all-reduce.
+    """
+    offsets = tuple(int(o) for o in offsets)
+    if bands_pad.ndim != 2 or len(offsets) != bands_pad.shape[0]:
+        raise TypeError(f"banded_powers_halo: bands {tuple(bands_pad.shape)}"
+                        f" but {len(offsets)} offsets")
+    nbands, width = bands_pad.shape
+    halo = max(abs(o) for o in offsets)
+    if s < 1 or width - 2 * s * halo <= 0:
+        raise TypeError(f"banded_powers_halo: padded width {width} too "
+                        f"small for s={s} powers of halo={halo}")
+    _check_x("banded_powers_halo", width, x_halo, bands_pad)
+    if bands_pad.device.type == "cpu":
+        return banded_powers_halo_plain(bands_pad, x_halo, offsets, s)
+    _check_card("banded_powers_halo", bands_pad)
+    if nbands > spmv.MAX_BANDS:
+        raise ValueError(f"banded_powers_halo: {nbands} bands; the kernel "
+                         f"takes at most {spmv.MAX_BANDS}")
+    dev = bands_pad.device
+    grid = tuning.persistent_grid(dev, tuning.POWERS_BLOCKS_PER_SM,
+                                  -(-width // (32 * tuning.GS_WARPS)))
+    if x_halo.dtype not in STORAGE:
+        raise TypeError(f"banded_powers_halo: x must be float32 or bfloat16 "
+                        f"on the card, got {x_halo.dtype}")
+    xf = x_halo.to(torch.float32).contiguous()
+    raw = torch.empty((2, width), dtype=torch.float32, device=dev)
+    part = torch.empty((s * grid,), dtype=torch.float32, device=dev)
+    z = torch.empty((s, width - 2 * s * halo), dtype=torch.float32,
+                    device=dev)
+    nrm = torch.empty((s,), dtype=torch.float32, device=dev)
+    offs = (ctypes.c_int * nbands)(*offsets)
+    rc = _build.library().repro_banded_powers_halo(
+        bands_pad.data_ptr(), int(bands_pad.dtype == torch.bfloat16),
+        ctypes.addressof(offs), nbands, xf.data_ptr(), z.data_ptr(),
+        nrm.data_ptr(), raw.data_ptr(), part.data_ptr(), grid, width, s,
+        tuning.POWERS_BLOCKS_PER_SM, _build.stream_ptr(bands_pad))
+    _build.check("banded_powers_halo", rc)
+    banded_powers_halo.launches += 1
+    return z, nrm
+
+
+banded_powers_halo.launches = 0
 
 
 def ell_powers(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,

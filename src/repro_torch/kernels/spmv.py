@@ -1,9 +1,10 @@
 """Sparse / structured mat-vec: ELL gather, sliced ELL and banded stencils.
 
 Counterpart of ``repro/kernels/spmv.py`` (``ell_matvec``, ``sell_matvec``,
-``banded_matvec`` and their ``_ref`` oracles; the row-sharded halo
-variants come with the distributed slice).  The kernels are
-``csrc/spmv.cu``; its source note gives the design and the bound.
+``banded_matvec``, the row-sharded ``halo_exchange``,
+``banded_matvec_halo`` and ``ell_matvec_halo``, and their ``_ref``
+oracles).  The kernels are ``csrc/spmv.cu``; its source note gives the
+design and the bound.
 
 - ``ell_matvec(values, cols, x)``: values/cols (n, width), padding slots
   holding value 0 at column 0.
@@ -12,6 +13,13 @@ variants come with the distributed slice).  The kernels are
   frame; ``SlicedEllOperator`` scatters it back.
 - ``banded_matvec(bands, x, offsets)``: y[i] = sum_d bands[d, i] *
   x[i + offsets[d]], out-of-range reads counting as zero.
+- ``halo_exchange(x, halo, group)``: a shard of a row-partitioned vector
+  with ``halo`` rows of each neighbour rank on either side (zeros at the
+  ends of the row range), from one ``batch_isend_irecv``.
+- ``banded_matvec_halo(bands, x_halo, offsets)`` and
+  ``ell_matvec_halo(values, cols, x_halo)``: one shard's product over such
+  an operand (ELL columns remapped into its frame); the same kernels in
+  their halo modes, each with its own entry point and launch counter.
 
 Values and bands are float32 or bfloat16 storage; x is (n,) or (n, k),
 taken as float32 by the kernels (a wider x is cut into launches of
@@ -27,6 +35,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import _build, tuning
 
@@ -62,18 +71,32 @@ def sell_matvec_plain(bin_values, bin_cols, x: torch.Tensor) -> torch.Tensor:
 
 def banded_matvec_plain(bands: torch.Tensor, x: torch.Tensor,
                         offsets) -> torch.Tensor:
-    nbands, n = bands.shape
-    compute, acc = _acc_dtypes(bands.dtype, x.dtype)
     halo = max(abs(int(o)) for o in offsets)
-    xp = (x[:, None] if x.ndim == 1 else x).to(acc)
-    pad = torch.zeros((halo, xp.shape[1]), dtype=acc, device=x.device)
-    xp = torch.cat([pad, xp, pad], dim=0)
-    out = torch.zeros((n, xp.shape[1]), dtype=acc, device=x.device)
+    pad = torch.zeros((halo,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return banded_matvec_halo_plain(bands, torch.cat([pad, x, pad], dim=0),
+                                    offsets)
+
+
+def banded_matvec_halo_plain(bands: torch.Tensor, x_halo: torch.Tensor,
+                             offsets) -> torch.Tensor:
+    """The product over an operand padded with ``halo`` = max |offset|
+    rows on each side: y[i] = sum_d bands[d, i] x_halo[i + halo + off_d]."""
+    nbands, n = bands.shape
+    compute, acc = _acc_dtypes(bands.dtype, x_halo.dtype)
+    halo = max(abs(int(o)) for o in offsets)
+    xp = (x_halo[:, None] if x_halo.ndim == 1 else x_halo).to(acc)
+    out = torch.zeros((n, xp.shape[1]), dtype=acc, device=x_halo.device)
     for d, off in enumerate(offsets):
         seg = xp[halo + int(off): halo + int(off) + n]
         out = out + bands[d][:, None].to(acc) * seg
     out = out.to(compute)
-    return out[:, 0] if x.ndim == 1 else out
+    return out[:, 0] if x_halo.ndim == 1 else out
+
+
+# The ELL gather does not care how long its operand is: over a halo-padded
+# operand (columns remapped into its frame) it is the same arithmetic.
+ell_matvec_halo_plain = ell_matvec_plain
 
 
 # --------------------------------------------------------------------------
@@ -237,3 +260,121 @@ def banded_matvec(bands: torch.Tensor, x: torch.Tensor,
 
 
 banded_matvec.launches = 0
+
+
+# --------------------------------------------------------------------------
+# row-sharded halo variants
+# --------------------------------------------------------------------------
+def halo_exchange(x: torch.Tensor, halo: int, group) -> torch.Tensor:
+    """Fetch ``halo`` boundary rows from each neighbour rank of ``group``.
+
+    x: the local (n_local,) or (n_local, k) shard of a row-partitioned
+    vector.  Returns (n_local + 2 halo, ...): rows [0, halo) hold the
+    previous rank's last rows, rows [halo + n_local, ...) the next rank's
+    first rows; the first and last ranks get zeros there (the kernels'
+    out-of-range-is-zero convention).  One ``batch_isend_irecv`` of at
+    most four halo-row messages, counted once in
+    ``tuning.COLLECTIVES["halo"]``; halo > n_local raises, as in JAX.
+    """
+    if halo == 0:
+        return x
+    if halo > x.shape[0]:
+        raise ValueError(f"halo_exchange: halo={halo} exceeds the local "
+                         f"shard length {x.shape[0]}; neighbours' "
+                         f"neighbours would be needed: use an all-gather")
+    x = x.contiguous()
+    rank, size = group.rank(), group.size()
+    top = torch.zeros((halo,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    bot = torch.zeros_like(top)
+    ops = []
+    if rank > 0:
+        peer = dist.get_global_rank(group, rank - 1)
+        ops += [dist.P2POp(dist.isend, x[:halo].contiguous(), peer, group),
+                dist.P2POp(dist.irecv, top, peer, group)]
+    if rank < size - 1:
+        peer = dist.get_global_rank(group, rank + 1)
+        ops += [dist.P2POp(dist.isend, x[-halo:].contiguous(), peer, group),
+                dist.P2POp(dist.irecv, bot, peer, group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    tuning.COLLECTIVES["halo"] += 1
+    return torch.cat([top, x, bot], dim=0)
+
+
+def banded_matvec_halo(bands: torch.Tensor, x_halo: torch.Tensor,
+                       offsets) -> torch.Tensor:
+    """One shard's banded product over an already halo-padded operand.
+
+    bands: the (nbands, n_local) shard of the band stack; x_halo: the
+    (n_local + 2 halo, ...) output of ``halo_exchange`` with halo =
+    max |offsets|.  Returns the (n_local, ...) local output shard.
+    """
+    offsets = tuple(int(o) for o in offsets)
+    if bands.ndim != 2 or len(offsets) != bands.shape[0]:
+        raise TypeError(f"banded_matvec_halo: bands {tuple(bands.shape)} "
+                        f"but {len(offsets)} offsets")
+    nbands, n = bands.shape
+    halo = max(abs(o) for o in offsets)
+    _check_x("banded_matvec_halo", n + 2 * halo, x_halo, bands)
+    if bands.device.type == "cpu":
+        return banded_matvec_halo_plain(bands, x_halo, offsets)
+    _check_storage("banded_matvec_halo", bands)
+    if nbands > MAX_BANDS:
+        raise ValueError(f"banded_matvec_halo: {nbands} bands; the kernel "
+                         f"takes at most {MAX_BANDS}")
+    compute, _ = _acc_dtypes(bands.dtype, x_halo.dtype)
+    xf = _x_block("banded_matvec_halo", x_halo, compute)
+    y = torch.empty((n, xf.shape[1]), dtype=torch.float32,
+                    device=bands.device)
+    offs = (ctypes.c_int * nbands)(*offsets)
+    rc = _build.library().repro_banded_matvec_halo(
+        bands.data_ptr(), int(bands.dtype == torch.bfloat16),
+        ctypes.addressof(offs), nbands, xf.data_ptr(), y.data_ptr(), n,
+        halo, xf.shape[1], tuning.SPMV_THREADS, _build.stream_ptr(bands))
+    _build.check("banded_matvec_halo", rc)
+    banded_matvec_halo.launches += _chunks(xf.shape[1])
+    y = y.to(compute)
+    return y[:, 0] if x_halo.ndim == 1 else y
+
+
+banded_matvec_halo.launches = 0
+
+
+def ell_matvec_halo(values: torch.Tensor, cols: torch.Tensor,
+                    x_halo: torch.Tensor) -> torch.Tensor:
+    """One shard's ELL product over an already halo-padded operand.
+
+    values/cols: the (n_local, width) shard with ``cols`` remapped into
+    the padded frame (global column - shard offset + halo; see
+    ``SparseOperator.__call__``); x_halo: the output of ``halo_exchange``,
+    at least n_local rows.
+    """
+    _check_ell("ell_matvec_halo", values, cols)
+    if x_halo.ndim not in (1, 2) or x_halo.shape[0] < values.shape[0]:
+        raise TypeError(f"ell_matvec_halo: x_halo {tuple(x_halo.shape)} "
+                        f"must be (rows, ...) with rows >= "
+                        f"{values.shape[0]}")
+    if values.device != x_halo.device:
+        raise ValueError(f"ell_matvec_halo: matrix on {values.device}, x "
+                         f"on {x_halo.device}")
+    if values.device.type == "cpu":
+        return ell_matvec_halo_plain(values, cols, x_halo)
+    _check_storage("ell_matvec_halo", values, cols)
+    compute, _ = _acc_dtypes(values.dtype, x_halo.dtype)
+    xf = _x_block("ell_matvec_halo", x_halo, compute)
+    rows, width = values.shape
+    y = torch.empty((rows, xf.shape[1]), dtype=torch.float32,
+                    device=values.device)
+    rc = _build.library().repro_ell_matvec_halo(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), xf.data_ptr(), xf.shape[0], y.data_ptr(), rows,
+        width, xf.shape[1], tuning.SPMV_THREADS, _build.stream_ptr(values))
+    _build.check("ell_matvec_halo", rc)
+    ell_matvec_halo.launches += _chunks(xf.shape[1])
+    y = y.to(compute)
+    return y[:, 0] if x_halo.ndim == 1 else y
+
+
+ell_matvec_halo.launches = 0

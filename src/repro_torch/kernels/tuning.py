@@ -20,7 +20,12 @@ no meaning here.  What the kernels need is
   setup is one thread;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
-  as the JAX solver asks its VMEM check.
+  as the JAX solver asks its VMEM check;
+- the shard context of the row-sharded solvers (``shard_context``,
+  ``shard_axis``, ``shard_size``: JAX's ``tuning.shard_context``, with a
+  ``torch.distributed`` process group in the place of the mesh axis) and
+  their collectives (``all_reduce``, ``all_gather``; the halo exchange is
+  ``kernels/spmv.py::halo_exchange``), counted by kind in ``COLLECTIVES``.
 
 The JAX package's SpMV, batched-GS and s-step gates (``spmv_fits``,
 ``sell_fits``, ``banded_fits``, ``block_gs_fits``, ``powers_fits``,
@@ -32,7 +37,11 @@ version.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
 H100_SMS = 132            # SMs of an H100 SXM; used when no card is present
 GEMV_THREADS = 256        # 8 warps per block, one row of A per warp
@@ -121,3 +130,76 @@ def sr_grid(device, n: int) -> int:
     (s, cols) slice of Q in shared memory)."""
     g = min(SR_BLOCKS_PER_SM * sm_count(device), -(-n // (32 * GS_WARPS)))
     return max(g, -(-n // SR_MAX_COLS), 1)
+
+
+# --------------------------------------------------------------------------
+# Row-sharded execution: the shard context and the collectives
+# --------------------------------------------------------------------------
+# The JAX package names a mesh axis; the port names the process group that
+# plays its part.  A shard's index on the axis is ``group.rank()``.
+_SHARD_CTX: list = []
+
+# Collectives issued by the sharded solvers, by kind: zeroed and read like
+# the kernels' ``.launches`` counters (a halo exchange counts once, however
+# many neighbours it talks to).
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "halo": 0}
+
+
+def check_group(group) -> None:
+    """``group`` must be None (one device) or a ``torch.distributed``
+    process group; anything else (a JAX-style axis name) is a TypeError."""
+    if group is not None and not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"axis_name must be None or a torch.distributed "
+                        f"ProcessGroup, got {type(group).__name__} "
+                        f"{group!r}")
+
+
+@contextlib.contextmanager
+def shard_context(group):
+    """Declare that the code inside operates on row-local shards of
+    ``group``: operators and schemes read it back (``shard_axis``,
+    ``shard_size``) to take their per-shard paths (halo SpMV, split-phase
+    CGS2, communication-avoiding matrix powers)."""
+    check_group(group)
+    if group is None:
+        raise TypeError("shard_context needs a process group")
+    _SHARD_CTX.append(group)
+    try:
+        yield
+    finally:
+        _SHARD_CTX.pop()
+
+
+def shard_axis() -> Optional["dist.ProcessGroup"]:
+    """The process group of the ambient ``shard_context`` (None: one
+    device)."""
+    return _SHARD_CTX[-1] if _SHARD_CTX else None
+
+
+def shard_size() -> int:
+    """Shard count of the ambient ``shard_context`` (1: one device)."""
+    return _SHARD_CTX[-1].size() if _SHARD_CTX else 1
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (or max) of ``x`` over ``group``, as a new tensor (JAX's
+    ``psum`` / ``pmax``); ``x`` itself for ``group=None``."""
+    if group is None:
+        return x
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=_REDUCE_OPS[op], group=group)
+    COLLECTIVES["all_reduce"] += 1
+    return y
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The shards of ``x`` over ``group`` concatenated along dim 0 in rank
+    order (JAX's ``all_gather(..., tiled=True)``)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(group.size())]
+    dist.all_gather(parts, x, group=group)
+    COLLECTIVES["all_gather"] += 1
+    return torch.cat(parts, dim=0)

@@ -628,3 +628,45 @@ def test_preconditioned_solves_count_launches(dev, name):
     else:
         want = {"cheb": 0, "sweep": 2 * applies, "ilu": 1, "mv": mvs}
     assert d == want
+
+
+# --------------------------------------------------------------------------
+# the row-sharded slice's kernels (one shard's shapes)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_kernels_match_plain_on_card(dev, dtype):
+    from repro_torch.kernels import block_gs, spmv
+    from repro_torch.kernels import matrix_powers as mp
+    tol = TOL[dtype]
+    offsets = (-3, -1, 0, 1, 3)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, m1, j, s = 5000, 17, 9, 4
+    v = torch.linalg.qr(torch.randn(n, j + 1, device=dev, generator=g))[0].T
+    vb = torch.zeros(m1, n, device=dev)
+    vb[:j + 1] = v
+    vb = vb.to(dtype).contiguous()
+    w = torch.randn(n, device=dev, generator=g)
+    got = cgs2.gs_project_partial(vb, w, j)
+    assert _relerr(got, cgs2.gs_project_partial_plain(vb, w, j)) < tol
+    ws = torch.randn(s, n, device=dev, generator=g)
+    tin = torch.eye(s, device=dev) + 0.1 * torch.randn(s, s, device=dev,
+                                                       generator=g)
+    for a, b in zip(block_gs.block_gs_project(vb, ws, tin, j),
+                    block_gs.block_gs_project_plain(vb, ws, tin, j)):
+        assert _relerr(a, b) < tol
+    halo = 3
+    bands = (0.1 * torch.randn(5, n + 2 * s * halo, device=dev,
+                               generator=g)).to(dtype)
+    x = torch.randn(n + 2 * s * halo, device=dev, generator=g)
+    for a, b in zip(mp.banded_powers_halo(bands, x, offsets, s),
+                    mp.banded_powers_halo_plain(bands, x, offsets, s)):
+        assert _relerr(a, b) < tol
+    xh = torch.randn(n + 2 * halo, 3, device=dev, generator=g)
+    bn = bands[:, :n].contiguous()
+    assert _relerr(spmv.banded_matvec_halo(bn, xh, offsets),
+                spmv.banded_matvec_halo_plain(bn, xh, offsets)) < tol
+    vals = torch.randn(n, 5, device=dev, generator=g).to(dtype)
+    cols = torch.randint(0, n + 2 * halo, (n, 5), device=dev, generator=g,
+                         dtype=torch.int32)
+    assert _relerr(spmv.ell_matvec_halo(vals, cols, xh),
+                spmv.ell_matvec_halo_plain(vals, cols, xh)) < tol

@@ -3,8 +3,8 @@
 - The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
 - Entry points run on the card unless the caller asks for the CPU: without
   a card they raise, they never fall back.
-- Paths that are not ported yet (row-sharded solves) raise
-  ``NotImplementedError``.
+- A JAX-style string ``axis_name`` is refused with ``TypeError``: the
+  row-sharded solves take a ``torch.distributed`` process group.
 - A failed kernel build raises with the compiler's message.
 """
 import pathlib
@@ -106,7 +106,7 @@ def test_unported_paths_raise():
     b = torch.ones(16)
     res = gmres(a, b, gs="cgs2_pipelined")     # ported: runs and converges
     assert res.converged and res.x.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         gmres(a, b, axis_name="rows")
     with pytest.raises(ValueError, match="unknown gram-schmidt"):
         gmres(a, b, gs="householder")

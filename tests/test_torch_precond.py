@@ -383,10 +383,14 @@ def test_rebind_is_local_or_raises():
         assert type(pc.rebind(op)) is type(pc)
     with pytest.raises(ValueError, match="not shard-aware"):
         P.banded_ilu0(op).rebind(op)
-    shard = operators.DenseOperator(torch.ones(4, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        P.jacobi(operators.DenseOperator(torch.eye(8), device="cpu")) \
-            .rebind(shard)
+    # a dense (rows, n) shard: the diagonal of its own diagonal block
+    # (rank 0 outside a shard context)
+    shard = operators.DenseOperator(torch.arange(1., 33.).reshape(4, 8),
+                                    device="cpu")
+    pc = P.jacobi(operators.DenseOperator(torch.eye(8), device="cpu")) \
+        .rebind(shard)
+    assert pc.n == 4
+    torch.testing.assert_close(pc.inv_d, 1 / torch.tensor([1., 10., 19., 28.]))
 
 
 # --------------------------------------------------------------------------
