@@ -237,6 +237,40 @@ no two ranks on one device, so multi-rank NCCL is not run here):
               step (host, around the calls, and per call by kind; device,
               the NCCL kernels in the profile).
 
+The model slice, zamba2-7b serving at full published width and depth
+(81 Mamba2 layers, 13 shared-attention sites, 6.75e9 float32 parameters
+drawn from torch.Generator("cuda") seed 0, bfloat16 compute):
+
+22. model_kernels  attention, ssd_scan and gated_rmsnorm against their
+              plain versions on the card, float32 and bfloat16 storage,
+              phase 2's bars (ssd_scan 3e-4 in float32, the JAX test's
+              own bar: it takes exps of cumulative sums), at the JAX
+              package's sweep shapes and at zamba2's prefill shapes
+              (attention (2, 32, 512, 112); ssd_scan (224, 512, 64),
+              N = 64, Q = 256; gated_rmsnorm (1024, 7168)).
+23. model_serve  make_prefill_step at b = 2, S = 512 (numpy seed 0
+              tokens): counters zeroed before and read after, exactly 13
+              attention, 81 ssd_scan and 81 gated_rmsnorm launches; logits
+              finite; the same prefill at compute_dtype float32 through
+              the kernels against their plain versions (patched in here
+              with unittest.mock, not switched in the package) within 1e-3
+              of max|logit|, and the bfloat16 difference printed.  Greedy
+              serving through launch.serve.generate: 512 prompt steps and
+              32 tokens (the decode path is plain PyTorch, as in JAX: no
+              kernel launches), tokens in range, the last prompt step's
+              logits against the prefill's printed; the float32 prefill
+              of the first 16 tokens against 16 float32 decode steps,
+              printed.  zamba2_7b.reduced() on the card against the port
+              on the CPU: prefill and 12 decode steps (float32 cache)
+              within 1e-4.
+24. model_timing  each kernel cold and warm at zamba2's shapes beside its
+              bound, its plain version and a library call
+              (scaled_dot_product_attention(is_causal=True); the composite
+              F.rms_norm(y * F.silu(z)); none for the SSD scan); per
+              prefill wall ms, device ms by kernel class (the three
+              kernels, GEMMs, other), idle share and prompt tokens/s; per
+              decode token wall and device ms and idle share.
+
 Then one ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result line.  Without a
@@ -260,6 +294,7 @@ from repro_torch.configs.gmres_paper import CONFIG  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bfloat16, tensor cores, dense
 # The paper's experiment: its largest system, m = 30, 50 restarts.  tol is
 # 1e-5, not the config's 1e-6, as in benchmarks/gmres_strategies.py: the
 # solves run in float32.
@@ -296,6 +331,32 @@ PIPE_J = (0, 15, 29)
 PIPE_K = (0, 25)
 # The sharded slice's timing runs the first 10 of the stencil's 70 cycles.
 TIMING_RESTARTS = 10
+# The model slice: zamba2-7b at full size, batch 2, a 512-token prompt (two
+# SSD chunks), 32 generated tokens; the kernels at the JAX package's sweep
+# shapes (tests/test_kernels.py) and at the prefill's.
+ZAMBA_BATCH = 2
+ZAMBA_PROMPT = 512
+ZAMBA_GEN = 32
+REDUCED_DECODE_STEPS = 12
+DECODE_TIMING_TOKENS = 16
+# (b, hq, hkv, sq, skv, window, causal, d)
+ATTN_SHAPES = ((2, 4, 2, 256, 256, None, True, 64),
+               (1, 8, 8, 128, 128, None, True, 64),
+               (1, 8, 2, 128, 384, None, True, 64),
+               (2, 4, 4, 256, 256, 64, True, 64),
+               (1, 4, 2, 1, 300, None, True, 64),
+               (1, 4, 4, 128, 128, None, False, 64),
+               (1, 2, 2, 320, 320, 96, True, 64),
+               (ZAMBA_BATCH, 32, 32, ZAMBA_PROMPT, ZAMBA_PROMPT, None, True,
+                112))
+# (batch, heads, s, p, n, chunk)
+SSD_SHAPES = ((2, 3, 64, 16, 8, 16), (1, 2, 96, 32, 16, 32),
+              (1, 1, 48, 8, 8, 48), (ZAMBA_BATCH, 112, ZAMBA_PROMPT, 64, 64,
+                                     256))
+NORM_SHAPES = ((4, 64, 256), (100, 512), (2, 33, 384),
+               (ZAMBA_BATCH * ZAMBA_PROMPT, 7168),
+               (5, 7, 99))                # element loads: 99 % 4 != 0
+SSD_TOLS = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
 
 
 T0 = time.perf_counter()
@@ -336,8 +397,9 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
     every call, outside the times (its kernel is left out of ``ms``, and
     events time each call alone), so every call reads its operands from
     HBM, as a solve's calls do once the basis traffic has evicted them.
-    Where the profile shows no flush kernel to leave out, ``ms`` is "not
-    measured" (None) and only ``event_ms`` stands.  A profile that shows
+    Where the profile does not show one flush kernel per call (none to
+    leave out, or records lost), ``ms`` is "not measured" (None) and only
+    ``event_ms`` stands.  A profile that shows
     neither is taken again, up to PROFILE_TRIES times.
     """
     from torch.profiler import ProfilerActivity, profile
@@ -387,16 +449,28 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
                 call()
             torch.cuda.synchronize()
         if cold:
+            # a profile that lost kernel records (fewer flushes than
+            # calls) would undercount the calls' time: take it again
             names = kernel_ms(prof)
+            flushes = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and is_flush(e.key))
             dev_ms = sum(ms for key, ms in names.items()
                          if not is_flush(key)) / iters \
-                if any(map(is_flush, names)) else 0.0
+                if flushes == iters else 0.0
         else:
             dev_ms = device_ms(prof) / iters
         if dev_ms > 0:
             break
     return {"ms": dev_ms if dev_ms > 0 else None, "event_ms": event_ms,
             "host_ms": host_ms}
+
+
+def cold_ms(fn, iters=50) -> float:
+    """Device time of one cold call (``timed(cold=True)``), or its
+    CUDA-event time where the profile lost kernel records."""
+    t = timed(fn, iters=iters, cold=True)
+    return t["ms"] if t["ms"] is not None else t["event_ms"]
 
 
 def device_ms(prof) -> float:
@@ -418,9 +492,12 @@ def is_flush(key: str) -> bool:
     return "bitwise_not" in key
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over HBM bandwidth or
+    operations over the peak rate of their type (float32 by default)."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -750,8 +827,8 @@ def sparse_phases(smi, gen):
         """Cold times of a kernel, its plain version and its library call;
         the kernel's warm time beside them as ``warm_ms``."""
         return dict(**timed(fn, cold=True), warm_ms=timed(fn)["ms"],
-                    plain_ms=timed(plain, cold=True)["ms"],
-                    library_ms=timed(library_fn, cold=True)["ms"]
+                    plain_ms=cold_ms(plain),
+                    library_ms=cold_ms(library_fn)
                     if library_fn else None, **info)
 
     from torch.profiler import ProfilerActivity, profile
@@ -864,7 +941,7 @@ def sparse_phases(smi, gen):
         rows[("gs_project", "streamed, n = 2^20")] = measure(
             lambda: cgs2.gs_project(v, w, 15),
             lambda: cgs2.gs_project_plain(v, w, 15),
-            composite_ms=timed(lambda: w - (vj1 @ w) @ vj1, cold=True)["ms"],
+            composite_ms=cold_ms(lambda: w - (vj1 @ w) @ vj1),
             n=n, m1=M + 1, j=15, shape=cgs2.launch_shape(dtype, M + 1, n),
             bytes=16 * n * sz + 8 * n + (M + 1) * 4, flops=4 * 16 * n)
         del v, w, vj1
@@ -1956,12 +2033,12 @@ def precond_phases(smi, gen, sparse_solves):
                    warm_ms=timed(fn, iters=iters,
                                  warmup=min(iters, 5))["ms"],
                    plain_ms=event_ms(plain) if plain_by_events
-                   else timed(plain, cold=True)["ms"],
+                   else cold_ms(plain),
                    plain_timing="CUDA events, one call" if plain_by_events
                    else "profiler, cold",
-                   library_ms=timed(library_fn, cold=True)["ms"]
+                   library_ms=cold_ms(library_fn)
                    if library_fn else None,
-                   composite_ms=timed(composite_fn, cold=True)["ms"]
+                   composite_ms=cold_ms(composite_fn)
                    if composite_fn else None, **info)
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
         return row
@@ -2547,13 +2624,12 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
             for name, spec in rows.items():
                 row = dict(**timed(spec["fn"], cold=True),
                            warm_ms=timed(spec["fn"])["ms"],
-                           plain_ms=timed(spec["plain"], cold=True)["ms"]
+                           plain_ms=cold_ms(spec["plain"])
                            if dtype == f32 else None,
-                           composite_ms=timed(spec["composite"],
-                                              cold=True)["ms"]
+                           composite_ms=cold_ms(spec["composite"])
                            if spec["composite"] and dtype == f32 else None,
                            composite=spec["composite_name"],
-                           library_ms=timed(spec["library"], cold=True)["ms"]
+                           library_ms=cold_ms(spec["library"])
                            if spec["library"] and dtype == f32 else None,
                            library=spec.get("library_name"),
                            bytes=spec["bytes"], flops=spec["flops"], n=n,
@@ -2633,6 +2709,331 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
         dist.destroy_process_group()
         tmp.cleanup()
     return errs, launches_total, timing
+
+
+def to_device(tree, device):
+    """A nested dict / list of tensors, every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def kernel_class(key: str) -> str:
+    """The part of the prefill a device kernel belongs to, by its name."""
+    k = key.lower()
+    for name in ("attention_kernel", "ssd_scan_kernel",
+                 "gated_rmsnorm_kernel"):
+        if name in k:
+            return name.removesuffix("_kernel")
+    if any(t in k for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
+        return "gemm"
+    return "other"
+
+
+def model_phases(smi):
+    """Phases 22-24: zamba2-7b serving (prefill and cached greedy decode)
+    on the attention, SSD-scan and gated-RMSNorm kernels."""
+    import dataclasses
+    from unittest import mock
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels import attention as attention_k
+    from repro_torch.kernels import gated_norm, ssd
+    from repro_torch.launch import make_prefill_step, make_serve_step, serve
+    from repro_torch.models import build, hybrid
+    from repro_torch.models.model import leaves
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    kernels = {"attention": attention_k.attention, "ssd_scan": ssd.ssd_scan,
+               "gated_rmsnorm": gated_norm.gated_rmsnorm}
+    errs = {name: [] for name in kernels}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    def attn_inputs(b, hq, hkv, sq, skv, d, dtype):
+        return (randn(b, hq, sq, d, dtype=dtype),
+                randn(b, hkv, skv, d, dtype=dtype),
+                randn(b, hkv, skv, d, dtype=dtype))
+
+    def ssd_inputs(batch, heads, s, p, n, dtype):
+        bh = batch * heads
+        return (randn(bh, s, p, dtype=dtype), F.softplus(randn(bh, s)),
+                -randn(bh, s).abs() * 0.1, randn(batch, s, n, dtype=dtype),
+                randn(batch, s, n, dtype=dtype))
+
+    def record(name, got, want, bar, **info):
+        torch.cuda.synchronize()
+        rel = relerr(got, want)
+        errs[name].append(abserr(got, want))
+        emit(phase="model_kernels", kernel=name, max_rel_err=rel, bar=bar,
+             **info)
+        check(rel < bar, f"{name} {info}: {rel}")
+
+    # ---- 22. kernels vs plain ---------------------------------------------
+    for dtype in (f32, bf16):
+        for b, hq, hkv, sq, skv, window, causal, d in ATTN_SHAPES:
+            q, k, v = attn_inputs(b, hq, hkv, sq, skv, d, dtype)
+            record("attention",
+                   attention_k.attention(q, k, v, causal=causal,
+                                         window=window),
+                   attention_k.attention_plain(q, k, v, causal=causal,
+                                               window=window),
+                   TOLS[dtype], shape=[b, hq, hkv, sq, skv, d],
+                   window=window, causal=causal, dtype=str(dtype))
+        for batch, heads, s, p, n, chunk in SSD_SHAPES:
+            args = ssd_inputs(batch, heads, s, p, n, dtype)
+            record("ssd_scan", ssd.ssd_scan(*args, heads=heads, chunk=chunk),
+                   ssd.ssd_scan_plain(*args, heads=heads, chunk=chunk),
+                   SSD_TOLS[dtype], shape=[batch * heads, s, p, n],
+                   chunk=chunk, dtype=str(dtype))
+        for shape in NORM_SHAPES:
+            y, z, w = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype), \
+                randn(shape[-1], dtype=dtype)
+            record("gated_rmsnorm", gated_norm.gated_rmsnorm(y, z, w),
+                   gated_norm.gated_rmsnorm_plain(y, z, w), TOLS[dtype],
+                   shape=list(shape), dtype=str(dtype))
+
+    # ---- 23. zamba2-7b serving at full size --------------------------------
+    cfg = configs.get("zamba2-7b")
+    vocab = cfg.vocab_size
+    sites = cfg.num_layers // cfg.attn_every
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(0).integers(
+        2, vocab, (ZAMBA_BATCH, ZAMBA_PROMPT)).astype(np.int32)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(cfg)
+    ctr = Counters(kernels)
+    ctr.zero()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = ctr.read()
+    ctr.expect(launches, {"attention": sites, "ssd_scan": cfg.num_layers,
+                          "gated_rmsnorm": cfg.num_layers},
+               "zamba2-7b prefill")
+    check(tuple(logits.shape) == (ZAMBA_BATCH, vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"zamba2-7b prefill logits {tuple(logits.shape)} not finite")
+
+    # the same prefill through the kernels' plain versions (patched here,
+    # not switched in the package): at float32, TF32 off, and at the
+    # config's bfloat16
+    plain = (mock.patch.object(attention_k, "attention",
+                               attention_k.attention_plain),
+             mock.patch.object(ssd, "ssd_scan", ssd.ssd_scan_plain),
+             mock.patch.object(gated_norm, "gated_rmsnorm",
+                               gated_norm.gated_rmsnorm_plain))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prefill32 = make_prefill_step(cfg32)
+    got32 = prefill32(params, batch)
+    with plain[0], plain[1], plain[2]:
+        want32 = prefill32(params, batch)
+        want16 = prefill(params, batch)
+    rel32, rel16 = relerr(got32, want32), relerr(logits, want16)
+    emit(phase="model_serve", arch=cfg.name,
+         params=sum(t.numel() for t in leaves(params)), init_s=init_s,
+         batch=ZAMBA_BATCH, prompt=ZAMBA_PROMPT, launches=launches,
+         f32_kernels_vs_plain_rel=rel32, bf16_kernels_vs_plain_rel=rel16,
+         logits_max_abs=float(logits.abs().max()), card=smi)
+    check(rel32 < 1e-3, f"f32 prefill, kernels vs plain: {rel32}")
+    del got32, want32, want16
+
+    # greedy serving through launch.serve: 512 prompt steps, 32 tokens;
+    # the decode path is plain PyTorch (as JAX's) and launches no kernel
+    seen = {}
+    decode = hybrid.zamba_decode
+
+    def recording(params_, cfg_, cache, token, pos):
+        out = decode(params_, cfg_, cache, token, pos)
+        if pos == ZAMBA_PROMPT - 1:
+            seen["logits"] = out[0]
+        return out
+
+    ctr.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(hybrid, "zamba_decode", recording):
+        toks = serve.generate(cfg, params, tokens, ZAMBA_GEN)
+    serve_s = time.perf_counter() - t0
+    d = ctr.read()
+    ctr.expect(d, {}, "zamba2-7b greedy decode")
+    check(toks.shape == (ZAMBA_BATCH, ZAMBA_GEN)
+          and bool(((toks >= 0) & (toks < vocab)).all()),
+          f"generated tokens {toks.shape} out of range")
+    rel_last = relerr(seen["logits"], logits)
+    emit(phase="model_serve", path="launch.serve.generate",
+         steps=ZAMBA_PROMPT + ZAMBA_GEN, seconds=serve_s,
+         last_prompt_step_vs_prefill_rel=rel_last,
+         argmax_agrees=bool((seen["logits"].argmax(-1)
+                             == logits.argmax(-1)).all()),
+         sample=toks[0][:16].tolist(), card=smi)
+
+    # prefill against its own decode replay at float32 and full width, on
+    # the prompt's first 16 tokens (one chunk of 16): printed, as the
+    # bfloat16 comparison above
+    short = {"tokens": tokens[:, :16]}
+    want = prefill32(params, short)
+    model32 = build(cfg32)
+    cache = model32.init_cache(ZAMBA_BATCH, 16, f32)
+    for i in range(16):
+        got, cache = model32.decode(params, cache, tokens[:, i], i)
+    emit(phase="model_serve", check="f32 prefill vs decode replay, 16 tokens",
+         rel=relerr(got, want),
+         argmax_agrees=bool((got.argmax(-1) == want.argmax(-1)).all()))
+    del cache
+
+    # the reduced config on the card against the port on the CPU
+    rcfg = configs.get("zamba2-7b").reduced()
+    rmodel = build(rcfg)
+    rparams = rmodel.init(torch.Generator().manual_seed(0), device="cpu")
+    rparams_c = to_device(rparams, "cuda")
+    rtoks = np.random.default_rng(1).integers(2, rcfg.vocab_size, (2, 32))
+    rel = relerr(rmodel.prefill(rparams_c, {"tokens": rtoks}).cpu(),
+                 rmodel.prefill(rparams, {"tokens": rtoks}))
+    check(rel < 1e-4, f"reduced prefill, card vs CPU: {rel}")
+    cache_c = rmodel.init_cache(2, REDUCED_DECODE_STEPS, f32)
+    cache_h = rmodel.init_cache(2, REDUCED_DECODE_STEPS, f32, device="cpu")
+    rels = []
+    for i in range(REDUCED_DECODE_STEPS):
+        lc, cache_c = rmodel.decode(rparams_c, cache_c, rtoks[:, i], i)
+        lh, cache_h = rmodel.decode(rparams, cache_h, rtoks[:, i], i)
+        rels.append(relerr(lc.cpu(), lh))
+    emit(phase="model_serve", reference="cpu", config="zamba2-7b reduced",
+         prefill_rel=rel, decode_rel_max=max(rels))
+    check(max(rels) < 1e-4, f"reduced decode, card vs CPU: {max(rels)}")
+
+    # ---- 24. timing -------------------------------------------------------
+    timing = {}
+    b, hq, S, hd = ZAMBA_BATCH, cfg.num_heads, ZAMBA_PROMPT, cfg.head_dim
+    q, k, v = attn_inputs(b, hq, cfg.num_kv_heads, S, S, hd, bf16)
+    pairs = S * (S + 1) // 2
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nh, P, N, Q = d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, \
+        cfg.ssm_state, cfg.ssm_chunk
+    sargs = ssd_inputs(b, nh, S, P, N, f32)
+    rows_ = b * S
+    y, z, w = randn(rows_, d_inner), randn(rows_, d_inner), randn(d_inner)
+    cases = {
+        "attention": dict(
+            fn=lambda: attention_k.attention(q, k, v),
+            plain=lambda: attention_k.attention_plain(q, k, v),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True),
+            library_name="F.scaled_dot_product_attention(is_causal=True)",
+            shape=[b, hq, S, hd], dtype="bfloat16",
+            bytes=4 * b * hq * S * hd * 2, flops=4 * b * hq * pairs * hd,
+            rate=BF16_FLOPS_PER_S),
+        "ssd_scan": dict(
+            fn=lambda: ssd.ssd_scan(*sargs, heads=nh, chunk=Q),
+            plain=lambda: ssd.ssd_scan_plain(*sargs, heads=nh, chunk=Q),
+            library=None, library_name=None,
+            shape=[b * nh, S, P, N, Q], dtype="float32",
+            bytes=4 * (2 * b * nh * S * P + 2 * b * nh * S + 2 * b * S * N),
+            flops=b * nh * (S // Q) * (Q * (Q + 1) // 2 * (2 * N + 2 * P)
+                                       + 4 * Q * N * P),
+            rate=F32_FLOPS_PER_S),
+        "gated_rmsnorm": dict(
+            fn=lambda: gated_norm.gated_rmsnorm(y, z, w),
+            plain=lambda: gated_norm.gated_rmsnorm_plain(y, z, w),
+            library=lambda: F.rms_norm(y * F.silu(z), (d_inner,), w,
+                                       cfg.norm_eps),
+            library_name="F.rms_norm(y * F.silu(z), (d,), w, eps)",
+            shape=[rows_, d_inner], dtype="float32",
+            bytes=4 * (3 * rows_ * d_inner + d_inner),
+            flops=8 * rows_ * d_inner, rate=F32_FLOPS_PER_S),
+    }
+    for name, c in cases.items():
+        cold = timed(c["fn"], iters=20, cold=True)
+        row = dict(
+            **cold, warm_ms=timed(c["fn"], iters=20)["ms"],
+            plain_ms=cold_ms(c["plain"], iters=10),
+            library_ms=cold_ms(c["library"], iters=20) if c["library"]
+            else None,
+            library=c["library_name"], shape=c["shape"], dtype=c["dtype"],
+            bytes=c["bytes"], flops=c["flops"],
+            launches_per_prefill=launches[name])
+        row["bound_ms"], row["bound_by"] = bound(c["bytes"], c["flops"],
+                                                 c["rate"])
+        emit(phase="model_timing", kernel=name, card=smi, **row)
+        timing[name] = row
+    del q, k, v, sargs, y, z, w
+
+    # per prefill: wall (host clock ending in a sync), device time by
+    # kernel class, idle share, prompt tokens/s
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    by = kernel_ms(prof)
+    dev = sum(by.values())
+    by_class = {}
+    for key, ms in by.items():
+        by_class[kernel_class(key)] = by_class.get(kernel_class(key), 0) + ms
+    wall = min(walls)
+    emit(phase="model_timing", path="prefill", batch=ZAMBA_BATCH,
+         prompt=ZAMBA_PROMPT, wall_ms=wall, walls_ms=walls,
+         prompt_tokens_per_s=ZAMBA_BATCH * ZAMBA_PROMPT / (wall / 1e3),
+         device_ms=dev if dev > 0 else None,
+         device_idle_share=1 - dev / wall if dev > 0 else None,
+         device_ms_by_class=by_class,
+         device_share_by_class={k: v / dev for k, v in by_class.items()}
+         if dev > 0 else None,
+         top_kernels_ms={key[:90]: ms for key, ms in
+                         sorted(by.items(), key=lambda kv: -kv[1])[:8]},
+         card=smi)
+
+    # per decode token: wall over DECODE_TIMING_TOKENS steps after 4 warm
+    # ones, device time from a profile of 4 more
+    step = make_serve_step(cfg)
+    n_tok = DECODE_TIMING_TOKENS
+    cache = model.init_cache(ZAMBA_BATCH, 8 + n_tok)
+    tok = torch.as_tensor(tokens[:, 0], device="cuda")
+    for i in range(4):
+        tok, cache = step(params, cache, tok, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4, 4 + n_tok):
+        tok, cache = step(params, cache, tok, i)
+    torch.cuda.synchronize()
+    wall_tok = (time.perf_counter() - t0) * 1e3 / n_tok
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(4 + n_tok, 8 + n_tok):
+            tok, cache = step(params, cache, tok, i)
+        torch.cuda.synchronize()
+    by = kernel_ms(prof)
+    dev_tok = sum(by.values()) / 4
+    by_class = {}
+    for key, ms in by.items():
+        by_class[kernel_class(key)] = (by_class.get(kernel_class(key), 0)
+                                       + ms / 4)
+    emit(phase="model_timing", path="decode", batch=ZAMBA_BATCH,
+         wall_ms_per_token=wall_tok,
+         device_ms_per_token=dev_tok if dev_tok > 0 else None,
+         device_idle_share=1 - dev_tok / wall_tok if dev_tok > 0 else None,
+         device_ms_per_token_by_class=by_class,
+         top_kernels_ms_per_token={key[:90]: ms / 4 for key, ms in
+                                   sorted(by.items(),
+                                          key=lambda kv: -kv[1])[:6]},
+         serve_s_per_token=serve_s / (ZAMBA_PROMPT + ZAMBA_GEN), card=smi)
+    del params, cache
+    return errs, launches, timing
+
 
 
 def main() -> None:
@@ -2983,6 +3384,12 @@ def main() -> None:
     launches.update(d_launches)
     timing.update(d_timing)
 
+    # ---- 22-24. the model slice: zamba2-7b serving ------------------------
+    m_errs, m_launches, m_timing = model_phases(smi)
+    errs.update(m_errs)
+    launches.update(m_launches)
+    timing.update(m_timing)
+
     sources = {"block_matvec": ("src/repro_torch/csrc/matvec.cu",
                                 "src/repro/kernels/matvec.py:80"),
                "gs_project": ("src/repro_torch/csrc/cgs2.cu",
@@ -3030,7 +3437,13 @@ def main() -> None:
                "banded_matvec_halo": ("src/repro_torch/csrc/spmv.cu",
                                       "src/repro/kernels/spmv.py:286"),
                "ell_matvec_halo": ("src/repro_torch/csrc/spmv.cu",
-                                   "src/repro/kernels/spmv.py:138")}
+                                   "src/repro/kernels/spmv.py:138"),
+               "attention": ("src/repro_torch/csrc/attention.cu",
+                             "src/repro/kernels/attention.py:139"),
+               "ssd_scan": ("src/repro_torch/csrc/ssd.cu",
+                            "src/repro/kernels/ssd.py:86"),
+               "gated_rmsnorm": ("src/repro_torch/csrc/gated_norm.cu",
+                                 "src/repro/kernels/gated_norm.py:51")}
     emit(kernels=[{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": launches[name],

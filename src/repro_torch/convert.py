@@ -1,4 +1,5 @@
-"""Carry the JAX package's objects into the port and results back out.
+"""Carry the JAX package's objects into the port and results back out:
+operators, preconditioners, solver state and results, model parameters.
 
 The two frameworks meet only as numpy arrays: every function here reads its
 input with ``np.asarray`` (a JAX array, a numpy array or a CPU tensor all
@@ -103,6 +104,39 @@ def preconditioner(jax_pc, device="cuda") -> pc_mod.Preconditioner:
         pc.u_offsets = tuple(int(o) for o in jax_pc.u_offsets)
         pc.pattern = jax_pc.pattern
     return pc
+
+
+def model_params(jax_params, cfg, device="cuda") -> dict:
+    """The JAX package's zamba2 parameters (``build(cfg).init(key)``) as the
+    port's, dtypes kept.  JAX stacks the layers (``groups`` leaves are
+    (ng, g, ...), ``tail`` leaves (tail, ...)); the port keeps lists:
+    ``groups[i][j]`` and ``tail[t]`` are the layer dicts.  ``shared_attn``
+    is one set of weights, used at every site, in both."""
+    if cfg.family != "hybrid":
+        raise NotImplementedError(f"convert.model_params: the {cfg.family!r} "
+                                  f"family is not ported")
+    dev = device_mod.resolve(device)
+    host = _map(jax_params, np.asarray)
+
+    def take(tree, index):
+        return _map(tree, lambda a: tensor(a[index], dev))
+
+    ng, g = host["groups"]["ln"].shape[:2]
+    out = {name: take(host[name], ())
+           for name in ("embed", "shared_attn", "final_norm", "lm_head")}
+    out["groups"] = [[take(host["groups"], (i, j)) for j in range(g)]
+                     for i in range(ng)]
+    if "tail" in host:
+        out["tail"] = [take(host["tail"], (t,))
+                       for t in range(host["tail"]["ln"].shape[0])]
+    return out
+
+
+def _map(tree, fn):
+    """``fn`` on every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def givens_state(state) -> givens.GivensState:

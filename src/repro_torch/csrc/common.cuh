@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels (matvec.cu, cgs2.cu,
 // arnoldi_fused.cu, spmv.cu, batched_cgs2.cu, matrix_powers.cu,
-// block_gs.cu, sr_payload.cu): storage-type conversion, 16-byte row
+// block_gs.cu, sr_payload.cu, trisolve.cu, attention.cu, ssd.cu,
+// gated_norm.cu): storage-type conversion, 16-byte row
 // streaming with a warp, block sums in a fixed order, the grid-synchronised
 // classical Gram-Schmidt pass, with the basis slice in shared memory or
 // streamed, partials of a plain launch and their reduction by a second one,
@@ -25,6 +26,15 @@ constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// A float as storage type T (round to nearest even for bf16).
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // Round a float to storage type T and widen it back (identity for float).
 template <typename T> __device__ __forceinline__ float round_to(float x);

@@ -113,6 +113,15 @@ SIGNATURES = {
     # bands, b_bf16, offsets (host int[nbands]), nbands, fact (nbands, n),
     # n, eps, guard, stream
     "repro_ilu0_factor": (P, I, P, I, P, I, F, F, P),
+    # The model stack's kernels:
+    # q, k, v, bf16, o, b, hq, hkv, sq, skv, d, strides (host long long[12]:
+    # batch, head, position strides of q, k, v, o), scale, causal, window
+    # (0 = none), stream
+    "repro_attention": (P, P, P, I, P, I, I, I, I, I, I, P, F, I, I, P),
+    # x, bf16, dt, lg, b, c, y, bh, s, p, n, heads, chunk, stream
+    "repro_ssd_scan": (P, I, P, P, P, P, P, I, I, I, I, I, I, P),
+    # y, z, bf16, w, out, rows, d, eps, stream
+    "repro_gated_rmsnorm": (P, P, I, P, P, I, I, F, P),
 }
 
 _LIB = None

@@ -49,6 +49,10 @@ GS_WARPS = 8              # warps per cooperative block (csrc/common.cuh)
 # Dynamic shared memory a cooperative block may use (of the 227 KB limit),
 # leaving room for the runtime's reserved shared memory.
 SMEM_BUDGET = 200 * 1024
+# The most dynamic shared memory one block may have on an H100 (227 KB):
+# the model kernels' shapes are refused above it (kernels/ssd.py,
+# kernels/gated_norm.py).
+SMEM_LIMIT = 232_448
 # Upper bound on co-resident blocks per SM for the cooperative kernels.
 # The GS pass alone is latency-bound (fewer blocks: cheaper grid sync and
 # fewer partials to reduce); the fused step also streams A and wants more

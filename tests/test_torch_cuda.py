@@ -670,3 +670,140 @@ def test_sharded_kernels_match_plain_on_card(dev, dtype):
                          dtype=torch.int32)
     assert _relerr(spmv.ell_matvec_halo(vals, cols, xh),
                 spmv.ell_matvec_halo_plain(vals, cols, xh)) < tol
+
+
+# --------------------------------------------------------------------------
+# the model stack's kernels (zamba2): attention, SSD scan, gated RMSNorm
+# --------------------------------------------------------------------------
+# (b, hq, hkv, sq, skv, window, causal, d): the JAX package's attention
+# sweep (tests/test_kernels.py) at d = 64, and zamba2-7b's prefill shape
+ATTN_SHAPES = [(2, 4, 2, 256, 256, None, True, 64),
+               (1, 8, 8, 128, 128, None, True, 64),
+               (1, 8, 2, 128, 384, None, True, 64),
+               (2, 4, 4, 256, 256, 64, True, 64),
+               (1, 4, 2, 1, 300, None, True, 64),
+               (1, 4, 4, 128, 128, None, False, 64),
+               (1, 2, 2, 320, 320, 96, True, 64),
+               (2, 32, 32, 512, 512, None, True, 112)]
+# (batch, heads, s, p, n, chunk): the JAX sweep, the model-oracle case and
+# zamba2-7b's prefill (b = 2, S = 512, 112 heads)
+SSD_SHAPES = [(2, 3, 64, 16, 8, 16), (1, 2, 96, 32, 16, 32),
+              (1, 1, 48, 8, 8, 48), (2, 2, 32, 8, 8, 16),
+              (2, 112, 512, 64, 64, 256)]
+SSD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+NORM_SHAPES = [(4, 64, 256), (100, 512), (2, 33, 384), (1024, 7168),
+               (5, 7, 99)]      # the last: scalar loads (99 % 4 != 0)
+
+
+def _ssd_inputs(batch, heads, s, p, n, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(s + p)
+    bh = batch * heads
+    x = torch.randn(bh, s, p, device=dev, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(bh, s, device=dev,
+                                                  generator=g))
+    lg = -torch.randn(bh, s, device=dev, generator=g).abs() * 0.1
+    b = torch.randn(batch, s, n, device=dev, generator=g).to(dtype)
+    c = torch.randn(batch, s, n, device=dev, generator=g).to(dtype)
+    return x, dt, lg, b, c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernel_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import attention as attention_k
+    b, hq, hkv, sq, skv, window, causal, d = shape
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn(b, hq, sq, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, hkv, skv, d, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, hkv, skv, d, device=dev, generator=g).to(dtype)
+    before = attention_k.attention.launches
+    got = attention_k.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert attention_k.attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_k.attention_plain(q, k, v, causal=causal, window=window)
+    assert _relerr(got, want) < TOL[dtype]
+
+
+def test_attention_kernel_takes_strided_views(dev):
+    """The model's q/k/v are (b, s, h, d) products viewed as (b, h, s, d)."""
+    from repro_torch.kernels import attention as attention_k
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(2, 40, 4, 48, device=dev, generator=g)
+               .transpose(1, 2) for _ in range(3))
+    got = attention_k.attention(q, k, v)
+    want = attention_k.attention_plain(q.contiguous(), k.contiguous(),
+                                       v.contiguous())
+    assert _relerr(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_scan_kernel_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import ssd
+    batch, heads, s, p, n, chunk = shape
+    x, dt, lg, b, c = _ssd_inputs(batch, heads, s, p, n, dtype, dev)
+    before = ssd.ssd_scan.launches
+    got = ssd.ssd_scan(x, dt, lg, b, c, heads=heads, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    want = ssd.ssd_scan_plain(x, dt, lg, b, c, heads=heads, chunk=chunk)
+    assert got.dtype == dtype
+    assert _relerr(got, want) < SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", NORM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gated_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import gated_norm
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    y = torch.randn(shape, device=dev, generator=g).to(dtype)
+    z = torch.randn(shape, device=dev, generator=g).to(dtype)
+    w = torch.randn(shape[-1], device=dev, generator=g).to(dtype)
+    before = gated_norm.gated_rmsnorm.launches
+    got = gated_norm.gated_rmsnorm(y, z, w)
+    torch.cuda.synchronize()
+    assert gated_norm.gated_rmsnorm.launches == before + 1
+    want = gated_norm.gated_rmsnorm_plain(y, z, w)
+    assert got.dtype == dtype
+    assert _relerr(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("num_layers", [4, 5])
+def test_reduced_zamba_on_card_matches_cpu(dev, num_layers):
+    """Prefill and 12 decode steps of zamba2_7b.reduced() on the card (the
+    three kernels) against the port on the CPU (their plain versions)."""
+    from repro_torch import configs
+    from repro_torch.kernels import attention as attention_k
+    from repro_torch.kernels import gated_norm, ssd
+    from repro_torch.models import build
+    cfg = configs.get("zamba2-7b").reduced(num_layers=num_layers)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(dev)
+    params_c = to_card(params)
+    toks = np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 32))
+    kernels = (attention_k.attention, ssd.ssd_scan, gated_norm.gated_rmsnorm)
+    before = [f.launches for f in kernels]
+    got = model.prefill(params_c, {"tokens": toks})
+    torch.cuda.synchronize()
+    sites = num_layers // cfg.attn_every
+    assert [f.launches - b for f, b in zip(kernels, before)] == \
+        [sites, num_layers, num_layers]
+    want = model.prefill(params, {"tokens": toks})
+    assert _relerr(got.cpu(), want) < 1e-4
+    cache_c = model.init_cache(2, 12, torch.float32, device=dev)
+    cache = model.init_cache(2, 12, torch.float32, device="cpu")
+    for i in range(12):
+        lc, cache_c = model.decode(params_c, cache_c, toks[:, i], i)
+        lh, cache = model.decode(params, cache, toks[:, i], i)
+        assert _relerr(lc.cpu(), lh) < 1e-4

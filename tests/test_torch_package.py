@@ -45,7 +45,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 41
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
@@ -99,6 +99,33 @@ def test_sstep_entry_points_raise_without_card(no_card):
     assert res.converged and res.x.device.type == "cpu"
     res = strategies.device_resident_sstep(a, b, m=4, s=2, device="cpu")
     assert res.converged and res.x.device.type == "cpu"
+
+
+def test_model_entry_points_raise_without_card(no_card):
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.models import build as jbuild
+
+    from repro_torch import configs, convert
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    cfg = configs.get("zamba2-7b").reduced()
+    model = build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-7b", "--reduced", "--gen", "1"])
+    jcfg = jconfigs.get("zamba2-7b").reduced()
+    jparams = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.model_params(jparams, cfg)
+    params = convert.model_params(jparams, cfg, device="cpu")
+    logits = model.prefill(params, {"tokens": jnp.ones((1, 16), jnp.int32)})
+    assert logits.device.type == "cpu"
+    assert model.init_cache(1, 4, device="cpu").attn[0].k.device.type == "cpu"
 
 
 def test_unported_paths_raise():
