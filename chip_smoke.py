@@ -1,11 +1,18 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --in-turn DIR   # kernel-table rows 7 and 20 and
+        # their cells, the tree at DIR (e.g. `git archive` of the parent
+        # commit, unpacked) against this one in turn (measure_cells)
 
 Phases, one JSON line each (``"phase": ...``):
 
 1. build      compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
-              per source, in parallel); nvcc version; card and power limit.
+              per source, in parallel); nvcc version; card and power limit;
+              ``ptxas -v``'s registers, spills and static shared memory of
+              the sliced-ELL and bf16 attention kernels, and the HGMMA
+              (wgmma) instructions in each attention instantiation's SASS
+              (``cuobjdump -sass``): none fails the run.
 2. kernels    every kernel of the main path against its plain PyTorch
               version on the card, at the main path's shapes (n = 10,000,
               m1 = 31), float32 and bfloat16 storage.  Bars: max relative
@@ -44,18 +51,22 @@ The sparse slice (stencil and graph systems, the block multi-RHS solver):
               convection_diffusion_2d(1024, 1024) (n = 2^20, 5 bands) at
               k = 1 and 4; sliced ELL on pagerank_system(8192) (rows
               sorted, <= 8 bins) and on the 1024^2 stencil (identity order)
-              at k = 1, 4 and 8; batched_cgs2 at k = 4, n = 2^20, m1 = 31,
+              at k = 1, 4 and 8, in the sorted frame and through the
+              operator (the permutation applied in the kernel);
+              batched_cgs2 at k = 4, n = 2^20, m1 = 31,
               per-lane j = (0, 7, 15, 29), and at k = 8, n = 8192.
 7. sparse_solve GMRES(30), tol 1e-5, 200 restarts, on the 1024^2
               convection-diffusion system (b from numpy seed 1) through
               fmt = banded / ell / sell (each on its SpMV kernel), under gs =
               cgs2 and cgs2_fused.  Counters zeroed around each solve and
-              held to the scheme (SpMV launches = (steps + restarts + 1) x
-              bins; gs_project = 2 x steps under cgs2_fused).  Checks:
+              held to the scheme (SpMV launches = steps + restarts + 1, one
+              per mat-vec in every format; gs_project = 2 x steps under
+              cgs2_fused).  Checks:
               converged, true relres <= 2 tol, the true residual after the
               first restart equal across formats within 1e-4, restarts
               within 10% (about 70 restarts on an ill-conditioned system
-              drift by a few with the summation order), and the 32^2
+              drift by a few with the summation order), x within 1e-3 of
+              the banded solve's (norm-wise relative), and the 32^2
               system on the card against the CPU (restarts +-1, x 1e-3).
 8. batched_solve  gmres_batched: a PageRank burst (pagerank_system(8192),
               8 personalization vectors from numpy seed 0, per-lane tol
@@ -64,13 +75,17 @@ The sparse slice (stencil and graph systems, the block multi-RHS solver):
               (restarts +-1, x 1e-3); and 4 right-hand sides (numpy seeds
               1-4) on the 1024^2 banded stencil, true relres <= 2 tol.
               batched_cgs2 launches once per lockstep step, the SpMV once
-              per block mat-vec.
+              per block mat-vec; the operator's mat-vec runs no scatter
+              (no index_copy in its host profile).
 9. sparse_timing  phase 5's timing for the new kernels at those shapes,
               with L2 emptied before every call (in a solve the basis
               traffic evicts the operands between two calls of one
               kernel); the warm back-to-back time stands beside it as
               ``warm_ms``.  The bound is the bytes each must move (per
-              PERF.md); each sliced-ELL bin is timed alone; the library
+              PERF.md); each sliced-ELL bin is timed alone through the
+              bin-table kernel (a one-bin table), and the widest
+              (hub) bin at 32, 64, 128 and 256 threads per row in
+              ``tuning`` rows, each held to the plain version; the library
               yardstick is one call computing the same function (a CSR
               ``torch.mv`` of the same matrix, cuSPARSE, for ELL, banded
               and sliced ELL).  Per solve: wall / device ms per Arnoldi
@@ -96,8 +111,9 @@ The s-step slice (s = 5, 6 blocks: m = 30):
               ELL (reference powers over the SpMV kernel).  Counters zeroed
               around each solve: powers launches = blocks x cycles,
               block_gs_pass = 2 x blocks x cycles, the operator's mat-vec
-              once per residual (and s x blocks x cycles on the reference
-              powers).  Checks: converged, true relres <= 2 tol, restarts
+              (one launch in every format) once per residual (and s x
+              blocks x cycles on the reference powers).  Checks:
+              converged, true relres <= 2 tol, restarts
               within 10% (and +-1) of phase 3's / phase 7's gmres(30) cgs2
               count (dense Newton: +-1 of the same solve on the CPU, as its
               Gershgorin shifts cost it restarts), first-restart residuals
@@ -130,7 +146,7 @@ The pipelined slice (gs = "cgs2_pipelined"):
               <= 2 tol, restarts within +-1 (10% on the stencil), x within
               1e-3; banded and ELL first-restart residuals the same bits.
               Counters: payload = steps, gs_update = 2 x steps, the
-              operator's mat-vec (steps + 2 restarts + 1) x bins, no
+              operator's mat-vec (one launch) steps + 2 restarts + 1, no
               gs_project.  Then wall, device ms and idle share per step
               and host syncs per step (sync debug mode) of the dense and
               banded solves beside cgs2_fused's, timed in turn, and for
@@ -242,7 +258,9 @@ The model slice, zamba2-7b serving at full published width and depth
 drawn from torch.Generator("cuda") seed 0, bfloat16 compute):
 
 22. model_kernels  attention, ssd_scan and gated_rmsnorm against their
-              plain versions on the card, float32 and bfloat16 storage,
+              plain versions on the card, float32 and bfloat16 storage
+              (attention: bfloat16 through the wgmma kernel, float32
+              through the float32 one, each call's route counted),
               phase 2's bars (ssd_scan 3e-4 in float32, the JAX test's
               own bar: it takes exps of cumulative sums), at the JAX
               package's sweep shapes and at zamba2's prefill shapes
@@ -250,11 +268,13 @@ drawn from torch.Generator("cuda") seed 0, bfloat16 compute):
               N = 64, Q = 256; gated_rmsnorm (1024, 7168)).
 23. model_serve  make_prefill_step at b = 2, S = 512 (numpy seed 0
               tokens): counters zeroed before and read after, exactly 13
-              attention, 81 ssd_scan and 81 gated_rmsnorm launches; logits
+              attention (all 13 on the wgmma kernel), 81 ssd_scan and 81
+              gated_rmsnorm launches; logits
               finite; the same prefill at compute_dtype float32 through
               the kernels against their plain versions (patched in here
               with unittest.mock, not switched in the package) within 1e-3
-              of max|logit|, and the bfloat16 difference printed.  Greedy
+              of max|logit| (its 13 attention launches on the float32
+              kernel), and the bfloat16 difference printed.  Greedy
               serving through launch.serve.generate: 512 prompt steps and
               32 tokens (the decode path is plain PyTorch, as in JAX: no
               kernel launches), tokens in range, the last prompt step's
@@ -264,7 +284,8 @@ drawn from torch.Generator("cuda") seed 0, bfloat16 compute):
               on the CPU: prefill and 12 decode steps (float32 cache)
               within 1e-4.
 24. model_timing  each kernel cold and warm at zamba2's shapes beside its
-              bound, its plain version and a library call
+              bound, its plain version and a library call (attention: the
+              wgmma kernel, and the float32 kernel at the same shape)
               (scaled_dot_product_attention(is_causal=True); the composite
               F.rms_norm(y * F.silu(z)); none for the SSD scan); per
               prefill wall ms, device ms by kernel class (the three
@@ -657,12 +678,17 @@ def sparse_phases(smi, gen):
                                                               dtype))):
             for k in (1, 4, PAGERANK_K):
                 x = torch.randn(sop.shape[0], k, device="cuda", generator=gen)
+                want = spmv.sell_matvec_plain(sop.bin_values, sop.bin_cols, x)
                 compare("sell_matvec",
                         spmv.sell_matvec(sop.bin_values, sop.bin_cols, x),
-                        spmv.sell_matvec_plain(sop.bin_values, sop.bin_cols,
-                                               x),
+                        want, dtype, system=system, n=sop.shape[0], k=k,
+                        bins=len(sop.bin_values), frame="sorted")
+                # the operator's path: perm applied in the kernel
+                compare("sell_matvec", sop(x),
+                        torch.zeros_like(want).index_copy_(
+                            0, sop.perm.long(), want),
                         dtype, system=system, n=sop.shape[0], k=k,
-                        bins=len(sop.bin_values))
+                        bins=len(sop.bin_values), frame="original")
         for k in (1, 4):
             x = torch.randn(n, k, device="cuda", generator=gen)
             compare("ell_matvec", spmv.ell_matvec(ell.values, ell.cols, x),
@@ -706,7 +732,6 @@ def sparse_phases(smi, gen):
     for gs in SPARSE_SCHEMES:
         for fmt in FORMATS:
             op = ops[fmt]
-            per_mv = len(op.bin_values) if fmt == "sell" else 1
             zero()
             t0 = time.perf_counter()
             res = gmres(op, b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
@@ -724,8 +749,7 @@ def sparse_phases(smi, gen):
             check(rr <= 2 * TOL, f"{fmt}/{gs}: true relres {rr}")
             check(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,),
                   f"{fmt}/{gs}: x not finite or wrong shape")
-            expect = {fmt_kernel[fmt]:
-                      (res.inner_steps + res.restarts + 1) * per_mv}
+            expect = {fmt_kernel[fmt]: res.inner_steps + res.restarts + 1}
             if gs == "cgs2_fused":
                 expect["gs_project"] = 2 * res.inner_steps
             expect_counts(d, expect, f"{fmt}/{gs}")
@@ -737,9 +761,15 @@ def sparse_phases(smi, gen):
                   f"{gs}: first-restart residual {fmt} {first} vs banded "
                   f"{ref_first}")
     restarts = [res.restarts for res, _ in solves.values()]
-    emit(phase="sparse_solve", restarts=restarts)
+    x_rel = {f"{fmt}/{gs}": float((solves[(fmt, gs)][0].x
+                                   - solves[("banded", gs)][0].x).norm()
+                                  / solves[("banded", gs)][0].x.norm())
+             for gs in SPARSE_SCHEMES for fmt in FORMATS[1:]}
+    emit(phase="sparse_solve", restarts=restarts, x_rel_to_banded=x_rel)
     check(max(restarts) <= 1.1 * min(restarts),
           f"restart counts differ by more than 10%: {restarts}")
+    check(max(x_rel.values()) <= 1e-3,
+          f"x differs from the banded solve's: {x_rel}")
 
     # the 32^2 system on the card against the CPU
     b_s = np.random.default_rng(1).standard_normal(32 * 32).astype(np.float32)
@@ -761,7 +791,6 @@ def sparse_phases(smi, gen):
     zero()
 
     # ---- 8. the batched solves ------------------------------------------
-    bins = len(pr_op.bin_values)
     pv = np.random.default_rng(0).random((PAGERANK_K, PAGERANK_N))
     b_pr = torch.stack([make_rhs(v) for v in pv])
     tols = np.array([PAGERANK_TOLS[i % len(PAGERANK_TOLS)]
@@ -781,9 +810,19 @@ def sparse_phases(smi, gen):
     check(np.abs(sums - 1).max() <= 1e-4, f"pagerank sums {sums.tolist()}")
     lockstep = d["batched_cgs2"]
     expect_counts(d, {"batched_cgs2": lockstep,
-                      "sell_matvec": (lockstep + int(res.restarts.max())
-                                      + 1) * bins}, "pagerank burst")
+                      "sell_matvec": lockstep + int(res.restarts.max()) + 1},
+                  "pagerank burst")
     check(lockstep > 0, "batched_cgs2 never launched in the PageRank burst")
+    # the operator's mat-vec is the kernel's launch alone: no scatter
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pr_op(b_pr.T.contiguous())
+        torch.cuda.synchronize()
+    ops_seen = [e.key for e in prof.key_averages()]
+    emit(phase="batched_solve", system="pagerank", matvec_ops=ops_seen)
+    check(not any("index_copy" in key or "scatter" in key
+                  for key in ops_seen),
+          f"the sliced-ELL mat-vec scattered its output: {ops_seen}")
     pagerank_res, pagerank_lockstep = res, lockstep
     for lane in range(PAGERANK_K):
         ref = gmres(pr_op, b_pr[lane], m=M, tol=float(tols[lane]),
@@ -830,8 +869,6 @@ def sparse_phases(smi, gen):
                     plain_ms=cold_ms(plain),
                     library_ms=cold_ms(library_fn)
                     if library_fn else None, **info)
-
-    from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
@@ -955,18 +992,41 @@ def sparse_phases(smi, gen):
                       "sell_matvec": rows[("sell_matvec", "pagerank")],
                       "batched_cgs2": rows[("batched_cgs2",
                                             f"k = 4, n = {NX * NX}")]}
-            # each sliced-ELL bin alone (one launch of the ELL kernel)
+            # each sliced-ELL bin alone: the bin-table kernel on a one-bin
+            # table (its rule's threads per row)
             xf = x_pr.contiguous()
             for i, (bv, bc) in enumerate(zip(spr.bin_values, spr.bin_cols)):
                 y = torch.empty(bv.shape[0], 1, device="cuda")
-                launch = (lambda: spmv._launch_ell(bv, bc, xf, y, "bin"))
+                launch = (lambda: spmv._launch_sell((bv,), (bc,), xf, y, None,
+                                                    "bin"))
                 nbytes = bv.numel() * (sz + 4) + 8 * bv.shape[0]
                 emit(phase="sparse_timing", kernel="sell_matvec bin",
                      system="pagerank", bin=i, rows=bv.shape[0],
-                     width=bv.shape[1], bound_ms=bound(nbytes,
-                                                       2 * bv.numel())[0],
+                     width=bv.shape[1],
+                     threads_per_row=spmv.threads_per_row(bv.shape[1]),
+                     bound_ms=bound(nbytes, 2 * bv.numel())[0],
                      warm_ms=timed(launch)["ms"], card=smi,
                      **timed(launch, cold=True))
+            # the hub bin (widest) at 32 to 256 threads per row, each held
+            # to the plain version; the rule's choice marked
+            bv, bc = spr.bin_values[0], spr.bin_cols[0]
+            want = spmv.ell_matvec_plain(bv, bc, xf)
+            rule = spmv.threads_per_row(bv.shape[1])
+            for tpr in (32, 64, 128, 256):
+                y = torch.empty(bv.shape[0], 1, device="cuda")
+                launch = (lambda: spmv._launch_sell((bv,), (bc,), xf, y, None,
+                                                    "hub bin", (tpr,)))
+                launch()
+                rel = relerr(y, want)
+                check(rel < TOLS[dtype], f"hub bin at {tpr} threads a row: "
+                                         f"{rel}")
+                cold = timed(launch, cold=True)
+                emit(phase="tuning", kernel="sell_matvec hub bin",
+                     system="pagerank", rows=bv.shape[0], width=bv.shape[1],
+                     threads_per_row=tpr, chosen=tpr == rule,
+                     max_rel_err=rel, warm_ms=timed(launch)["ms"],
+                     cold_ms=cold["ms"], cold_event_ms=cold["event_ms"],
+                     card=smi)
         del ell, band, sst, spr
     zero()
 
@@ -1191,7 +1251,6 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
         firsts = {}
         for fmt in FORMATS:
             op = ops[fmt]
-            bins = len(op.bin_values) if fmt == "sell" else 1
             zero()
             t0 = time.perf_counter()
             res = gmres_sstep(op, b, s=s, blocks=blocks, tol=TOL,
@@ -1220,11 +1279,11 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
                   f"{cyc} restarts vs gmres {sparse_restarts}")
             kernel = powers_kernel.get(fmt)
             expect = {"block_gs_pass": 2 * blocks * cyc,
-                      fmt_kernel[fmt]: (cyc + 1) * bins}
+                      fmt_kernel[fmt]: cyc + 1}
             if kernel:
                 expect[kernel] = blocks * cyc
             else:                   # reference powers over the SpMV kernel
-                expect[fmt_kernel[fmt]] += s * blocks * cyc * bins
+                expect[fmt_kernel[fmt]] += s * blocks * cyc
             expect_counts(d, expect, f"{fmt} s-step {basis_name}")
             solves[(fmt, basis_name)] = res
         for fmt in FORMATS:
@@ -1516,7 +1575,6 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                  sparse_solves[(fmt, "cgs2_fused")][0]) for fmt in FORMATS]
     firsts, pipe = {}, {}
     for system, op, rhs, budget, ref in systems:
-        bins = len(op.bin_values) if system == "sell" else 1
         ctr.zero()
         t0 = time.perf_counter()
         res = gmres(op, rhs, m=M, tol=TOL, max_restarts=budget,
@@ -1549,8 +1607,8 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
         steps = res.inner_steps
         ctr.expect(d, {"gs_project_norm_partial": steps,
                        "gs_update": 2 * steps,
-                       fmt_kernel[system]: (steps + 2 * res.restarts + 1)
-                       * bins}, f"pipelined {system}")
+                       fmt_kernel[system]: steps + 2 * res.restarts + 1},
+                   f"pipelined {system}")
         pipe[system] = res
     check(firsts["ell"] == firsts["banded"],
           f"pipelined: first-restart residual ell {firsts['ell']!r} vs "
@@ -2723,6 +2781,8 @@ def to_device(tree, device):
 def kernel_class(key: str) -> str:
     """The part of the prefill a device kernel belongs to, by its name."""
     k = key.lower()
+    if "attention_wgmma_kernel" in k:
+        return "attention"
     for name in ("attention_kernel", "ssd_scan_kernel",
                  "gated_rmsnorm_kernel"):
         if name in k:
@@ -2777,16 +2837,25 @@ def model_phases(smi):
         check(rel < bar, f"{name} {info}: {rel}")
 
     # ---- 22. kernels vs plain ---------------------------------------------
+    by_kernel = attention_k.attention.launches_by_kernel
     for dtype in (f32, bf16):
+        route = "wgmma" if dtype == bf16 else "simt"
         for b, hq, hkv, sq, skv, window, causal, d in ATTN_SHAPES:
             q, k, v = attn_inputs(b, hq, hkv, sq, skv, d, dtype)
+            before = dict(by_kernel)
             record("attention",
                    attention_k.attention(q, k, v, causal=causal,
                                          window=window),
                    attention_k.attention_plain(q, k, v, causal=causal,
                                                window=window),
                    TOLS[dtype], shape=[b, hq, hkv, sq, skv, d],
-                   window=window, causal=causal, dtype=str(dtype))
+                   window=window, causal=causal, dtype=str(dtype),
+                   kernel_route=route,
+                   plan=attention_k.launch_plan(q, k, v))
+            check(by_kernel[route] == before[route] + 1
+                  and sum(by_kernel.values()) == sum(before.values()) + 1,
+                  f"attention {dtype} did not launch the {route} kernel "
+                  f"({before} -> {by_kernel})")
         for batch, heads, s, p, n, chunk in SSD_SHAPES:
             args = ssd_inputs(batch, heads, s, p, n, dtype)
             record("ssd_scan", ssd.ssd_scan(*args, heads=heads, chunk=chunk),
@@ -2814,13 +2883,23 @@ def model_phases(smi):
     batch = {"tokens": tokens}
     prefill = make_prefill_step(cfg)
     ctr = Counters(kernels)
+
+    def zero_routes():
+        for route in by_kernel:
+            by_kernel[route] = 0
+
     ctr.zero()
+    zero_routes()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     launches = ctr.read()
+    routes = dict(by_kernel)
     ctr.expect(launches, {"attention": sites, "ssd_scan": cfg.num_layers,
                           "gated_rmsnorm": cfg.num_layers},
                "zamba2-7b prefill")
+    check(routes == {"wgmma": sites, "simt": 0},
+          f"bf16 prefill attention launches by kernel {routes}, expected "
+          f"{sites} wgmma")
     check(tuple(logits.shape) == (ZAMBA_BATCH, vocab)
           and bool(torch.isfinite(logits).all()),
           f"zamba2-7b prefill logits {tuple(logits.shape)} not finite")
@@ -2835,7 +2914,12 @@ def model_phases(smi):
                                gated_norm.gated_rmsnorm_plain))
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     prefill32 = make_prefill_step(cfg32)
+    zero_routes()
     got32 = prefill32(params, batch)
+    routes32 = dict(by_kernel)
+    check(routes32 == {"wgmma": 0, "simt": sites},
+          f"f32 prefill attention launches by kernel {routes32}, expected "
+          f"{sites} simt")
     with plain[0], plain[1], plain[2]:
         want32 = prefill32(params, batch)
         want16 = prefill(params, batch)
@@ -2843,6 +2927,8 @@ def model_phases(smi):
     emit(phase="model_serve", arch=cfg.name,
          params=sum(t.numel() for t in leaves(params)), init_s=init_s,
          batch=ZAMBA_BATCH, prompt=ZAMBA_PROMPT, launches=launches,
+         attention_launches_by_kernel={"bf16 prefill": routes,
+                                       "f32 prefill": routes32},
          f32_kernels_vs_plain_rel=rel32, bf16_kernels_vs_plain_rel=rel16,
          logits_max_abs=float(logits.abs().max()), card=smi)
     check(rel32 < 1e-3, f"f32 prefill, kernels vs plain: {rel32}")
@@ -2952,6 +3038,8 @@ def model_phases(smi):
             bytes=4 * (3 * rows_ * d_inner + d_inner),
             flops=8 * rows_ * d_inner, rate=F32_FLOPS_PER_S),
     }
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    cases["attention"]["simt"] = lambda: attention_k.attention(q32, k32, v32)
     for name, c in cases.items():
         cold = timed(c["fn"], iters=20, cold=True)
         row = dict(
@@ -2964,9 +3052,14 @@ def model_phases(smi):
             launches_per_prefill=launches[name])
         row["bound_ms"], row["bound_by"] = bound(c["bytes"], c["flops"],
                                                  c["rate"])
+        if "simt" in c:       # the float32 kernel at the same shape
+            simt = timed(c["simt"], iters=20, cold=True)
+            row["ms_by_kernel"] = {
+                "wgmma (bf16)": row["ms"] or row["event_ms"],
+                "simt (float32)": simt["ms"] or simt["event_ms"]}
         emit(phase="model_timing", kernel=name, card=smi, **row)
         timing[name] = row
-    del q, k, v, sargs, y, z, w
+    del q, k, v, q32, k32, v32, sargs, y, z, w
 
     # per prefill: wall (host clock ending in a sync), device time by
     # kernel class, idle share, prompt tokens/s
@@ -3036,6 +3129,47 @@ def model_phases(smi):
 
 
 
+def kernel_resources(so, names) -> dict:
+    """Every instantiation of the named kernels (mangled name): ``ptxas
+    -v``'s registers, spills and static shared memory (the build's log),
+    and the HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass`` of
+    the built library)."""
+    import os
+    import re
+
+    from repro_torch.kernels import _build
+
+    res, cur = {}, None
+    for line in _build.ptxas_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m[1] if any(n in m[1] for n in names) else None
+            if cur:
+                res[cur] = {"registers": 0, "spill_stores": 0,
+                            "spill_loads": 0, "static_smem": 0, "hgmma": 0}
+            continue
+        if cur is None:
+            continue
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line):
+            res[cur]["spill_stores"] = int(m[1])
+            res[cur]["spill_loads"] = int(m[2])
+        if m := re.search(r"Used (\d+) registers", line):
+            res[cur]["registers"] = int(m[1])
+        if m := re.search(r"(\d+) bytes smem", line):
+            res[cur]["static_smem"] = int(m[1])
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m[1]
+        elif fn in res and "HGMMA" in line:
+            res[fn]["hgmma"] += 1
+    return res
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device is available")
     from repro_torch.core import gmres, operators, strategies
@@ -3059,8 +3193,21 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
+    res = kernel_resources(so, ("sell_kernel", "attention_wgmma_kernel"))
+    sell = [r for name, r in res.items() if "sell_kernel" in name]
+    attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
+            for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
-         card=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         resources=dict(attn, **{f"sell_kernel ({len(sell)} "
+                                 f"instantiations)": {
+             "registers_max": max(r["registers"] for r in sell),
+             "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
+                                for r in sell),
+             "static_smem_max": max(r["static_smem"] for r in sell)}}))
+    check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
+          f"attention_wgmma_kernel: HGMMA instructions {attn}")
+    check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
 
     # ---- 2. kernels vs plain at the main path's shapes ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3438,7 +3585,7 @@ def main() -> None:
                                       "src/repro/kernels/spmv.py:286"),
                "ell_matvec_halo": ("src/repro_torch/csrc/spmv.cu",
                                    "src/repro/kernels/spmv.py:138"),
-               "attention": ("src/repro_torch/csrc/attention.cu",
+               "attention": ("src/repro_torch/csrc/attention_sm90.cu",
                              "src/repro/kernels/attention.py:139"),
                "ssd_scan": ("src/repro_torch/csrc/ssd.cu",
                             "src/repro/kernels/ssd.py:86"),
@@ -3452,12 +3599,124 @@ def main() -> None:
         "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
-        "library_ms": timing[name]["library_ms"]} for name in sources])
+        "library_ms": timing[name]["library_ms"],
+        **({"ms_by_kernel": timing[name]["ms_by_kernel"],
+            "sources": ["src/repro_torch/csrc/attention_sm90.cu",
+                        "src/repro_torch/csrc/attention.cu"]}
+           if "ms_by_kernel" in timing[name] else {})} for name in sources])
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
+def measure_cells(label: str) -> None:
+    """Kernel-table rows 7 and 20 and the cells they serve, on whichever
+    ``repro_torch`` this process imported (``in_turn``): the sliced-ELL
+    product on the PageRank operator (k = 1, 8; and through the operator,
+    k = 8) and the 1024^2 stencil, cold and warm, beside cuSPARSE; the
+    PageRank burst per lockstep step; bf16 attention at zamba2's prefill
+    shape beside SDPA; the zamba2-7b prefill (b = 2, S = 512).  One JSON
+    line."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.core import gmres_batched, graphs, stencils
+    from repro_torch.kernels import _build, block_gs, spmv
+    from repro_torch.kernels import attention as attention_k
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import build
+
+    check(torch.cuda.is_available(), "no CUDA device is available")
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+    warnings.filterwarnings("ignore", message="Sparse")
+    _build.build()
+    out = {"tree": label, "package": str(pathlib.Path(spmv.__file__)
+                                          .parents[2])}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pr, make_rhs = graphs.pagerank_system(PAGERANK_N, seed=0, fmt="sell")
+    st = stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt="sell")
+    x1 = torch.randn(PAGERANK_N, 1, device="cuda", generator=gen)
+    x8 = torch.randn(PAGERANK_N, PAGERANK_K, device="cuda", generator=gen)
+    xn = torch.randn(NX * NX, 1, device="cuda", generator=gen)
+    for name, fn in (
+            ("sell_matvec pagerank k=1",
+             lambda: spmv.sell_matvec(pr.bin_values, pr.bin_cols, x1)),
+            ("sell_matvec pagerank k=8",
+             lambda: spmv.sell_matvec(pr.bin_values, pr.bin_cols, x8)),
+            ("sell_matvec stencil k=1",
+             lambda: spmv.sell_matvec(st.bin_values, st.bin_cols, xn)),
+            ("pagerank operator k=8", lambda: pr(x8))):
+        t = timed(fn, cold=True)
+        out[name] = dict(t, warm_ms=timed(fn)["ms"])
+    lib = csr_of(*pr.to_ell_arrays())
+    out["cusparse pagerank k=1"] = cold_ms(lambda: torch.mv(lib, x1[:, 0]))
+    out["cusparse pagerank k=8"] = cold_ms(lambda: torch.sparse.mm(lib, x8))
+    pv = np.random.default_rng(0).random((PAGERANK_K, PAGERANK_N))
+    b_pr = torch.stack([make_rhs(v) for v in pv])
+    tols = np.array([PAGERANK_TOLS[i % len(PAGERANK_TOLS)]
+                     for i in range(PAGERANK_K)], np.float32)
+    block_gs.batched_cgs2.launches = 0
+    res = gmres_batched(pr, b_pr, m=M, tol=tols, max_restarts=100)
+    out["burst"] = solve_timing(
+        lambda: gmres_batched(pr, b_pr, m=M, tol=tols, max_restarts=100),
+        block_gs.batched_cgs2.launches, phase="in_turn",
+        solve="pagerank burst (per lockstep step)", tree=label,
+        restarts=res.restarts.tolist())
+    del pr, st, lib
+    q, k, v = (torch.randn(ZAMBA_BATCH, ZAMBA_PROMPT, 32, 112, device="cuda",
+                           generator=gen).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    t = timed(lambda: attention_k.attention(q, k, v), iters=20, cold=True)
+    out["attention bf16"] = dict(t, warm_ms=timed(
+        lambda: attention_k.attention(q, k, v), iters=20)["ms"])
+    out["sdpa"] = cold_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    del q, k, v
+    cfg = configs.get("zamba2-7b")
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {"tokens": np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (ZAMBA_BATCH, ZAMBA_PROMPT)).astype(np.int32)}
+    prefill = make_prefill_step(cfg)
+    prefill(params, batch)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    by = kernel_ms(prof)
+    out["prefill"] = {"walls_ms": walls, "device_ms": sum(by.values()),
+                      "attention_ms": sum(ms for key, ms in by.items()
+                                          if kernel_class(key)
+                                          == "attention")}
+    emit(phase="in_turn", **out)
+
+
+def in_turn(parent: pathlib.Path) -> None:
+    """``measure_cells`` on the tree at ``parent`` (an unpacked ``git
+    archive`` of the commit to compare with) and on this one, each in its
+    own process, in turn: parent, this, this, parent."""
+    check(torch.cuda.is_available(), "no CUDA device is available")
+    parent = parent.resolve()
+    check((parent / "src" / "repro_torch").is_dir(),
+          f"{parent} holds no src/repro_torch")
+    for label, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                        ("parent", parent)):
+        code = (f"import sys; sys.path.insert(0, {str(tree / 'src')!r}); "
+                f"import repro_torch; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; chip_smoke.measure_cells({label!r})")
+        subprocess.run([sys.executable, "-c", code], check=True,
+                       timeout=900)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--in-turn"]:
+        in_turn(pathlib.Path(sys.argv[2]))
+    else:
+        main()

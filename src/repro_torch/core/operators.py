@@ -306,12 +306,13 @@ class SlicedEllOperator:
       bin_cols[b]    (rows_b, width_b)  int32 global column indices
       perm           (n,) int32, perm[i] = original row at sorted slot i
 
-    The mat-vec is one ELL kernel launch per bin (``spmv.sell_matvec``)
-    over the same x, then a scatter through ``perm`` back to the original
-    order (a plain ``index_copy_``: the JAX package also scatters outside
-    its kernel).  Where sorting would not shrink storage by 10% (the
-    stencils), the constructors keep the original order, ``identity_perm`` is
-    set, and the scatter is skipped.
+    The mat-vec is one launch of the sliced-ELL kernel over the bin table
+    (``spmv.sell_matvec``), which writes row r of the sorted frame to
+    y[perm[r]]: no scatter (the JAX package scatters outside its kernel;
+    on a CPU tensor the plain version does).  Where sorting would not
+    shrink storage by 10% (the stencils), the constructors keep the
+    original order, ``identity_perm`` is set, and no permutation is
+    passed.
     """
 
     def __init__(self, bin_values, bin_cols, perm,
@@ -325,31 +326,26 @@ class SlicedEllOperator:
         self.halo = halo
         self.slice_height = int(slice_height)
         self.identity_perm = bool(identity_perm)
-        self._perm_index = None if self.identity_perm else self.perm.long()
+        self._out_perm = None if self.identity_perm else self.perm
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         group = tuning.shard_axis()
         if group is not None:
             return self._sharded_call(v, group)
-        return self._unsort(spmv.sell_matvec(self.bin_values, self.bin_cols,
-                                             v))
+        return spmv.sell_matvec(self.bin_values, self.bin_cols, v,
+                                self._out_perm)
 
     def _sharded_call(self, v: torch.Tensor, group) -> torch.Tensor:
         """The replicated payload (a halo bound too wide for a shard: with
         one that fits, ``local_operator`` hands each rank its rows as ELL):
-        all-gather v, the sorted product, and the rank's rows of it."""
+        all-gather v, the product in the original order, and the rank's
+        rows of it."""
         nl = v.shape[0]
         p = group.rank()
         x_full = tuning.all_gather(v, group)
-        y = self._unsort(spmv.sell_matvec(self.bin_values, self.bin_cols,
-                                          x_full))
+        y = spmv.sell_matvec(self.bin_values, self.bin_cols, x_full,
+                             self._out_perm)
         return y[p * nl:(p + 1) * nl]
-
-    def _unsort(self, y_sorted: torch.Tensor) -> torch.Tensor:
-        if self.identity_perm:
-            return y_sorted
-        return torch.zeros_like(y_sorted).index_copy_(0, self._perm_index,
-                                                      y_sorted)
 
     # -- format conversions -------------------------------------------------
     @classmethod

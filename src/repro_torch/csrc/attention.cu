@@ -1,5 +1,6 @@
 // Blockwise (online-softmax) attention with GQA, causal masking and a
-// sliding window:
+// sliding window, for float32 q, k and v, in full float32 on the CUDA
+// cores (bfloat16 calls go to attention_sm90.cu's tensor-core kernel):
 //
 //   o[b, h, i] = softmax_k(scale q[b, h, i] . k[b, h / g, k]  over the
 //                          keys inside row i's mask) v[b, h / g, k]
@@ -9,17 +10,19 @@
 // position skv - sq + i.  The causal mask keeps kpos <= qpos, the window
 // kpos > qpos - window.  A row with no key inside its mask is 0.
 //
-// Replaces repro/kernels/attention.py::attention, the Pallas kernel that
-// walks a (b*hq, q tile, k tile) grid with the running max, normaliser and
-// accumulator in VMEM scratch, front-padding queries and back-padding keys
-// to whole tiles.
+// Replaces repro/kernels/attention.py::attention for float32 storage, the
+// Pallas kernel that walks a (b*hq, q tile, k tile) grid with the running
+// max, normaliser and accumulator in VMEM scratch, front-padding queries
+// and back-padding keys to whole tiles.  Float32 keeps this kernel: TF32
+// tensor-core products would keep three decimal digits, and the float32
+// prefill is held to its plain version within 1e-3 of max|logit|.
 //
-// Bound: at zamba2's prefill, (2, 32, 512, 112) bf16 causal, q, k, v and o
-// are 29.4 MB (0.0088 ms at 3.35 TB/s) and the causal half of the products
-// is 3.76 GFLOP (0.0038 ms at 989 TFLOP/s bf16, 0.056 ms at 67 TFLOP/s
-// float32): bytes bound against the tensor cores' rate.  This first kernel
-// computes in float32 on the CUDA cores, so its own floor is the float32
-// rate; tensor cores (wgmma) are a later redesign.
+// Bound: at zamba2's prefill shape, (2, 32, 512, 112) float32 causal, q,
+// k, v and o are 58.7 MB (0.018 ms at 3.35 TB/s) and the causal half of
+// the products is 3.76 GFLOP (0.056 ms at 67 TFLOP/s float32): operations
+// bound on the CUDA cores.  Measured (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py phase 24, cold L2): 0.313 ms, 5.6x that bound; the float32
+// prefill runs its 13 launches.
 //
 // Design: one block of kThreads per (64-query tile, batch * query head).
 // The block walks only the 64-key tiles inside its tile's causal / window
@@ -238,15 +241,11 @@ static cudaError_t launch_attention(const void* q, const void* k,
 
 // strides: 12 long longs, (batch, head, position) for q, k, v, o in turn.
 extern "C" int repro_attention(const void* q, const void* k, const void* v,
-                               int bf16, void* o, int b, int hq, int hkv,
-                               int sq, int skv, int d,
-                               const long long* strides, float scale,
-                               int causal, int window, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? repro::launch_attention<repro::bf16>(
-                    q, k, v, o, b, hq, hkv, sq, skv, d, strides, scale,
-                    causal, window, s)
-              : repro::launch_attention<float>(q, k, v, o, b, hq, hkv, sq,
-                                               skv, d, strides, scale, causal,
-                                               window, s);
+                               void* o, int b, int hq, int hkv, int sq,
+                               int skv, int d, const long long* strides,
+                               float scale, int causal, int window,
+                               void* stream) {
+  return repro::launch_attention<float>(q, k, v, o, b, hq, hkv, sq, skv, d,
+                                        strides, scale, causal, window,
+                                        static_cast<cudaStream_t>(stream));
 }

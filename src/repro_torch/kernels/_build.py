@@ -9,7 +9,13 @@ covers the sources and flags, so a stale library is never loaded and a
 finished build is reused by later processes.
 
 Nothing builds at import: ``library()`` runs at the first kernel launch.
-A failed build raises with ``nvcc``'s stderr.
+A failed build raises with ``nvcc``'s stderr.  A finished one leaves
+``ptxas -v``'s report of every kernel (registers, shared memory, spills)
+beside the library, as ``<library>.log`` (``ptxas_log()``).
+
+The kernels need only the CUDA runtime: the one libcuda function they use
+(``cuTensorMapEncodeTiled``, for the bf16 attention kernel's TMA maps) is
+fetched through ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-Xptxas=-v",)      # each kernel's resources, to the log
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -48,6 +55,11 @@ SIGNATURES = {
     "repro_arnoldi_step_shape": (I, I, I, I, I, I, P),
     # values, v_bf16, cols, x, y, rows, width, k, threads, stream
     "repro_ell_matvec": (P, I, P, P, P, I, I, I, I, P),
+    # Sliced ELL, one launch over a bin table: values (host void*[nbins]),
+    # v_bf16, cols (host int*[nbins]), meta (host int[5 nbins]: rows,
+    # width, row0, block0, threads per row), nbins, x, y, k, perm (device
+    # int[rows] or null), stream
+    "repro_sell_matvec": (P, I, P, P, I, P, P, I, P, P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, x, y, n, k,
     # threads, stream
     "repro_banded_matvec": (P, I, P, I, P, P, I, I, I, P),
@@ -114,10 +126,13 @@ SIGNATURES = {
     # n, eps, guard, stream
     "repro_ilu0_factor": (P, I, P, I, P, I, F, F, P),
     # The model stack's kernels:
-    # q, k, v, bf16, o, b, hq, hkv, sq, skv, d, strides (host long long[12]:
-    # batch, head, position strides of q, k, v, o), scale, causal, window
-    # (0 = none), stream
-    "repro_attention": (P, P, P, I, P, I, I, I, I, I, I, P, F, I, I, P),
+    # float32 attention: q, k, v, o, b, hq, hkv, sq, skv, d, strides (host
+    # long long[12]: batch, head, position strides of q, k, v, o), scale,
+    # causal, window (0 = none), stream
+    "repro_attention": (P, P, P, P, I, I, I, I, I, I, P, F, I, I, P),
+    # bf16 attention (TMA + wgmma): the same arguments; q, k, v 16-byte
+    # aligned, their strides multiples of 8 elements
+    "repro_attention_wgmma": (P, P, P, P, I, I, I, I, I, I, P, F, I, I, P),
     # x, bf16, dt, lg, b, c, y, bh, s, p, n, heads, chunk, stream
     "repro_ssd_scan": (P, I, P, P, P, P, P, I, I, I, I, I, I, P),
     # y, z, bf16, w, out, rows, d, eps, stream
@@ -141,7 +156,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -162,11 +177,13 @@ def build() -> pathlib.Path:
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", str(src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        errors = []
+        errors, log = [], []
         for src, proc in procs:
             _, err = proc.communicate()
+            log.append(f"--- {src.name}\n{err}")
             if proc.returncode != 0:
                 errors.append(f"--- {src.name} (exit {proc.returncode})\n"
                               f"{err}")
@@ -179,8 +196,17 @@ def build() -> pathlib.Path:
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"repro_torch: nvcc link failed\n{link.stderr}")
+        tmp_log = pathlib.Path(tmp) / (out.name + ".log")
+        tmp_log.write_text("\n".join(log))
+        os.replace(tmp_log, out.with_name(out.name + ".log"))
         os.replace(tmp_so, out)   # atomic: concurrent builders race safely
     return out
+
+
+def ptxas_log() -> str:
+    """``ptxas -v``'s report of the current build (built if absent)."""
+    so = build()
+    return so.with_name(so.name + ".log").read_text()
 
 
 def library() -> ctypes.CDLL:

@@ -8,9 +8,11 @@ design and the bound.
 
 - ``ell_matvec(values, cols, x)``: values/cols (n, width), padding slots
   holding value 0 at column 0.
-- ``sell_matvec(bin_values, bin_cols, x)``: one ELL launch per width bin
-  over the same x (columns are global), the output in the bins' sorted-row
-  frame; ``SlicedEllOperator`` scatters it back.
+- ``sell_matvec(bin_values, bin_cols, x, perm=None)``: one launch over a
+  table of width bins (``sell_plan``) on the same x (columns are global),
+  a few threads per row in the wide bins (``threads_per_row``); the output
+  in the bins' sorted-row frame, or with ``perm`` row r of that frame at
+  y[perm[r]] (``SlicedEllOperator``'s original order).
 - ``banded_matvec(bands, x, offsets)``: y[i] = sum_d bands[d, i] *
   x[i + offsets[d]], out-of-range reads counting as zero.
 - ``halo_exchange(x, halo, group)``: a shard of a row-partitioned vector
@@ -33,6 +35,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.distributed as dist
@@ -41,6 +44,10 @@ from repro_torch.kernels import _build, tuning
 
 MAX_K = 8            # accumulators per thread (columns of x per launch)
 MAX_BANDS = 32       # offsets passed by value to the banded kernel
+SELL_THREADS = 256   # threads of a sliced-ELL block (csrc kSellThreads)
+MAX_SELL_BINS = 16   # bins passed by value to one launch (kMaxSellBins)
+SELL_NARROW = 8      # widths up to this keep one thread per row
+SELL_SLOTS = 4       # slots each lane of a wider row walks, at most
 STORAGE = (torch.float32, torch.bfloat16)
 
 
@@ -67,6 +74,56 @@ def sell_matvec_plain(bin_values, bin_cols, x: torch.Tensor) -> torch.Tensor:
     _check_bins(bin_values, bin_cols)
     return torch.cat([ell_matvec_plain(v, c, x)
                       for v, c in zip(bin_values, bin_cols)], dim=0)
+
+
+# --------------------------------------------------------------------------
+# the sliced-ELL launch plan (pure Python: the CPU tests reach it)
+# --------------------------------------------------------------------------
+def threads_per_row(width: int) -> int:
+    """Threads the sliced-ELL kernel gives each row of a bin this wide.
+
+    One up to ``SELL_NARROW`` slots (the ELL loop: most rows of a graph,
+    every row of a stencil); wider, the least power of two that leaves
+    each lane at most ``SELL_SLOTS`` slots, up to a whole block of
+    ``SELL_THREADS`` (the PageRank hub bin, width 689: 256).
+    """
+    if width <= SELL_NARROW:
+        return 1
+    t = 1
+    while t < SELL_THREADS and t * SELL_SLOTS < width:
+        t *= 2
+    return t
+
+
+def sell_plan(shapes, tpr=None) -> list[dict]:
+    """The bin table of one sliced-ELL launch.
+
+    ``shapes``: (rows, width) of each bin, in output order; ``tpr``: an
+    optional threads-per-row override per bin (None keeps the rule).  Each
+    entry gives the bin's rows, width, first output row ``row0``, first
+    block ``block0``, ``threads_per_row`` and ``blocks``: the bins' rows
+    and blocks follow each other, and the grid is the sum of the blocks.
+    More than ``MAX_SELL_BINS`` bins raise (the kernel takes its table by
+    value in its parameters).
+    """
+    shapes = [(int(r), int(w)) for r, w in shapes]
+    if not 1 <= len(shapes) <= MAX_SELL_BINS:
+        raise ValueError(f"sell_matvec: {len(shapes)} bins; one launch "
+                         f"takes 1 to {MAX_SELL_BINS}")
+    plan, row0, block0 = [], 0, 0
+    for i, (rows, width) in enumerate(shapes):
+        t = threads_per_row(width) if tpr is None or tpr[i] is None \
+            else int(tpr[i])
+        if t < 1 or t > SELL_THREADS or t & (t - 1):
+            raise ValueError(f"sell_matvec: {t} threads per row; a power "
+                             f"of two up to {SELL_THREADS}")
+        blocks = -(-rows // (SELL_THREADS // t))
+        plan.append({"rows": rows, "width": width, "row0": row0,
+                     "block0": block0, "threads_per_row": t,
+                     "blocks": blocks})
+        row0 += rows
+        block0 += blocks
+    return plan
 
 
 def banded_matvec_plain(bands: torch.Tensor, x: torch.Tensor,
@@ -154,6 +211,36 @@ def _chunks(k: int) -> int:
     return -(-k // MAX_K)
 
 
+@functools.lru_cache(maxsize=64)
+def _sell_table(bins: tuple, tpr) -> tuple:
+    """The launch's ctypes arguments for bins ((values ptr, cols ptr, rows,
+    width), ...): built once per table (a solve calls the same operator
+    thousands of times); they depend on nothing but the key."""
+    plan = sell_plan([(rows, width) for _, _, rows, width in bins], tpr)
+    nb = len(plan)
+    vals = (ctypes.c_void_p * nb)(*(b[0] for b in bins))
+    cols = (ctypes.c_void_p * nb)(*(b[1] for b in bins))
+    meta = (ctypes.c_int * (5 * nb))(*(
+        p[key] for p in plan
+        for key in ("rows", "width", "row0", "block0", "threads_per_row")))
+    return vals, cols, meta, nb
+
+
+def _launch_sell(bin_values, bin_cols, xf, y, perm, name: str,
+                 tpr=None) -> None:
+    """One launch per chunk of MAX_K columns over the whole bin table."""
+    vals, cols, meta, nb = _sell_table(
+        tuple((v.data_ptr(), c.data_ptr(), v.shape[0], v.shape[1])
+              for v, c in zip(bin_values, bin_cols)),
+        None if tpr is None else tuple(tpr))
+    rc = _build.library().repro_sell_matvec(
+        ctypes.addressof(vals), int(bin_values[0].dtype == torch.bfloat16),
+        ctypes.addressof(cols), ctypes.addressof(meta), nb, xf.data_ptr(),
+        y.data_ptr(), xf.shape[1], None if perm is None else perm.data_ptr(),
+        _build.stream_ptr(xf))
+    _build.check(name, rc)
+
+
 def _launch_ell(values, cols, xf, y, name: str) -> None:
     rows, width = values.shape
     rc = _build.library().repro_ell_matvec(
@@ -186,13 +273,16 @@ def ell_matvec(values: torch.Tensor, cols: torch.Tensor,
 ell_matvec.launches = 0
 
 
-def sell_matvec(bin_values, bin_cols, x: torch.Tensor) -> torch.Tensor:
-    """Sliced-ELL SpMV in the SORTED-row frame: one launch per width bin.
+def sell_matvec(bin_values, bin_cols, x: torch.Tensor,
+                perm=None) -> torch.Tensor:
+    """Sliced-ELL SpMV: one launch over the table of width bins.
 
     ``bin_values[b]`` / ``bin_cols[b]`` are (rows_b, width_b) rectangles of
     nnz-sorted rows with global int32 column indices, which must index x.
-    Returns (sum_b rows_b,) or (sum_b rows_b, k) in bin order: each bin's
-    launch writes its rows straight into one output, no concatenation.
+    Returns (sum_b rows_b,) or (sum_b rows_b, k): in bin order (the
+    sorted-row frame, JAX's contract) without ``perm``; with ``perm``
+    (int32, one entry per row, a permutation) row r of that frame lands at
+    y[perm[r]], written there by the kernel (no scatter on the card).
     """
     bin_values, bin_cols = tuple(bin_values), tuple(bin_cols)
     _check_bins(bin_values, bin_cols)
@@ -203,22 +293,30 @@ def sell_matvec(bin_values, bin_cols, x: torch.Tensor) -> torch.Tensor:
            for v, c in zip(bin_values, bin_cols)):
         raise ValueError(f"sell_matvec: bins and x on different devices "
                          f"(x on {x.device})")
+    rows = sum(v.shape[0] for v in bin_values)
+    if perm is not None and (perm.ndim != 1 or perm.shape[0] != rows
+                             or perm.device != x.device):
+        raise TypeError(f"sell_matvec: perm {tuple(perm.shape)} on "
+                        f"{perm.device} must be ({rows},) on {x.device}")
     if x.device.type == "cpu":
-        return sell_matvec_plain(bin_values, bin_cols, x)
+        y = sell_matvec_plain(bin_values, bin_cols, x)
+        if perm is None:
+            return y
+        return torch.zeros_like(y).index_copy_(0, perm.long(), y)
     for v, c in zip(bin_values, bin_cols):
         _check_storage("sell_matvec", v, c)
     dtype = bin_values[0].dtype
     if any(v.dtype != dtype for v in bin_values):
         raise TypeError("sell_matvec: all bins must share one storage dtype")
+    if perm is not None and (perm.dtype != torch.int32
+                             or not perm.is_contiguous()):
+        raise TypeError(f"sell_matvec: perm must be contiguous int32, got "
+                        f"{perm.dtype}")
     compute, _ = _acc_dtypes(dtype, x.dtype)
     xf = _x_block("sell_matvec", x, compute)
-    rows = sum(v.shape[0] for v in bin_values)
     y = torch.empty((rows, xf.shape[1]), dtype=torch.float32, device=x.device)
-    r0 = 0
-    for v, c in zip(bin_values, bin_cols):
-        _launch_ell(v, c, xf, y[r0:r0 + v.shape[0]], "sell_matvec")
-        r0 += v.shape[0]
-    sell_matvec.launches += len(bin_values) * _chunks(xf.shape[1])
+    _launch_sell(bin_values, bin_cols, xf, y, perm, "sell_matvec")
+    sell_matvec.launches += _chunks(xf.shape[1])
     y = y.to(compute)
     return y[:, 0] if x.ndim == 1 else y
 

@@ -132,12 +132,71 @@ def test_spmv_kernels_match_plain(dev, k, dtype):
     xs = torch.randn(2048, k, device=dev, generator=g)
     before = spmv.sell_matvec.launches
     y = spmv.sell_matvec(op.bin_values, op.bin_cols, xs)
-    assert spmv.sell_matvec.launches == before + len(op.bin_values) * -(-k // 8)
+    assert spmv.sell_matvec.launches == before + -(-k // 8)
     assert _relerr(y, spmv.sell_matvec_plain(op.bin_values, op.bin_cols, xs)) \
         < TOL[dtype]
     torch.cuda.synchronize()
     st = stencils.poisson_2d(40, 30, fmt="sell", device=dev)
     assert st.identity_perm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8, 11])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_sell_bin_table_kernel_matches_plain(dev, k, dtype, with_perm):
+    """The bin-table kernel against the plain version: each bin alone (a
+    one-bin table), then the whole table in one launch per chunk of 8
+    columns, in the sorted frame or written through perm."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import spmv
+
+    op = operators.with_dtype(graphs.pagerank_system(2048, seed=0,
+                                                     device=dev)[0], dtype)
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn(2048, k, device=dev, generator=g)
+    perm = op.perm if with_perm else None
+    want = spmv.sell_matvec_plain(op.bin_values, op.bin_cols, x)
+    r0 = 0
+    for bv, bc in zip(op.bin_values, op.bin_cols):
+        rows = bv.shape[0]
+        sub = None if perm is None else \
+            torch.arange(rows, dtype=torch.int32, device=dev).flip(0)
+        got = spmv.sell_matvec((bv,), (bc,), x, sub)
+        part = want[r0:r0 + rows]
+        if sub is not None:
+            part = part.flip(0)
+        assert _relerr(got, part) < TOL[dtype], (bv.shape, with_perm)
+        r0 += rows
+    before = spmv.sell_matvec.launches
+    got = spmv.sell_matvec(op.bin_values, op.bin_cols, x, perm)
+    torch.cuda.synchronize()
+    assert spmv.sell_matvec.launches == before + -(-k // 8)
+    if perm is not None:
+        want = torch.zeros_like(want).index_copy_(0, perm.long(), want)
+    assert _relerr(got, want) < TOL[dtype]
+    if with_perm:
+        assert _relerr(op(x), want) < TOL[dtype]
+
+
+def test_sell_hub_bin_at_every_width_and_the_table_limit(dev):
+    from repro_torch.core import graphs
+    from repro_torch.kernels import spmv
+
+    op = graphs.pagerank_system(2048, seed=0, device=dev)[0]
+    bv, bc = op.bin_values[0], op.bin_cols[0]
+    x = torch.randn(2048, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    want = spmv.ell_matvec_plain(bv, bc, x)
+    for tpr in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        y = torch.empty(bv.shape[0], 3, device=dev)
+        spmv._launch_sell((bv,), (bc,), x, y, None, "hub bin", (tpr,))
+        torch.cuda.synchronize()
+        assert _relerr(y, want) < TOL[torch.float32], tpr
+    n = spmv.MAX_SELL_BINS
+    y = spmv.sell_matvec((bv,) * n, (bc,) * n, x)
+    assert _relerr(y, want.repeat(n, 1)) < TOL[torch.float32]
+    with pytest.raises(ValueError, match="bins"):
+        spmv.sell_matvec((bv,) * (n + 1), (bc,) * (n + 1), x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -317,9 +376,8 @@ def test_sstep_solves_count_launches(dev, fmt, basis):
     for name in ("banded", "ell", "dense"):
         assert d[name] == (blocks * cycles if name == kernel else 0)
     residuals = cycles + 1
-    if fmt == "sell":
-        bins = len(op_c.bin_values)
-        assert d["sell"] == (s * blocks * cycles + residuals) * bins
+    if fmt == "sell":                   # one launch per mat-vec
+        assert d["sell"] == s * blocks * cycles + residuals
     if fmt == "dense":
         assert d["gemv"] == residuals + (s * blocks * cycles
                                          if kernel is None else 0)
@@ -341,6 +399,18 @@ def test_cuda_tensors_never_reach_plain_versions(dev, monkeypatch):
         monkeypatch.setattr(block_gs, name, refuse)
     for name in ("gs_project_norm_partial_plain", "gs_update_plain"):
         monkeypatch.setattr(cgs2, name, refuse)
+    from repro_torch.core import graphs
+    from repro_torch.kernels import attention as attention_k
+    from repro_torch.kernels import spmv
+    for name in ("sell_matvec_plain", "ell_matvec_plain"):
+        monkeypatch.setattr(spmv, name, refuse)
+    monkeypatch.setattr(attention_k, "attention_plain", refuse)
+    pr = graphs.pagerank_system(2048, seed=0, device=dev)[0]
+    res = gmres(pr, torch.ones(2048, device=dev) / 2048, m=30, tol=1e-5)
+    assert res.converged
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.ones(1, 2, 64, 112, device=dev, dtype=dtype)
+        assert bool(torch.isfinite(attention_k.attention(q, q, q)).all())
     b = torch.from_numpy(np.random.default_rng(2).standard_normal(1 << 16)
                          .astype(np.float32)).to(dev)
     for fmt in ("banded", "ell"):
@@ -717,10 +787,14 @@ def test_attention_kernel_matches_plain(dev, shape, dtype):
     q = torch.randn(b, hq, sq, d, device=dev, generator=g).to(dtype)
     k = torch.randn(b, hkv, skv, d, device=dev, generator=g).to(dtype)
     v = torch.randn(b, hkv, skv, d, device=dev, generator=g).to(dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
     before = attention_k.attention.launches
+    by_kernel = dict(attention_k.attention.launches_by_kernel)
     got = attention_k.attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert attention_k.attention.launches == before + 1
+    by_kernel[route] += 1
+    assert attention_k.attention.launches_by_kernel == by_kernel
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_k.attention_plain(q, k, v, causal=causal, window=window)
     assert _relerr(got, want) < TOL[dtype]
@@ -736,6 +810,28 @@ def test_attention_kernel_takes_strided_views(dev):
     want = attention_k.attention_plain(q.contiguous(), k.contiguous(),
                                        v.contiguous())
     assert _relerr(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("d", [112, 40, 5])
+def test_wgmma_attention_takes_views_and_copies_only_misaligned(dev, d):
+    """bf16 (b, s, h, d) products viewed as (b, h, s, d) go to TMA as they
+    are where their strides are multiples of 16 bytes (d = 112, 40); d = 5
+    is copied into the aligned layout first (counted), never sent to the
+    float32 kernel."""
+    from repro_torch.kernels import attention as attention_k
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 70, 4, d, device=dev, generator=g)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    copies = attention_k.attention.layout_copies
+    wgmma = attention_k.attention.launches_by_kernel["wgmma"]
+    got = attention_k.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention_k.attention.launches_by_kernel["wgmma"] == wgmma + 1
+    assert attention_k.attention.layout_copies == copies + (3 if d % 8
+                                                            else 0)
+    want = attention_k.attention_plain(q.contiguous(), k.contiguous(),
+                                       v.contiguous())
+    assert _relerr(got, want) < TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
