@@ -1,9 +1,11 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --in-turn DIR   # kernel-table rows 7 and 20 and
-        # their cells, the tree at DIR (e.g. `git archive` of the parent
-        # commit, unpacked) against this one in turn (measure_cells)
+    python3 chip_smoke.py --in-turn DIR [GROUP ...]   # the redesigned
+        # kernel-table rows and their cells, the tree at DIR (e.g. `git
+        # archive` of the parent commit, unpacked) against this one in
+        # turn (measure_cells); GROUP: redesign1 (rows 7 and 20), gemv
+        # (rows 4 and 6); default both
 
 Phases, one JSON line each (``"phase": ...``):
 
@@ -137,19 +139,24 @@ The pipelined slice (gs = "cgs2_pipelined"):
               storage, same bars as phase 2: payload and update at
               n = 10,000 and 2^20, m1 = 31, j = 0, 15, 29 (the update on
               the row prefix V[:j+1], as the cycle calls it, and bit-equal
-              to the full call); the block pair and the whole single-reduce
-              pass at n = 2^20 and 10,000, k_start 0 and 25, s = 5.
+              to the full call); the update at odd n and on views one
+              element off 16 bytes (STREAM_EDGES), h a row view, with the
+              route each call took (16-byte pieces or scalar, counted) and
+              the same bits on a second call; the block pair and the
+              whole single-reduce pass at n = 2^20 and 10,000, k_start 0
+              and 25, s = 5.
 14. pipelined_solve  gmres(gs="cgs2_pipelined"), tol 1e-5, on the dense
               n = 10,000 dominance-0.015 system and the 1024^2 stencil as
               banded, ELL and sliced ELL, held to phase 3's / phase 7's
               cgs2_fused solve of the same system: converged, true relres
               <= 2 tol, restarts within +-1 (10% on the stencil), x within
               1e-3; banded and ELL first-restart residuals the same bits.
-              Counters: payload = steps, gs_update = 2 x steps, the
-              operator's mat-vec (one launch) steps + 2 restarts + 1, no
-              gs_project.  Then wall, device ms and idle share per step
-              and host syncs per step (sync debug mode) of the dense and
-              banded solves beside cgs2_fused's, timed in turn, and for
+              Counters: payload = steps, gs_update = 2 x steps (all on
+              the 16-byte route), the operator's mat-vec (one launch)
+              steps + 2 restarts + 1, no gs_project.  Then wall, device
+              ms and idle share per step and host syncs per step (sync
+              debug mode) of the dense and banded solves beside
+              cgs2_fused's, timed in turn, and for
               the dense pair where a step's host time goes (the host
               profile's ops and the time outside them).
 15. sstep_sr_solve  gmres_sstep(s=5, blocks=6, gs="cgs2_pipelined") on the
@@ -221,7 +228,10 @@ no two ranks on one device, so multi-rank NCCL is not run here):
               pre-scaled as the s-step solver scales it), and split four
               ways in one process: the shards' halos cut from the global
               vectors as halo_exchange delivers them, the partials summed
-              in rank order, held to the full-width call.
+              in rank order, held to the full-width call;
+              gs_project_partial also at phase 13's edge shapes and
+              n = 10,000, j = 0, 7, 8, 15, 30 (every row bucket and the
+              block-a-row launch), with its routes and repeat bits.
 20. sharded_solve  gmres_sharded and gmres_sstep_sharded at full width on
               the dense n = 10,000 dominance-0.015 system and the 1024^2
               stencil (banded, ELL, sliced ELL) under gs = cgs2_fused and
@@ -244,14 +254,16 @@ no two ranks on one device, so multi-rank NCCL is not run here):
               torch.matmul over V[:k_start+1] + pad; row 15: s CSR
               torch.mv + norms) and a library call (row 4: the cuBLAS
               GEMV torch.mv(V[:j+1], w); the halo SpMVs: the CSR torch.mv
-              of the same matrix, cuSPARSE); then the dense and banded
+              of the same matrix, cuSPARSE), row 4 also at n = 10,000;
+              then the dense and banded
               cgs2_fused, banded cgs2_pipelined and banded s-step solves
               over their first TIMING_RESTARTS cycles, one device and
               sharded in turn (one device, sharded, sharded, one
               device): wall and device ms
               per step, idle share, and the time spent in collectives per
               step (host, around the calls, and per call by kind; device,
-              the NCCL kernels in the profile).
+              the NCCL kernels in the profile).  The sharded solves
+              also count gs_project_partial's routes (none scalar).
 
 The model slice, zamba2-7b serving at full published width and depth
 (81 Mamba2 layers, 13 shared-attention sites, 6.75e9 float32 parameters
@@ -350,6 +362,9 @@ SSTEP_BASES = ("monomial", "newton")
 # single-reduce block pair at k_start = 0 and 25 (s = 5).
 PIPE_J = (0, 15, 29)
 PIPE_K = (0, 25)
+# The streaming GEMV pair's edge shapes (phases 13 and 19): (n, elements
+# into a buffer).  Odd n and views one element off 16 bytes.
+STREAM_EDGES = ((N + 3, 0), (N, 1), (NX * NX + 3, 0), (NX * NX, 1), (5, 0))
 # The sharded slice's timing runs the first 10 of the stencil's 70 cycles.
 TIMING_RESTARTS = 10
 # The model slice: zamba2-7b at full size, batch 2, a 512-token prompt (two
@@ -529,6 +544,22 @@ def basis(n, m1, j, dtype, gen):
     v = torch.zeros(m1, n, device="cuda")
     v[: j + 1] = q.T
     return v.to(dtype).contiguous()
+
+
+def stream_edge(nb, m1, off, dtype, gen):
+    """V (m1, nb) and w (nb,) for the streaming GEMV pair's edges: random,
+    rows of norm about 1, each ``off`` elements into a buffer of its own
+    (off = 1: not 16-byte aligned, the scalar route)."""
+    vbuf = (torch.randn(m1 * nb + off, device="cuda", generator=gen)
+            / nb ** 0.5).to(dtype)
+    wbuf = torch.randn(nb + off, device="cuda", generator=gen)
+    return vbuf[off:].view(m1, nb), wbuf[off:]
+
+
+def zero_routes(*fns) -> None:
+    """Set the route counters of the streaming GEMV pair to 0."""
+    for fn in fns:
+        fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def lane_bases(k, n, m1, js, dtype, gen):
@@ -1317,11 +1348,13 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
 
     # ---- 12. timing -----------------------------------------------------
     def measure(fn, plain, composite_fn=None, cold=True, **info) -> dict:
-        row = dict(**timed(fn, cold=cold),
-                   plain_ms=timed(plain, cold=cold)["ms"],
-                   library_ms=None, composite_ms=timed(composite_fn,
-                                                       cold=cold)["ms"]
-                   if composite_fn else None, **info)
+        # cold: CUDA-event time where the profile lost records (cold_ms)
+        def ms(f):
+            return cold_ms(f) if cold else timed(f)["ms"]
+        row = dict(**timed(fn, cold=cold), plain_ms=ms(plain),
+                   library_ms=None,
+                   composite_ms=ms(composite_fn) if composite_fn else None,
+                   **info)
         if cold:
             row["warm_ms"] = timed(fn)["ms"]
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
@@ -1513,6 +1546,30 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                       f"gs_update n={nb} j={j} {dtype}: the row prefix "
                       f"does not give the full call's bits")
                 del v, z
+        # the streaming update's edges: odd n (one row read: 16-byte
+        # pieces and a scalar tail; more: the scalar route) and views one
+        # element off 16 bytes (the scalar route), h a row view as hc[1]
+        for nb, off in STREAM_EDGES:
+            v, z = stream_edge(nb, m1, off, dtype, gen)
+            for j in PIPE_J:
+                h = torch.randn(2, j + 1, device="cuda", generator=gen)[1]
+                want = cgs2.stream_plan(v, z, j + 1)["route"]
+                zero_routes(cgs2.gs_update)
+                got = cgs2.gs_update(v[:j + 1], z, h)
+                compare("gs_update", (got,),
+                        (cgs2.gs_update_plain(v[:j + 1], z, h),), dtype,
+                        n=nb, rows=j + 1, offset=off, route=want,
+                        routes=dict(cgs2.gs_update.routes))
+                check(cgs2.gs_update.routes[want] == 1,
+                      f"gs_update n={nb} offset={off}: routes "
+                      f"{cgs2.gs_update.routes}, expected {want}")
+                check(want == "scalar" or (off == 0 and (
+                    j == 0 or nb * v.element_size() % 16 == 0)),
+                      f"gs_update n={nb} offset={off} rows={j + 1}: "
+                      f"16-byte route on misaligned operands")
+                check(torch.equal(cgs2.gs_update(v[:j + 1], z, h), got),
+                      f"gs_update n={nb} offset={off}: two calls differ")
+            del v, z
         for nb in (n, N):
             for k in PIPE_K:
                 v = basis(nb, m1, k, dtype, gen)
@@ -1576,12 +1633,14 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
     firsts, pipe = {}, {}
     for system, op, rhs, budget, ref in systems:
         ctr.zero()
+        zero_routes(cgs2.gs_update)
         t0 = time.perf_counter()
         res = gmres(op, rhs, m=M, tol=TOL, max_restarts=budget,
                     gs="cgs2_pipelined", history=budget + 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         d = ctr.read()
+        routes = dict(cgs2.gs_update.routes)
         rr = relres(system, res.x, rhs)
         xr = x_rel(res.x, ref.x)
         first = float(res.residual_history[-res.restarts]) \
@@ -1592,7 +1651,7 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
              restarts=res.restarts, cgs2_fused_restarts=ref.restarts,
              inner_steps=res.inner_steps, true_relres=rr,
              x_rel_to_cgs2_fused=xr, first_restart_relres=first,
-             wall_s=wall, launches=d)
+             wall_s=wall, launches=d, gs_update_routes=routes)
         check(res.converged and rr <= 2 * TOL,
               f"pipelined {system}: converged {res.converged}, relres {rr}")
         check(bool(torch.isfinite(res.x).all())
@@ -1609,6 +1668,8 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                        "gs_update": 2 * steps,
                        fmt_kernel[system]: steps + 2 * res.restarts + 1},
                    f"pipelined {system}")
+        check(routes == {"vec": 2 * steps, "scalar": 0},
+              f"pipelined {system}: gs_update routes {routes}")
         pipe[system] = res
     check(firsts["ell"] == firsts["banded"],
           f"pipelined: first-restart residual ell {firsts['ell']!r} vs "
@@ -1704,12 +1765,13 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
     # ---- kernel times at the path's shapes --------------------------------
     def measure(fn, plain, composite_fn, cold, library_fn=None,
                 **info) -> dict:
-        row = dict(**timed(fn, cold=cold),
-                   plain_ms=timed(plain, cold=cold)["ms"],
-                   library_ms=timed(library_fn, cold=cold)["ms"]
-                   if library_fn else None,
-                   composite_ms=timed(composite_fn, cold=cold)["ms"]
-                   if composite_fn else None, **info)
+        # cold: CUDA-event time where the profile lost records (cold_ms)
+        def ms(f):
+            return cold_ms(f) if cold else timed(f)["ms"]
+        row = dict(**timed(fn, cold=cold), plain_ms=ms(plain),
+                   library_ms=ms(library_fn) if library_fn else None,
+                   composite_ms=ms(composite_fn) if composite_fn else None,
+                   **info)
         if cold:
             row["warm_ms"] = timed(fn)["ms"]
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"])
@@ -2454,6 +2516,28 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                         width="4 shards in rank order vs full", j=j,
                         k_start=k_start, s=s)
             del v, vb, wb, parts, split, full, plain
+            # the streaming projection's edges (phase 13's shapes) and
+            # n = 10^4, rows 0..j of 31 (j = 30 takes the 32-row bucket)
+            for nb, off in STREAM_EDGES + ((N, 0),):
+                v, w = stream_edge(nb, M + 1, off, dtype, gen)
+                for jj in (0, 7, 8, 15, 30):
+                    want = cgs2.stream_plan(v, w, jj + 1)["route"]
+                    zero_routes(cgs2.gs_project_partial)
+                    got = cgs2.gs_project_partial(v, w, jj)
+                    compare("gs_project_partial", got,
+                            cgs2.gs_project_partial_plain(v, w, jj), dtype,
+                            n=nb, j=jj, offset=off, width="edge",
+                            route=want,
+                            routes=dict(cgs2.gs_project_partial.routes))
+                    check(cgs2.gs_project_partial.routes[want] == 1,
+                          f"gs_project_partial n={nb} offset={off}: routes "
+                          f"{cgs2.gs_project_partial.routes}, expected "
+                          f"{want}")
+                    check(torch.equal(cgs2.gs_project_partial(v, w, jj),
+                                      got),
+                          f"gs_project_partial n={nb} j={jj}: two calls "
+                          f"differ")
+                del v, w
 
         # ---- 20. the sharded solves --------------------------------------
         b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
@@ -2528,6 +2612,7 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                 refs[key] = single(*key)()
             ref = refs[key]
             ctr.zero()
+            zero_routes(cgs2.gs_project_partial)
             for kind in tuning.COLLECTIVES:
                 tuning.COLLECTIVES[kind] = 0
             t0 = time.perf_counter()
@@ -2535,6 +2620,7 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             d = ctr.read()
+            routes = dict(cgs2.gs_project_partial.routes)
             coll = dict(tuning.COLLECTIVES)
             rr = relres(fmt, res.x)
             diff = float((res.x - ref.x).norm() / ref.x.norm())
@@ -2545,7 +2631,8 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                  restarts=res.restarts, single_restarts=ref.restarts,
                  inner_steps=res.inner_steps, true_relres=rr,
                  x_rel_to_single=diff, wall_s=wall, launches=d,
-                 collectives=coll, collectives_per_step=per_step)
+                 collectives=coll, collectives_per_step=per_step,
+                 gs_project_partial_routes=routes)
             what = f"sharded {fmt}/{solver}/{gs}/{pc}"
             check(res.converged, f"{what} did not converge")
             check(rr <= 2 * TOL, f"{what}: true relres {rr}")
@@ -2559,6 +2646,8 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
             ctr.expect(d, launches, what)
             check(coll == want_coll, f"{what}: collectives {coll}, "
                                      f"expected {want_coll}")
+            check(routes["scalar"] == 0, f"{what}: gs_project_partial "
+                                         f"routes {routes}")
             results[key] = res
         for name, count in ctr.totals.items():
             check(count > 0, f"{name} was never launched on the sharded "
@@ -2700,6 +2789,25 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                 if dtype == f32:
                     timing[name] = row
             del v, vb, bands_pad
+            # row 4 at the dense system's n = 10^4, beside cuBLAS's GEMV
+            v = basis(N, M + 1, j, dtype, gen)
+            w10 = torch.randn(N, device="cuda", generator=gen)
+            row = dict(**timed(lambda: cgs2.gs_project_partial(v, w10, j),
+                               cold=True),
+                       warm_ms=timed(lambda: cgs2.gs_project_partial(
+                           v, w10, j))["ms"],
+                       plain_ms=cold_ms(lambda: cgs2.gs_project_partial_plain(
+                           v, w10, j)) if dtype == f32 else None,
+                       library_ms=cold_ms(lambda: torch.mv(v[:j + 1], w10))
+                       if dtype == f32 else None,
+                       library="torch.mv(V[:j+1], w) (cuBLAS GEMV)",
+                       bytes=((j + 1) * sz + 4) * N, flops=2 * (j + 1) * N,
+                       n=N, j=j)
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                     row["flops"])
+            emit(phase="sharded_timing", kernel="gs_project_partial n = 10000",
+                 dtype=str(dtype), card=smi, **row)
+            del v
 
         # per solve: wall, device, idle share and collectives per step of
         # each sharded solve beside its one-device solve, in turn
@@ -3610,30 +3718,46 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def measure_cells(label: str) -> None:
-    """Kernel-table rows 7 and 20 and the cells they serve, on whichever
-    ``repro_torch`` this process imported (``in_turn``): the sliced-ELL
-    product on the PageRank operator (k = 1, 8; and through the operator,
-    k = 8) and the 1024^2 stencil, cold and warm, beside cuSPARSE; the
-    PageRank burst per lockstep step; bf16 attention at zamba2's prefill
-    shape beside SDPA; the zamba2-7b prefill (b = 2, S = 512).  One JSON
-    line."""
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
+CELL_GROUPS = ("redesign1", "gemv")
 
-    from repro_torch import configs
-    from repro_torch.core import gmres_batched, graphs, stencils
-    from repro_torch.kernels import _build, block_gs, spmv
-    from repro_torch.kernels import attention as attention_k
-    from repro_torch.launch import make_prefill_step
-    from repro_torch.models import build
+
+def measure_cells(label: str, groups=CELL_GROUPS) -> None:
+    """The redesigned kernels' rows and the cells they serve, on whichever
+    ``repro_torch`` this process imported (``in_turn``), by group:
+    ``redesign1`` (kernel-table rows 7 and 20, ``redesign1_cells``) and
+    ``gemv`` (rows 4 and 6, ``gemv_cells``).  One JSON line."""
+    from repro_torch.kernels import _build
 
     check(torch.cuda.is_available(), "no CUDA device is available")
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
     warnings.filterwarnings("ignore", message="Sparse")
     _build.build()
-    out = {"tree": label, "package": str(pathlib.Path(spmv.__file__)
+    out = {"tree": label, "package": str(pathlib.Path(_build.__file__)
                                           .parents[2])}
+    if "gemv" in groups:
+        out.update(gemv_cells(label))
+    if "redesign1" in groups:
+        out.update(redesign1_cells(label))
+    emit(phase="in_turn", **out)
+
+
+def redesign1_cells(label: str) -> dict:
+    """Kernel-table rows 7 and 20 and their cells: the sliced-ELL product
+    on the PageRank operator (k = 1, 8; and through the operator, k = 8)
+    and the 1024^2 stencil, cold and warm, beside cuSPARSE; the PageRank
+    burst per lockstep step; bf16 attention at zamba2's prefill shape
+    beside SDPA; the zamba2-7b prefill (b = 2, S = 512)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.core import gmres_batched, graphs, stencils
+    from repro_torch.kernels import block_gs, spmv
+    from repro_torch.kernels import attention as attention_k
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import build
+
+    out = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     pr, make_rhs = graphs.pagerank_system(PAGERANK_N, seed=0, fmt="sell")
     st = stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt="sell")
@@ -3695,28 +3819,284 @@ def measure_cells(label: str) -> None:
                       "attention_ms": sum(ms for key, ms in by.items()
                                           if kernel_class(key)
                                           == "attention")}
-    emit(phase="in_turn", **out)
+    return out
 
 
-def in_turn(parent: pathlib.Path) -> None:
+def cold_by_kernel(fn, iters=20) -> dict:
+    """Device ms of one cold call by kernel name (the L2 flush rewritten
+    before each call and left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    return {key[:80]: ms / iters for key, ms in kernel_ms(prof).items()
+            if not is_flush(key)}
+
+
+def clean_cold_ms(fn, iters=50):
+    """Device ms of one call after a read-only pass over FLUSH_BYTES (an
+    ``amax``): the L2 then holds clean lines of another buffer, where
+    ``timed(cold=True)``'s rewrite leaves it full of dirty lines that the
+    call's reads must first write back.  None where the profile does not
+    show one flush kernel per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.amax()
+        torch.cuda.synchronize()
+    keys = set(kernel_ms(prof))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.amax()
+            fn()
+        torch.cuda.synchronize()
+    flushes = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.key in keys)
+    if flushes != iters * len(keys):
+        return None
+    return sum(ms for key, ms in kernel_ms(prof).items()
+               if key not in keys) / iters
+
+
+def gemv_cells(label: str) -> dict:
+    """Kernel-table rows 4 (``gs_project_partial``) and 6 (``gs_update``)
+    and the solves they serve.  Both at n = 2^20 and 10^4, 16 rows, f32
+    and bf16 storage, cold (by kernel too) and warm, beside their bound and
+    ``torch.mv`` / ``torch.addmv`` (f32); the SHA-256 of ``gs_update``'s
+    output bytes for seeded inputs (equal across trees: the same bits);
+    the banded 1024^2 ``cgs2_pipelined`` solve and the one-rank sharded
+    banded ``cgs2_fused`` solve over TIMING_RESTARTS cycles (wall, device
+    ms and idle share per step, the SHA-256 of x).  Cold is timed both
+    ways: after ``timed``'s rewrite of FLUSH_BYTES (dirty L2) and after a
+    read of it (``clean_cold_ms``).  Where the tree has the streaming
+    pair's shape rule, the shapes it chose among are timed too
+    (``gemv_shape_sweep``)."""
+    import hashlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import gmres, gmres_sharded, stencils
+    from repro_torch.kernels import cgs2
+
+    def sha(t):
+        return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+    out = {}
+    m1 = M + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.empty((), dtype=dtype).element_size()
+        f32 = dtype == torch.float32
+        for nb, j in ((NX * NX, PIPE_J[1]), (N, PIPE_J[1]),
+                      (NX * NX, PIPE_J[2])):
+            gen = torch.Generator(device="cuda").manual_seed(nb + j)
+            v = basis(nb, m1, j, dtype, gen)
+            vp = v[:j + 1]
+            w = torch.randn(nb, device="cuda", generator=gen)
+            h = torch.randn(j + 1, device="cuda", generator=gen)
+            cells = {
+                "gs_project_partial": (
+                    lambda: cgs2.gs_project_partial(v, w, j),
+                    lambda: torch.mv(vp, w), "torch.mv(V[:j+1], w)",
+                    ((j + 1) * sz + 4) * nb),
+                "gs_update": (
+                    lambda: cgs2.gs_update(vp, w, h),
+                    lambda: torch.addmv(w, vp.T, h, alpha=-1),
+                    "torch.addmv(w, V[:j+1].T, h, alpha=-1)",
+                    ((j + 1) * sz + 8) * nb)}
+            for name, (fn, lib, lib_name, nbytes) in cells.items():
+                row = {"cold": timed(fn, cold=True), "warm": timed(fn),
+                       "clean_cold_ms": clean_cold_ms(fn),
+                       "cold_by_kernel": cold_by_kernel(fn),
+                       "bytes": nbytes, "flops": 2 * (j + 1) * nb}
+                if f32:
+                    row.update(library=lib_name,
+                               library_cold=timed(lib, cold=True),
+                               library_clean_cold_ms=clean_cold_ms(lib),
+                               library_warm=timed(lib))
+                row["bound_ms"], row["bound_by"] = bound(nbytes,
+                                                         row["flops"])
+                out[f"{name} {str(dtype)[6:]} n={nb} rows={j + 1}"] = row
+            del v, vp
+    hashes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for nb, rows in ((NX * NX, 16), (N, 31), (N + 3, 16)):
+            gen = torch.Generator(device="cuda").manual_seed(19)
+            v = (torch.randn(rows, nb, device="cuda", generator=gen)
+                 / nb ** 0.5).to(dtype)
+            w = torch.randn(nb, device="cuda", generator=gen)
+            h = torch.randn(rows, device="cuda", generator=gen)
+            hashes[f"{str(dtype)[6:]} n={nb} rows={rows}"] = sha(
+                cgs2.gs_update(v, w, h))
+    out["gs_update sha256"] = hashes
+
+    if hasattr(cgs2, "_launch_gs_update"):
+        gemv_shape_sweep(label)
+
+    n = NX * NX
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt="banded")
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+
+    def pipelined():
+        return gmres(op, b, m=M, tol=TOL, max_restarts=TIMING_RESTARTS,
+                     gs="cgs2_pipelined")
+    res = pipelined()
+    out["banded cgs2_pipelined"] = dict(solve_timing(
+        pipelined, res.inner_steps, phase="in_turn",
+        solve="banded cgs2_pipelined", tree=label,
+        restarts=TIMING_RESTARTS), x_sha256=sha(res.x))
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/pg",
+                            rank=0, world_size=1)
+    try:
+        def sharded():
+            return gmres_sharded(dist.group.WORLD, op, b, m=M, tol=TOL,
+                                 max_restarts=TIMING_RESTARTS,
+                                 gs="cgs2_fused")
+        res = sharded()
+        out["sharded banded cgs2_fused"] = dict(solve_timing(
+            sharded, res.inner_steps, phase="in_turn",
+            solve="sharded banded cgs2_fused (one rank)", tree=label,
+            restarts=TIMING_RESTARTS), x_sha256=sha(res.x))
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return out
+
+
+def gemv_shape_sweep(label: str) -> None:
+    """The launch shapes of the streaming GEMV pair that
+    ``tuning.gemv_stream_shape`` and ``gemv_partial_shape`` choose among,
+    each launched through the wrappers' launch helpers (so no ``.launches``
+    count) at 16 rows unless said: the grid cap at n = 2^20 (0: none, a
+    thread a 16-byte piece in waves; 1, 2 or 4 blocks an SM, two pieces at
+    once where a thread owns more than one), also at 30 rows; the block
+    size at n = 10^4 (warm: the call is a launch and a round trip); the
+    projection's block a row against its capped grid at n = 10^4 to 2^17.
+    Each shape is held to the rule's bits for the update and to the plain
+    version for the projection.  One ``tuning`` line a shape."""
+    from repro_torch.kernels import cgs2, tuning
+
+    sms = tuning.sm_count(torch.device("cuda"))
+
+    def capped(plan, cap, threads=None):
+        t = threads or plan["threads"]
+        items = max(plan["pieces"], plan["tail"])
+        blocks = max(1, -(-items // t))
+        if cap:
+            blocks = min(blocks, cap * sms)
+        return dict(plan, threads=t, blocks=blocks,
+                    unroll=2 if items > blocks * t else 1)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    m1 = M + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for nb, j, cold, what in (
+                (NX * NX, PIPE_J[1], True, "cap"),
+                (NX * NX, PIPE_J[2], True, "cap"),
+                (N, PIPE_J[1], False, "threads"),
+                (N, PIPE_J[1], True, "by_row"),
+                (1 << 15, PIPE_J[1], True, "by_row"),
+                (1 << 17, PIPE_J[1], True, "by_row")):
+            v = basis(nb, m1, j, dtype, gen)
+            vp = v[:j + 1]
+            w = torch.randn(nb, device="cuda", generator=gen)
+            h = torch.randn(j + 1, device="cuda", generator=gen)
+            base = cgs2.stream_plan(v, w, j + 1)
+            chosen = {"update": base,
+                      "partial": tuning.gemv_partial_shape(base, j + 1)}
+            if what == "cap":
+                shapes = [(f"cap={c}", {"update": capped(base, c),
+                                        "partial": dict(capped(base, c),
+                                                        by_row=0)})
+                          for c in (0, 1, 2, 4)]
+            elif what == "threads":
+                shapes = [(f"threads={t}", {"update": capped(base, 1, t)})
+                          for t in (32, 64, 128, 256)]
+            else:
+                shapes = [("by_row=1", {"partial": dict(
+                              base, by_row=1, threads=0, blocks=j + 1,
+                              unroll=1)}),
+                          ("by_row=0", {"partial": dict(capped(base, 1),
+                                                        by_row=0)})]
+            want_u = cgs2.gs_update(vp, w, h)
+            want_p = cgs2.gs_project_partial_plain(v, w, j)
+            for name, plans in shapes:
+                row = dict(phase="tuning", tree=label, shape=name,
+                           dtype=str(dtype), n=nb, rows=j + 1, cold=cold)
+                if "update" in plans:
+                    plan = plans["update"]
+
+                    def upd(plan=plan):
+                        return cgs2._launch_gs_update(vp, w, h, plan)
+                    check(torch.equal(upd(), want_u),
+                          f"gs_update {name} n={nb}: other bits")
+                    row.update(gs_update_ms=timed(upd, cold=cold),
+                               gs_update_chosen=plan == chosen["update"])
+                if "partial" in plans:
+                    plan = plans["partial"]
+
+                    def part(plan=plan):
+                        return cgs2._launch_gs_project_partial(v, w, j,
+                                                               plan)
+                    rel = relerr(part(), want_p)
+                    check(rel < TOLS[dtype],
+                          f"gs_project_partial {name} n={nb}: {rel}")
+                    row.update(gs_project_partial_ms=timed(part, cold=cold),
+                               partial_rel_err=rel,
+                               partial_chosen=plan == chosen["partial"])
+                emit(**row)
+            del v, vp
+
+
+def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
     """``measure_cells`` on the tree at ``parent`` (an unpacked ``git
     archive`` of the commit to compare with) and on this one, each in its
-    own process, in turn: parent, this, this, parent."""
+    own process, in turn: parent, this, this, parent.  With the ``gemv``
+    group, the four runs must agree on the SHA-256 of ``gs_update``'s
+    output and of the pipelined solve's x (the same bits)."""
     check(torch.cuda.is_available(), "no CUDA device is available")
     parent = parent.resolve()
     check((parent / "src" / "repro_torch").is_dir(),
           f"{parent} holds no src/repro_torch")
+    rows = []
     for label, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
                         ("parent", parent)):
         code = (f"import sys; sys.path.insert(0, {str(tree / 'src')!r}); "
                 f"import repro_torch; sys.path.insert(0, {str(ROOT)!r}); "
-                f"import chip_smoke; chip_smoke.measure_cells({label!r})")
-        subprocess.run([sys.executable, "-c", code], check=True,
-                       timeout=900)
+                f"import chip_smoke; chip_smoke.measure_cells({label!r}, "
+                f"{tuple(groups)!r})")
+        run = subprocess.run([sys.executable, "-c", code], check=True,
+                             timeout=900, stdout=subprocess.PIPE, text=True)
+        sys.stdout.write(run.stdout)
+        sys.stdout.flush()
+        rows += [json.loads(line) for line in run.stdout.splitlines()
+                 if line.startswith("{") and '"in_turn"' in line
+                 and '"tree"' in line and '"package"' in line]
+    if "gemv" in groups:
+        shas = [(r["gs_update sha256"],
+                 r["banded cgs2_pipelined"]["x_sha256"]) for r in rows]
+        emit(phase="in_turn", same_bits=all(x == shas[0] for x in shas),
+             trees=[r["tree"] for r in rows])
+        check(len(shas) == 4 and all(x == shas[0] for x in shas),
+              "in turn: gs_update's output or the pipelined solve's x "
+              "differs between the trees")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--in-turn"]:
-        in_turn(pathlib.Path(sys.argv[2]))
+        in_turn(pathlib.Path(sys.argv[2]), tuple(sys.argv[3:]) or CELL_GROUPS)
     else:
         main()

@@ -99,11 +99,14 @@ SIGNATURES = {
     # reduction; grid = tuning.sr_grid):
     # v, v_bf16, z, out (m1 + 1, 2), partials, grid, m1, n, j, stream
     "repro_sr_payload": (P, I, P, P, P, I, I, I, I, P),
-    # v, v_bf16, w, h, out, m1, n, stream
-    "repro_gs_update": (P, I, P, P, P, I, I, P),
-    # The split-phase projection of a row-sharded CGS2 step:
-    # v, v_bf16, w, out (m1,), partials, grid, m1, n, j, stream
-    "repro_gs_project_partial": (P, I, P, P, P, I, I, I, I, P),
+    # The streaming GEMV pair (launch shape: tuning.gemv_stream_shape):
+    # v, v_bf16, w, h, out, m1, n, threads, blocks, unroll, pieces, stream
+    "repro_gs_update": (P, I, P, P, P, I, I, I, I, I, I, P),
+    # the split-phase projection of a row-sharded CGS2 step (the column
+    # sweep and the partials' reduction, or a block a row): v, v_bf16, w,
+    # out (m1,), partials, m1, n, j, by_row, threads, blocks, unroll,
+    # pieces, stream
+    "repro_gs_project_partial": (P, I, P, P, P, I, I, I, I, I, I, I, I, P),
     # v, v_bf16, w, tin, q, out (m1 + s, s) = [c_hat; m], partials, grid,
     # m1, n, s, stream
     "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, P),

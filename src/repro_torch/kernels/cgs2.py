@@ -25,6 +25,11 @@ past row j, so it passes the row prefix ``v[:j+1]`` (contiguous in row
 major) with ``h[:j+1]``: that is exact, since a zero row adds exactly 0
 in the kernel's and the plain version's row-ordered sums.
 
+``gs_update`` and ``gs_project_partial`` stream V in 16-byte pieces where
+V, w and the row stride are 16-byte aligned, else take the kernels'
+scalar route (``stream_plan``); each counts the route it took in
+``.routes`` beside ``.launches``.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -151,6 +156,19 @@ def gs_project_norm_partial(v: torch.Tensor, z: torch.Tensor, j: int):
 gs_project_norm_partial.launches = 0
 
 
+def stream_plan(v: torch.Tensor, w: torch.Tensor, rows: int) -> dict:
+    """The launch of the streaming GEMV pair (``gs_update``,
+    ``gs_project_partial``) on basis v (m1, n), reading its first ``rows``
+    rows, and the float32 w it is given: 16-byte pieces where v, w and the
+    row stride allow (the output is allocated aligned), else the scalar
+    route (``tuning.gemv_stream_shape``)."""
+    n = v.shape[1]
+    aligned = tuning.stream_aligned((v.data_ptr(), w.data_ptr()),
+                                    n * v.element_size(), rows)
+    return tuning.gemv_stream_shape(n, v.element_size(), aligned,
+                                    tuning.sm_count(v.device))
+
+
 def gs_update_plain(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
     """w - h^T V with the rows summed in order, as the kernel sums them (so
     rows whose h is zero change nothing, to the bit)."""
@@ -179,19 +197,28 @@ def gs_update(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
     _storage("gs_update", v, w, h)
     if not v.is_contiguous():
         raise ValueError("gs_update: v must be contiguous (row-major)")
-    m1, n = v.shape
     wf = w.to(torch.float32).contiguous()
-    hf = h.to(torch.float32).contiguous()
-    out = torch.empty(n, dtype=torch.float32, device=v.device)
-    rc = _build.library().repro_gs_update(
-        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
-        hf.data_ptr(), out.data_ptr(), m1, n, _build.stream_ptr(v))
-    _build.check("gs_update", rc)
+    plan = stream_plan(v, wf, v.shape[0])
+    out = _launch_gs_update(v, wf, h.to(torch.float32).contiguous(), plan)
     gs_update.launches += 1
+    gs_update.routes[plan["route"]] += 1
     return out.to(w.dtype)
 
 
+def _launch_gs_update(v, wf, hf, plan: dict) -> torch.Tensor:
+    """The update's kernel at launch shape ``plan`` (``stream_plan``'s)."""
+    m1, n = v.shape
+    out = torch.empty(n, dtype=torch.float32, device=v.device)
+    rc = _build.library().repro_gs_update(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        hf.data_ptr(), out.data_ptr(), m1, n, plan["threads"],
+        plan["blocks"], plan["unroll"], plan["pieces"], _build.stream_ptr(v))
+    _build.check("gs_update", rc)
+    return out
+
+
 gs_update.launches = 0
+gs_update.routes = {"vec": 0, "scalar": 0}
 
 
 # --------------------------------------------------------------------------
@@ -218,21 +245,33 @@ def gs_project_partial(v: torch.Tensor, w: torch.Tensor, j: int):
     _storage("gs_project_partial", v, w)
     if not v.is_contiguous():
         raise ValueError("gs_project_partial: v must be contiguous")
-    m1, n = v.shape
     wf = w.to(torch.float32).contiguous()
-    grid = tuning.sr_grid(v.device, n)
+    plan = tuning.gemv_partial_shape(stream_plan(v, wf, j + 1), j + 1)
+    out = _launch_gs_project_partial(v, wf, j, plan)
+    gs_project_partial.launches += 1
+    gs_project_partial.routes[plan["route"]] += 1
+    return out
+
+
+def _launch_gs_project_partial(v, wf, j: int, plan: dict) -> torch.Tensor:
+    """The projection's kernels at launch shape ``plan``
+    (``tuning.gemv_partial_shape``'s): a block a row, or the column sweep
+    and the fixed-order reduction of its partials."""
+    m1, n = v.shape
     out = torch.empty(m1, dtype=torch.float32, device=v.device)
-    part = torch.empty(m1 * grid, dtype=torch.float32, device=v.device)
+    part = out if plan["by_row"] else torch.empty(
+        m1 * plan["blocks"], dtype=torch.float32, device=v.device)
     rc = _build.library().repro_gs_project_partial(
         v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
-        out.data_ptr(), part.data_ptr(), grid, m1, n, j,
+        out.data_ptr(), part.data_ptr(), m1, n, j, plan["by_row"],
+        plan["threads"], plan["blocks"], plan["unroll"], plan["pieces"],
         _build.stream_ptr(v))
     _build.check("gs_project_partial", rc)
-    gs_project_partial.launches += 1
     return out
 
 
 gs_project_partial.launches = 0
+gs_project_partial.routes = {"vec": 0, "scalar": 0}
 
 
 def cgs2_split(v: torch.Tensor, w: torch.Tensor, j: int, group):

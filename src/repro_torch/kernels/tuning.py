@@ -10,8 +10,12 @@ no meaning here.  What the kernels need is
   (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu,
   csrc/matrix_powers.cu, csrc/block_gs.cu); the C side picks the grid from
   these with the occupancy calculator;
-- the grid of the single-reduce kernels (csrc/sr_payload.cu and the
-  single-reduce pair in csrc/block_gs.cu), plain launches: ``sr_grid``;
+- the grid of the single-reduce kernels (csrc/sr_payload.cu's payload and
+  the single-reduce pair in csrc/block_gs.cu), plain launches: ``sr_grid``;
+- the launch of the streaming GEMV pair (csrc/sr_payload.cu's gs_update
+  and gs_project_partial: 16-byte pieces, a scalar route for misaligned
+  operands and the ragged tail; the projection a block a row for short
+  rows): ``stream_aligned``, ``gemv_stream_shape``, ``gemv_partial_shape``;
 - the preconditioning kernels' shapes: the fused Chebyshev apply
   (csrc/matrix_powers.cu) is a persistent cooperative launch of
   CHEB_BLOCKS_PER_SM blocks per SM at most; the triangular sweep
@@ -81,6 +85,25 @@ BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
 # the (8, 2048) f32 slice of Q within 64 KB of shared memory.
 SR_BLOCKS_PER_SM = 4
 SR_MAX_COLS = 2048
+# The streaming GEMV pair (csrc/sr_payload.cu: gs_update and
+# gs_project_partial) gives each thread 16-byte pieces of columns.  Blocks
+# of 256 threads (at most the kernels' kThreads, which the C side checks),
+# or of 64 where there is less than one piece a thread for 256-thread
+# blocks on every SM (n = 10^4: 2,500 f32 pieces on 40 SMs, not 10; PERF.md
+# §6: the update 0.0019 ms warm against 0.0021).  The grid is at most
+# GEMV_BLOCKS_PER_SM blocks an SM; a thread that then owns more than one
+# piece takes two at once.  One: 16 rows of 16-byte loads (two pieces: 32)
+# fill a thread's registers, so no second block fits an SM (PERF.md §6:
+# at n = 2^20 both kernels are slowest with no cap, the projection slower
+# with 2 or 4 too).
+STREAM_THREADS = 256
+STREAM_SMALL_THREADS = 64
+GEMV_BLOCKS_PER_SM = 1
+# The projection of a short basis (at most this many pieces, or scalar
+# columns, a row; n = 10^4 f32 has 2,500) takes a block a row (the
+# kernel's own kThreads): no partials, no second launch (PERF.md §6:
+# faster at 2,500 and 8,192 pieces, slower at 16,384 and 32,768).
+PARTIAL_ROW_MAX_ITEMS = 8192
 # The fused Chebyshev apply takes the banded powers' row partition (a
 # thread per row), so the same value.
 CHEB_BLOCKS_PER_SM = POWERS_BLOCKS_PER_SM
@@ -134,6 +157,51 @@ def sr_grid(device, n: int) -> int:
     (s, cols) slice of Q in shared memory)."""
     g = min(SR_BLOCKS_PER_SM * sm_count(device), -(-n // (32 * GS_WARPS)))
     return max(g, -(-n // SR_MAX_COLS), 1)
+
+
+def stream_aligned(ptrs, row_bytes: int, rows: int) -> bool:
+    """May the streaming GEMV pair read in 16 bytes?  Every pointer (V, w)
+    16-byte aligned, and the row stride too where more than one row is
+    read."""
+    return all(p % 16 == 0 for p in ptrs) and (rows <= 1
+                                                or row_bytes % 16 == 0)
+
+
+def gemv_stream_shape(n: int, elem_size: int, aligned: bool,
+                      sms: int) -> dict:
+    """Launch shape of the streaming GEMV pair over n columns of a basis
+    stored in ``elem_size`` bytes, on ``sms`` SMs.
+
+    ``pieces`` 16-byte pieces of ``vec`` columns cover [0, pieces * vec);
+    the scalar loop covers [pieces * vec, n): the ragged tail when
+    ``aligned``, every column when not (pieces = 0).  ``route`` is "vec"
+    where any piece is read in 16 bytes, else "scalar".  ``threads`` and
+    ``blocks``: enough threads for one work item (a piece, or a scalar
+    column where there are no pieces) each, at most GEMV_BLOCKS_PER_SM
+    blocks an SM; ``unroll`` = 2 where a thread then owns more than one
+    item (it takes two at once; the projection's 32-row bucket one at a
+    time)."""
+    vec = 16 // elem_size
+    pieces = n // vec if aligned else 0
+    tail = n - pieces * vec
+    items = max(pieces, tail)
+    threads = (STREAM_THREADS if items >= STREAM_THREADS * sms
+               else STREAM_SMALL_THREADS)
+    blocks = min(max(1, -(-items // threads)), GEMV_BLOCKS_PER_SM * sms)
+    unroll = 2 if items > blocks * threads else 1
+    return {"threads": threads, "blocks": blocks, "unroll": unroll,
+            "vec": vec, "pieces": pieces, "tail": tail,
+            "route": "vec" if pieces else "scalar"}
+
+
+def gemv_partial_shape(shape: dict, rows: int) -> dict:
+    """The projection's launch from ``gemv_stream_shape``'s: a block for
+    each of the ``rows`` valid rows (``by_row``; the kernel takes its own
+    block size, so ``threads`` is 0) where a row has at most
+    PARTIAL_ROW_MAX_ITEMS work items, else the shape as given."""
+    if max(shape["pieces"], shape["tail"]) > PARTIAL_ROW_MAX_ITEMS:
+        return dict(shape, by_row=0)
+    return dict(shape, by_row=1, threads=0, blocks=rows, unroll=1)
 
 
 # --------------------------------------------------------------------------

@@ -510,6 +510,83 @@ def test_single_reduce_kernels_reject_float64(dev):
                                        torch.eye(2, device=dev))
 
 
+# --------------------------------------------------------------------------
+# the streaming GEMV pair (gs_update, gs_project_partial): 16-byte pieces,
+# the scalar route for misaligned operands and the ragged tail
+# --------------------------------------------------------------------------
+def _view(shape, dtype, dev, offset, seed):
+    """A contiguous random tensor ``offset`` elements into a buffer (1: not
+    16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    numel = int(np.prod(shape))
+    buf = torch.randn(numel + offset, device=dev, generator=g).to(dtype)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 31, 1000, 10_000, 10_003,
+                               1 << 18, 1 << 20])
+def test_gemv_pair_matches_plain_at_every_shape(dev, n, offset, dtype):
+    m1 = 31
+    v = _view((m1, n), dtype, dev, offset, seed=n)
+    v.copy_(_basis(n, m1, m1 - 1, dtype, dev, seed=n))
+    w = _view((n,), torch.float32, dev, offset, seed=n + 1)
+    for j in (0, 7, 8, 15, 30):
+        h = torch.randn(2, j + 1, device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(j))[1]        # hc[1]: a row view
+        routes = (dict(cgs2.gs_update.routes),
+                  dict(cgs2.gs_project_partial.routes))
+        p = cgs2.gs_project_partial(v, w, j)
+        u = cgs2.gs_update(v[:j + 1], w, h)
+        torch.cuda.synchronize()
+        assert _relerr(p, cgs2.gs_project_partial_plain(v, w, j)) < TOL[dtype]
+        assert not p[j + 1:].any()
+        assert _relerr(u, cgs2.gs_update_plain(v[:j + 1], w, h)) < TOL[dtype]
+        # the same bits every call
+        assert torch.equal(cgs2.gs_project_partial(v, w, j), p)
+        assert torch.equal(cgs2.gs_update(v[:j + 1], w, h), u)
+        # the route each call took, counted once per launch
+        want_p = cgs2.stream_plan(v, w, j + 1)["route"]
+        want_u = cgs2.stream_plan(v, w, j + 1)["route"]
+        assert cgs2.gs_project_partial.routes[want_p] == routes[1][want_p] + 2
+        assert cgs2.gs_update.routes[want_u] == routes[0][want_u] + 2
+        aligned = offset == 0 and (j == 0 or n * v.element_size() % 16 == 0)
+        vec = 16 // v.element_size()
+        assert want_u == ("vec" if aligned and n >= vec else "scalar")
+
+
+def test_gs_project_partial_gives_the_same_bits_on_two_streams(dev):
+    n, m1, j = 1 << 18, 31, 20
+    v = _basis(n, m1, m1 - 1, torch.float32, dev, seed=3)
+    w = torch.randn(n, device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(4))
+    want = cgs2.gs_project_partial(v, w, j)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = [cgs2.gs_project_partial(v, w, j) for _ in range(4)]
+    mine = [cgs2.gs_project_partial(v, w, j) for _ in range(4)]
+    torch.cuda.synchronize()
+    for g in got + mine:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [10_000, 10_003, 1 << 20])
+def test_gs_update_prefix_and_full_call_give_the_same_bits(dev, n, dtype):
+    m1 = 31
+    v = _basis(n, m1, m1 - 1, dtype, dev, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    w = torch.randn(n, device=dev, generator=g)
+    for j in (0, 7, 8, 15, 29):
+        h = torch.randn(m1, device=dev, generator=g)
+        h[j + 1:] = 0
+        assert torch.equal(cgs2.gs_update(v[:j + 1], w, h[:j + 1]),
+                           cgs2.gs_update(v, w, h))
+
+
 @pytest.mark.parametrize("fmt", ["dense", "banded", "ell"])
 def test_pipelined_solves_count_launches(dev, fmt):
     """gmres(gs="cgs2_pipelined") on the card against the CPU: one payload
