@@ -5,7 +5,9 @@
         # kernel-table rows and their cells, the tree at DIR (e.g. `git
         # archive` of the parent commit, unpacked) against this one in
         # turn (measure_cells); GROUP: redesign1 (rows 7 and 20), gemv
-        # (rows 4 and 6); default both
+        # (rows 4 and 6), redesign3 (rows 1 and 19); default all three;
+        # redesign3_sweep (the launch shapes of rows 1 and 19) only when
+        # named
 
 Phases, one JSON line each (``"phase": ...``):
 
@@ -19,7 +21,9 @@ Phases, one JSON line each (``"phase": ...``):
               version on the card, at the main path's shapes (n = 10,000,
               m1 = 31), float32 and bfloat16 storage.  Bars: max relative
               error 1e-4 (float32; another summation order over 10^4 terms)
-              and 2e-2 (bfloat16).
+              and 2e-2 (bfloat16).  block_matvec also at n = 10,003 (rows
+              off the 16-byte grid: its one-row route), k = 1 and 4, each
+              call's route and the same bits on a second call.
 3. solve      the main path: restarted GMRES(30), tol 1e-5, 50 restarts, on
               two numpy-seeded random_diagdom(n = 10,000) systems
               (dominance 2.0 and 0.015), through gs = cgs2 / cgs2_fused /
@@ -181,8 +185,11 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               interval of estimate_interval, float32 and bfloat16 bands;
               banded_trisweep lower/unit, lower/non-unit and upper/non-unit
               on the ILU(0) and line-Jacobi factors of the 1024^2 stencil
-              and a random (-2, -1, 0) pattern at n = 200 and 2^16, k = 1
-              and 4; ilu0_factor at 64^2, 128^2 and 1024^2 (relative error
+              (float32 and bfloat16 bands) and of the 1023 x 1021 one (n
+              not a multiple of the scan's tile, chunks of 1,023 rows) and
+              a random (-2, -1, 0) pattern at n = 200 and 2^16 (chunks of
+              2), k = 1 and 4, each call's route (scan without a far band,
+              else chunk) and the same bits on a second call; ilu0_factor at 64^2, 128^2 and 1024^2 (relative error
               1e-6, and whether the bits are the same) and at 1024^2 the
               JAX test's property, (L U - A) on the pattern within 5e-5 of
               max|A|, by banded products on the card.
@@ -202,9 +209,14 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               per cycle for the pipelined prologue, s x blocks + 1 per
               cycle (gmres_sstep: the reference powers over A M^-1);
               Chebyshev launches once per apply, ILU(0) sweeps twice; the
-              batched Chebyshev apply runs order - 1 block mat-vecs.
+              batched Chebyshev apply runs order - 1 block mat-vecs.  The
+              sweeps' routes exactly: ILU(0) all on the chunk route,
+              line-Jacobi all on the scan.  gmres(cgs2_fused) restarts
+              within +-1 of PRECOND_RESTARTS.
 18. precond_timing  each kernel cold at the path's shapes (order 4; the
-              ILU(0) and line-Jacobi L and U sweeps, k = 1; the ILU(0)
+              ILU(0) and line-Jacobi L and U sweeps, k = 1, with the
+              route, and for the chunk route the chain floor, the same
+              chain with nothing loaded, trisolve.chain_probe; the ILU(0)
               setup) with its launches, bound, plain version and
               yardstick: for Chebyshev the composite of order - 1 CSR
               torch.mv calls and the vector ops, for a sweep
@@ -312,6 +324,7 @@ CUDA device it fails at once.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -367,6 +380,10 @@ PIPE_K = (0, 25)
 STREAM_EDGES = ((N + 3, 0), (N, 1), (NX * NX + 3, 0), (NX * NX, 1), (5, 0))
 # The sharded slice's timing runs the first 10 of the stencil's 70 cycles.
 TIMING_RESTARTS = 10
+# gmres(30, cgs2_fused) restarts of the preconditioned 1024^2 solves
+# (phase 17; PERF.md section 5): held within +-1
+PRECOND_RESTARTS = {"chebyshev": 20, "banded_ilu0": 16, "line_jacobi": 45,
+                    "jacobi": 70}
 # The model slice: zamba2-7b at full size, batch 2, a 512-token prompt (two
 # SSD chunks), 32 generated tokens; the kernels at the JAX package's sweep
 # shapes (tests/test_kernels.py) and at the prefill's.
@@ -1932,14 +1949,21 @@ def precond_phases(smi, gen, sparse_solves):
                         dtype, n=nn, order=order, interval=[lo, hi])
 
     ilu, lj = P.banded_ilu0(op), P.line_jacobi(op)
+    # 1023 x 1021: n = 1,044,483, not a multiple of the scan's 2,048-row
+    # tile (nor of 8: loads one by one), chunks of 1,023 rows (not a
+    # multiple of 4: loads one chunk at a time)
+    odd = stencils.convection_diffusion_2d(1023, 1021, beta=BETA)
     cases = []
-    for name, pc in (("ilu0 1024^2", ilu), ("line_jacobi 1024^2", lj)):
+    for name, pc in (("ilu0 1024^2", ilu), ("line_jacobi 1024^2", lj),
+                     ("ilu0 1023 x 1021", P.banded_ilu0(odd)),
+                     ("line_jacobi 1023 x 1021", P.line_jacobi(odd))):
         cases += [(name, "lower/unit", pc.l_bands, pc.l_offsets, True, True),
                   (name, "lower/non-unit",
                    torch.cat([pc.l_bands, pc.u_bands[:1]]),
                    pc.l_offsets + (0,), False, True),
                   (name, "upper/non-unit", pc.u_bands, pc.u_offsets, False,
                    False)]
+    del odd
     for nr in (200, 1 << 16):
         for direction, offs, unit, lower in (
                 ("lower/unit", (-2, -1, 0), True, True),
@@ -1953,16 +1977,39 @@ def precond_phases(smi, gen, sparse_solves):
                           unit, lower))
     for system, direction, bands, offs, unit, lower in cases:
         nb = bands.shape[1]
-        for k in (1, 4):
-            v = torch.randn(k, nb, device="cuda", generator=gen)
-            v = v[0] if k == 1 else v
-            got = trisolve.banded_trisweep(bands, v, offs, unit_diag=unit,
-                                           lower=lower)
-            want = trisolve.banded_trisweep_plain(
-                bands.cpu(), v.cpu(), offs, unit_diag=unit, lower=lower)
-            compare("banded_trisweep", got, want, f32, system=system,
-                    direction=direction, n=nb, k=k,
-                    chunk=min(trisolve.chunk_rows(offs, nb), 1024))
+        far = any(abs(o) >= 2 for o in offs)
+        for dtype in (f32, torch.bfloat16):
+            if dtype != f32 and "1023" in system:
+                continue
+            bt = bands.to(dtype).contiguous()
+            # one plain solve of four right-hand sides; k = 1 takes the
+            # first (the plain version treats each on its own)
+            v4 = torch.randn(4, nb, device="cuda", generator=gen)
+            want4 = trisolve.banded_trisweep_plain(
+                bt.cpu(), v4.cpu(), offs, unit_diag=unit, lower=lower)
+            for k in (1, 4):
+                v = v4[0] if k == 1 else v4
+                want = want4[0] if k == 1 else want4
+                routes = dict(trisolve.banded_trisweep.routes)
+                got = trisolve.banded_trisweep(bt, v, offs, unit_diag=unit,
+                                               lower=lower)
+                route = [r for r, c in trisolve.banded_trisweep.routes.items()
+                         if c != routes[r]]
+                again = trisolve.banded_trisweep(bt, v, offs,
+                                                 unit_diag=unit, lower=lower)
+                vf = v.reshape(-1, nb)
+                plan = trisolve.sweep_plan(bt, vf, torch.empty_like(vf),
+                                           offs)
+                compare("banded_trisweep", got, want, dtype, system=system,
+                        direction=direction, n=nb, k=k, route=route,
+                        chunk=plan["chunk"], vec=plan["vec"],
+                        same_bits_twice=torch.equal(got, again))
+                check(route == [plan["route"]]
+                      and (plan["route"] != "scan") == far,
+                      f"banded_trisweep {system} {direction}: route {route}")
+                check(torch.equal(got, again),
+                      f"banded_trisweep {system} {direction} k={k}: other "
+                      f"bits on a second call")
 
     for nx in (64, 128, NX):
         o = op if nx == NX else stencils.convection_diffusion_2d(
@@ -2032,6 +2079,8 @@ def precond_phases(smi, gen, sparse_solves):
     for name, solver, gs in runs:
         pc = pcs[name]
         ctr.zero()
+        trisolve.banded_trisweep.routes = dict.fromkeys(
+            trisolve.banded_trisweep.routes, 0)
         t0 = time.perf_counter()
         if solver == "gmres":
             res = gmres(op, b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
@@ -2048,7 +2097,8 @@ def precond_phases(smi, gen, sparse_solves):
              n=n, converged=res.converged, restarts=res.restarts,
              unpreconditioned_restarts=ref.restarts,
              inner_steps=res.inner_steps, true_relres=rr,
-             x_rel_to_unpreconditioned=xr, wall_s=wall, launches=d)
+             x_rel_to_unpreconditioned=xr, wall_s=wall, launches=d,
+             sweep_routes=dict(trisolve.banded_trisweep.routes))
         what = f"{name} {solver} {gs}"
         check(res.converged and rr <= 2 * TOL,
               f"{what}: converged {res.converged}, relres {rr}")
@@ -2060,6 +2110,10 @@ def precond_phases(smi, gen, sparse_solves):
             check(res.restarts < ref.restarts,
                   f"{what}: {res.restarts} restarts, not fewer than the "
                   f"unpreconditioned {ref.restarts}")
+        if solver == "gmres" and gs == "cgs2_fused":
+            check(abs(res.restarts - PRECOND_RESTARTS[name]) <= 1,
+                  f"{what}: {res.restarts} restarts, expected "
+                  f"{PRECOND_RESTARTS[name]} +-1")
         steps, cyc = res.inner_steps, res.restarts
         if solver == "gmres_sstep":
             applies = (s * blocks + 1) * cyc
@@ -2079,6 +2133,14 @@ def precond_phases(smi, gen, sparse_solves):
         elif name != "jacobi":
             expect["banded_trisweep"] = 2 * applies
         ctr.expect(d, expect, what)
+        # ILU(0)'s factors have far bands (the chunk route), line-Jacobi's
+        # none (the scan)
+        routes = dict(trisolve.banded_trisweep.routes)
+        want = dict.fromkeys(routes, 0)
+        if name in ("banded_ilu0", "line_jacobi"):
+            want["chunk" if name == "banded_ilu0" else "scan"] = 2 * applies
+        check(routes == want, f"{what}: sweep routes {routes}, expected "
+                              f"{want}")
         solves[(name, solver, gs)] = res
 
     # phase 8's 4-lane stencil batch, Chebyshev through the block mat-vec
@@ -2220,15 +2282,22 @@ def precond_phases(smi, gen, sparse_solves):
         except (RuntimeError, NotImplementedError) as exc:
             lib_note = f"none: torch.triangular_solve raised {exc!r:.120}"
         nb = bands.shape[0]
-        chunk = min(trisolve.chunk_rows(offs, n), 1024)
+        vf = v[None]
+        plan = trisolve.sweep_plan(bands, vf, torch.empty_like(vf), offs)
         row = measure(
             lambda: trisolve.banded_trisweep(bands, v, offs, unit_diag=unit,
                                              lower=lower),
             lambda: trisolve.banded_trisweep_plain(
                 bands, v, offs, unit_diag=unit, lower=lower),
             plain_by_events=True, library_fn=library, library=lib_note, n=n,
-            offsets=list(offs), chunk=chunk, chunks=-(-n // chunk),
+            offsets=list(offs), route=plan["route"], chunk=plan["chunk"],
+            chunks=plan["chunks"], rows_per_thread=plan["rows"],
             bytes=(nb * 4 + 8) * n, flops=(2 * nb + 2) * n)
+        if plan["route"] != "scan":
+            # the chain's floor: the same chunks with nothing loaded
+            t = timed(lambda: trisolve.chain_probe(
+                offs, n, unit_diag=unit, lower=lower))
+            row["chain_floor_ms"] = t["ms"] or t["event_ms"]
         row["launches_per_path"] = apply_launches["banded_trisweep"]
         emit(phase="precond_timing", kernel=f"banded_trisweep {label}",
              card=smi, **row)
@@ -3323,16 +3392,33 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         a = (torch.randn(N, N, device="cuda", generator=gen)
              / N ** 0.5).to(dtype)
-        for k in (1, 4):
-            x = torch.randn(N, k, device="cuda", generator=gen)
-            y = matvec.block_matvec(a, x)
-            yp = matvec.block_matvec_plain(a, x)
+        # n = 10,003: rows whose starts differ from a 16-byte boundary
+        # take the one-row route
+        a_odd = (torch.randn(N + 3, N + 3, device="cuda", generator=gen)
+                 / N ** 0.5).to(dtype)
+        for mat, k in ((a, 1), (a, 4), (a_odd, 1), (a_odd, 4)):
+            x = torch.randn(mat.shape[1], k, device="cuda", generator=gen)
+            routes = dict(matvec.block_matvec.routes)
+            y = matvec.block_matvec(mat, x)
+            yp = matvec.block_matvec_plain(mat, x)
             torch.cuda.synchronize()
             rel = relerr(y, yp)
+            route = [r for r, c in matvec.block_matvec.routes.items()
+                     if c != routes[r]]
             errs["block_matvec"].append(abserr(y, yp))
-            emit(phase="kernels", kernel="block_matvec", n=N, k=k,
-                 dtype=str(dtype), max_rel_err=rel)
-            check(rel < TOLS[dtype], f"block_matvec k={k} {dtype}: {rel}")
+            emit(phase="kernels", kernel="block_matvec", n=mat.shape[1],
+                 k=k, dtype=str(dtype), route=route, max_rel_err=rel)
+            check(rel < TOLS[dtype], f"block_matvec n={mat.shape[1]} k={k} "
+                                     f"{dtype}: {rel}")
+            check(torch.equal(matvec.block_matvec(mat, x), y),
+                  f"block_matvec n={mat.shape[1]} k={k}: other bits on a "
+                  f"second call")
+            want = tuning.gemv_rows_shape(
+                mat.shape[0], mat.shape[1], k, mat.element_size(),
+                tuning.sm_count(mat.device))["route"]
+            check(route == [want] and (want == "rows") == (mat is a),
+                  f"block_matvec n={mat.shape[1]} k={k}: route {route}")
+        del a_odd
         for j in (0, 15, 29):
             v = basis(N, M + 1, j, dtype, gen)
             w = torch.randn(N, device="cuda", generator=gen)
@@ -3718,14 +3804,19 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-CELL_GROUPS = ("redesign1", "gemv")
+CELL_GROUPS = ("redesign1", "gemv", "redesign3")
+# a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
+SWEEP_GROUPS = ("redesign3_sweep",)
 
 
 def measure_cells(label: str, groups=CELL_GROUPS) -> None:
     """The redesigned kernels' rows and the cells they serve, on whichever
     ``repro_torch`` this process imported (``in_turn``), by group:
-    ``redesign1`` (kernel-table rows 7 and 20, ``redesign1_cells``) and
-    ``gemv`` (rows 4 and 6, ``gemv_cells``).  One JSON line."""
+    ``redesign1`` (kernel-table rows 7 and 20, ``redesign1_cells``),
+    ``gemv`` (rows 4 and 6, ``gemv_cells``) and ``redesign3`` (rows 1 and
+    19, ``redesign3_cells``); the ``redesign3_sweep`` group, on a tree
+    that has the launch helpers it times, emits ``tuning`` lines of its
+    own.  One JSON line."""
     from repro_torch.kernels import _build
 
     check(torch.cuda.is_available(), "no CUDA device is available")
@@ -3738,6 +3829,13 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
         out.update(gemv_cells(label))
     if "redesign1" in groups:
         out.update(redesign1_cells(label))
+    if "redesign3" in groups:
+        out.update(redesign3_cells(label))
+    if "redesign3_sweep" in groups:
+        from repro_torch.kernels import trisolve
+
+        if hasattr(trisolve, "chain_probe"):
+            redesign3_sweep(label)
     emit(phase="in_turn", **out)
 
 
@@ -3872,7 +3970,7 @@ def gemv_cells(label: str) -> dict:
     """Kernel-table rows 4 (``gs_project_partial``) and 6 (``gs_update``)
     and the solves they serve.  Both at n = 2^20 and 10^4, 16 rows, f32
     and bf16 storage, cold (by kernel too) and warm, beside their bound and
-    ``torch.mv`` / ``torch.addmv`` (f32); the SHA-256 of ``gs_update``'s
+    ``torch.mv`` / ``torch.addmv`` on V's type; the SHA-256 of ``gs_update``'s
     output bytes for seeded inputs (equal across trees: the same bits);
     the banded 1024^2 ``cgs2_pipelined`` solve and the one-rank sharded
     banded ``cgs2_fused`` solve over TIMING_RESTARTS cycles (wall, device
@@ -3904,14 +4002,17 @@ def gemv_cells(label: str) -> dict:
             vp = v[:j + 1]
             w = torch.randn(nb, device="cuda", generator=gen)
             h = torch.randn(j + 1, device="cuda", generator=gen)
+            # the library calls on V's type (w and h rounded to bf16 for
+            # bf16 V: cuBLAS takes one type)
+            wl, hl = w.to(dtype), h.to(dtype)
             cells = {
                 "gs_project_partial": (
                     lambda: cgs2.gs_project_partial(v, w, j),
-                    lambda: torch.mv(vp, w), "torch.mv(V[:j+1], w)",
+                    lambda: torch.mv(vp, wl), "torch.mv(V[:j+1], w)",
                     ((j + 1) * sz + 4) * nb),
                 "gs_update": (
                     lambda: cgs2.gs_update(vp, w, h),
-                    lambda: torch.addmv(w, vp.T, h, alpha=-1),
+                    lambda: torch.addmv(wl, vp.T, hl, alpha=-1),
                     "torch.addmv(w, V[:j+1].T, h, alpha=-1)",
                     ((j + 1) * sz + 8) * nb)}
             for name, (fn, lib, lib_name, nbytes) in cells.items():
@@ -3919,11 +4020,10 @@ def gemv_cells(label: str) -> dict:
                        "clean_cold_ms": clean_cold_ms(fn),
                        "cold_by_kernel": cold_by_kernel(fn),
                        "bytes": nbytes, "flops": 2 * (j + 1) * nb}
-                if f32:
-                    row.update(library=lib_name,
-                               library_cold=timed(lib, cold=True),
-                               library_clean_cold_ms=clean_cold_ms(lib),
-                               library_warm=timed(lib))
+                row.update(library=lib_name + ("" if f32 else " (bf16)"),
+                           library_cold=timed(lib, cold=True),
+                           library_clean_cold_ms=clean_cold_ms(lib),
+                           library_warm=timed(lib))
                 row["bound_ms"], row["bound_by"] = bound(nbytes,
                                                          row["flops"])
                 out[f"{name} {str(dtype)[6:]} n={nb} rows={j + 1}"] = row
@@ -4061,6 +4161,225 @@ def gemv_shape_sweep(label: str) -> None:
             del v, vp
 
 
+def redesign3_cells(label: str) -> dict:
+    """Kernel-table rows 1 (``block_matvec``) and 19 (``banded_trisweep``)
+    and the cells they serve.  Row 1 at n = 10,000, k = 1 and 4, f32 and
+    bf16 storage, cold and warm, beside ``torch.mv`` / ``torch.mm`` (on
+    A's type: x rounded to bf16 for bf16 A); row 19 on the ILU(0) and
+    line-Jacobi L and U factors of the 1024^2 stencil, k = 1 and 4, cold,
+    with the route each call took and the SHA-256 of its output; the chunk
+    route's chain floor (``trisolve.chain_probe``, where the tree has it);
+    the dense n = 10,000 ``cgs2_fused`` solve over TIMING_RESTARTS cycles;
+    the ILU(0) and line-Jacobi ``gmres(gs="cgs2_fused")`` solves to
+    convergence (restarts, time to solution, device ms per step, idle
+    share), their x saved for ``in_turn``'s comparison."""
+    import hashlib
+
+    from repro_torch.core import gmres, operators, stencils
+    from repro_torch.core import preconditioners as P
+    from repro_torch.kernels import matvec, trisolve
+
+    def sha(t):
+        return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+    def routes_of(fn):
+        return dict(getattr(fn, "routes", {}))
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.empty((), dtype=dtype).element_size()
+        a = (torch.randn(N, N, device="cuda", generator=gen)
+             / N ** 0.5).to(dtype)
+        for k in (1, 4):
+            x = torch.randn(N, k, device="cuda", generator=gen)
+            xl = x.to(dtype)
+
+            def fn(a=a, x=x):
+                return matvec.block_matvec(a, x)
+
+            def lib(a=a, xl=xl, k=k):
+                return torch.mv(a, xl[:, 0]) if k == 1 else torch.mm(a, xl)
+            before = routes_of(matvec.block_matvec)
+            fn()
+            row = {"cold": timed(fn, cold=True), "warm": timed(fn),
+                   "route": [r for r, c in routes_of(
+                       matvec.block_matvec).items() if c != before.get(r)],
+                   "library": "torch.mv" if k == 1 else "torch.mm",
+                   "library_cold": timed(lib, cold=True),
+                   "library_warm": timed(lib),
+                   "bytes": N * N * sz + 8 * N * k, "flops": 2 * N * N * k}
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                     row["flops"])
+            out[f"block_matvec {str(dtype)[6:]} n={N} k={k}"] = row
+        del a
+
+    n = NX * NX
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    t0 = time.perf_counter()
+    ilu = P.make_preconditioner("banded_ilu0", op)
+    torch.cuda.synchronize()
+    ilu_setup = time.perf_counter() - t0
+    lj = P.make_preconditioner("line_jacobi", op)
+    sweeps = (("ILU(0) L", ilu.l_bands, ilu.l_offsets, True, True),
+              ("ILU(0) U", ilu.u_bands, ilu.u_offsets, False, False),
+              ("line-Jacobi L", lj.l_bands, lj.l_offsets, True, True),
+              ("line-Jacobi U", lj.u_bands, lj.u_offsets, False, False))
+    shas = {}
+    for name, bands, offs, unit, lower in sweeps:
+        for k in (1, 4):
+            v = torch.randn(k, n, device="cuda", generator=gen)
+            v = v[0] if k == 1 else v
+
+            def fn(bands=bands, v=v, offs=offs, unit=unit, lower=lower):
+                return trisolve.banded_trisweep(bands, v, offs,
+                                                unit_diag=unit, lower=lower)
+            before = routes_of(trisolve.banded_trisweep)
+            z = fn()
+            shas[f"{name} k={k}"] = sha(z)
+            row = {"cold": timed(fn, iters=20, cold=True),
+                   "route": [r for r, c in routes_of(
+                       trisolve.banded_trisweep).items()
+                       if c != before.get(r)],
+                   "bytes": bands.shape[0] * n * bands.element_size()
+                   + 8 * n * k, "flops": (2 * bands.shape[0] + 2) * n * k}
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                     row["flops"])
+            if hasattr(trisolve, "chain_probe") and k == 1 \
+                    and "ILU" in name:
+                t = timed(lambda offs=offs, unit=unit, lower=lower:
+                          trisolve.chain_probe(offs, n, unit_diag=unit,
+                                               lower=lower))
+                row["chain_floor_ms"] = t["ms"] or t["event_ms"]
+            out[f"banded_trisweep {name} k={k}"] = row
+    out["banded_trisweep sha256"] = shas
+
+    a = operators.random_diagdom(N, dominance=0.015, seed=0)
+    b_d = torch.from_numpy(np.random.default_rng(1).standard_normal(N)
+                           .astype(np.float32)).cuda()
+    op_d = operators.DenseOperator(a, backend="cuda")
+
+    def dense():
+        return gmres(op_d, b_d, m=M, tol=TOL, max_restarts=TIMING_RESTARTS,
+                     gs="cgs2_fused")
+    res = dense()
+    out["dense cgs2_fused"] = solve_timing(
+        dense, res.inner_steps, phase="in_turn", solve="dense cgs2_fused",
+        tree=label, restarts=res.restarts)
+    del a, op_d
+
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    save = ROOT / "build" / "in_turn"
+    save.mkdir(parents=True, exist_ok=True)
+    for name, pc in (("banded_ilu0", ilu), ("line_jacobi", lj)):
+        def run(pc=pc):
+            return gmres(op, b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
+                         gs="cgs2_fused", precond=pc)
+        before = routes_of(trisolve.banded_trisweep)
+        res = run()
+        routes = {r: c - before.get(r, 0) for r, c in routes_of(
+            trisolve.banded_trisweep).items()}
+        r = solve_timing(run, res.inner_steps, phase="in_turn",
+                         solve=f"{name} gmres cgs2_fused", tree=label,
+                         restarts=res.restarts)
+        path = save / f"{label}-{name}-{os.getpid()}.pt"
+        torch.save(res.x.cpu(), path)
+        out[f"{name} gmres cgs2_fused"] = dict(
+            r, restarts=res.restarts, converged=res.converged,
+            time_to_solution_s=r["wall_ms"] / 1e3, sweep_routes=routes,
+            x_path=str(path))
+    out["banded_ilu0 setup_s"] = ilu_setup
+    return out
+
+
+def redesign3_sweep(label: str) -> None:
+    """The launch shapes ``tuning.gemv_rows_shape`` and
+    ``tuning.trisweep_plan`` choose among, each launched through the
+    wrappers' launch helpers (so no ``.launches`` count) and held to the
+    plain version: ``block_matvec`` at n = 10,000, k = 1 and 4, f32 and
+    bf16, cold, with R = 1, 2, 4, 8 rows a warp, 2 to 8 (k = 1) or 1 to 4
+    (k = 4) blocks an SM, 2 or 4 pieces of each row in flight and A read
+    evict-first or not; the chunk route on the ILU(0) L and U sweeps of
+    the 1024^2 stencil with 2, 4, 8 stages in flight, cold, beside the
+    chain probe; the scan route on the line-Jacobi sweeps with 1, 2, 4
+    blocks an SM.  One ``tuning`` line a shape."""
+    from repro_torch.core import preconditioners as P
+    from repro_torch.core import stencils
+    from repro_torch.kernels import matvec, trisolve, tuning
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = tuning.sm_count(torch.device("cuda"))
+    for dtype in (torch.float32, torch.bfloat16):
+        a = (torch.randn(N, N, device="cuda", generator=gen)
+             / N ** 0.5).to(dtype)
+        for k in (1, 4):
+            x = torch.randn(N, k, device="cuda", generator=gen)
+            want = matvec.block_matvec_plain(a, x)
+            chosen = tuning.gemv_rows_shape(N, N, k, a.element_size(), sms)
+            for rows in tuning.GEMV_ROWS_CHOICES:
+                for bps in (2, 4, 6, 8) if k == 1 else (1, 2, 4):
+                    for u, cs in (((2, True), (2, False), (4, True),
+                                   (4, False)) if rows > 1
+                                  else ((2, True),)):
+                        shape = tuning.gemv_rows_shape(
+                            N, N, k, a.element_size(), sms, rows=rows,
+                            blocks_per_sm=bps, unroll=u, evict_first=cs)
+
+                        def fn(shape=shape):
+                            return matvec._launch_block_matvec(a, x, shape)
+                        rel = relerr(fn(), want)
+                        check(rel < TOLS[dtype],
+                              f"block_matvec {shape}: {rel}")
+                        emit(phase="tuning", tree=label,
+                             kernel="block_matvec", dtype=str(dtype), n=N,
+                             k=k, rows=rows, blocks_per_sm=bps, unroll=u,
+                             evict_first=cs, chosen=shape == chosen,
+                             max_rel_err=rel,
+                             cold=timed(fn, iters=20, cold=True))
+        del a
+    n = NX * NX
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    ilu = P.make_preconditioner("banded_ilu0", op)
+    lj = P.make_preconditioner("line_jacobi", op)
+    v = torch.randn(1, n, device="cuda", generator=gen)
+    for name, bands, offs, unit, lower in (
+            ("ILU(0) L", ilu.l_bands, ilu.l_offsets, True, True),
+            ("ILU(0) U", ilu.u_bands, ilu.u_offsets, False, False),
+            ("line-Jacobi L", lj.l_bands, lj.l_offsets, True, True),
+            ("line-Jacobi U", lj.u_bands, lj.u_offsets, False, False)):
+        want = trisolve.banded_trisweep_plain(bands, v, offs,
+                                              unit_diag=unit, lower=lower)
+        chosen = trisolve.sweep_plan(bands, v, torch.empty_like(v), offs)
+        if chosen["route"] == "scan":
+            plans = [dict(chosen, blocks_per_sm=c) for c in (1, 2, 4)]
+        else:
+            plans = [dict(chosen, stages=st) for st in (2, 4, 8)
+                     if st <= chosen["stages"]]
+        for plan in plans:
+
+            def fn(plan=plan):
+                z = torch.empty_like(v)
+                trisolve._launch_trisweep(bands, v, z, offs, plan, unit,
+                                          lower)
+                return z
+            rel = relerr(fn(), want)
+            check(rel < TOLS[torch.float32], f"banded_trisweep {name} "
+                                             f"{plan}: {rel}")
+            row = dict(phase="tuning", tree=label,
+                       kernel=f"banded_trisweep {name}", route=plan["route"],
+                       rows=plan["rows"], threads=plan["threads"],
+                       stages=plan["stages"],
+                       blocks_per_sm=plan["blocks_per_sm"],
+                       chosen=plan == chosen, max_rel_err=rel,
+                       cold=timed(fn, iters=20, cold=True))
+            if plan["route"] != "scan" and plan["stages"] == 8:
+                t = timed(lambda: trisolve.chain_probe(
+                    offs, n, unit_diag=unit, lower=lower))
+                row["chain_floor_ms"] = t["ms"] or t["event_ms"]
+            emit(**row)
+
+
 def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
     """``measure_cells`` on the tree at ``parent`` (an unpacked ``git
     archive`` of the commit to compare with) and on this one, each in its
@@ -4078,10 +4397,12 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
                 f"import repro_torch; sys.path.insert(0, {str(ROOT)!r}); "
                 f"import chip_smoke; chip_smoke.measure_cells({label!r}, "
                 f"{tuple(groups)!r})")
-        run = subprocess.run([sys.executable, "-c", code], check=True,
-                             timeout=900, stdout=subprocess.PIPE, text=True)
+        run = subprocess.run([sys.executable, "-c", code], timeout=900,
+                             stdout=subprocess.PIPE, text=True)
         sys.stdout.write(run.stdout)
         sys.stdout.flush()
+        check(run.returncode == 0, f"in turn: the {label} run at {tree} "
+                                   f"exited {run.returncode}")
         rows += [json.loads(line) for line in run.stdout.splitlines()
                  if line.startswith("{") and '"in_turn"' in line
                  and '"tree"' in line and '"package"' in line]
@@ -4093,10 +4414,38 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
         check(len(shas) == 4 and all(x == shas[0] for x in shas),
               "in turn: gs_update's output or the pipelined solve's x "
               "differs between the trees")
+    if "redesign3" in groups:
+        # each tree's sweeps give the same bits in both its runs; the
+        # preconditioned solves keep their restarts (+-1) and x (1e-3)
+        sweep_bits = {t: [r["banded_trisweep sha256"] for r in rows
+                          if r["tree"] == t] for t in ("parent", "this")}
+        out = {"sweep_same_bits_per_tree": {
+            t: len(b) == 2 and b[0] == b[1] for t, b in sweep_bits.items()}}
+        for name in ("banded_ilu0", "line_jacobi"):
+            solves = [r[f"{name} gmres cgs2_fused"] for r in rows]
+            xs = [torch.load(s_["x_path"]) for s_ in solves]
+            ref = xs[0]
+            out[name] = {
+                "restarts": [s_["restarts"] for s_ in solves],
+                "x_rel_to_parent": [float((x - ref).norm() / ref.norm())
+                                    for x in xs]}
+            check(all(s_["converged"] for s_ in solves)
+                  and max(out[name]["restarts"])
+                  - min(out[name]["restarts"]) <= 1
+                  and max(out[name]["x_rel_to_parent"]) <= 1e-3,
+                  f"in turn: {name} solves differ between the trees: "
+                  f"{out[name]}")
+        emit(phase="in_turn", **out)
+        check(all(out["sweep_same_bits_per_tree"].values()),
+              "in turn: a tree's sweeps gave other bits in its two runs")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--in-turn"]:
-        in_turn(pathlib.Path(sys.argv[2]), tuple(sys.argv[3:]) or CELL_GROUPS)
+        groups = tuple(sys.argv[3:]) or CELL_GROUPS
+        check(set(groups) <= set(CELL_GROUPS + SWEEP_GROUPS),
+              f"--in-turn: groups {groups}, known "
+              f"{CELL_GROUPS + SWEEP_GROUPS}")
+        in_turn(pathlib.Path(sys.argv[2]), groups)
     else:
         main()

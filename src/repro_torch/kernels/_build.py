@@ -40,8 +40,9 @@ F = ctypes.c_float
 # C entry points: name -> argtypes.  Every entry returns the cudaError_t of
 # its launch (0 on success).
 SIGNATURES = {
-    # a, a_bf16, x, y, m, n, k, grid, threads, stream
-    "repro_block_matvec": (P, I, P, P, I, I, I, I, I, P),
+    # a, a_bf16, x, y, m, n, k, rows, unroll, cs, grid, threads, stream
+    # (the shape: tuning.gemv_rows_shape)
+    "repro_block_matvec": (P, I, P, P, I, I, I, I, I, I, I, I, P),
     # v, v_bf16, w, h, w_out, partials, partial_blocks, m1, n, j,
     # smem_cap, blocks_per_sm, stream_blocks_per_sm, stream
     "repro_gs_project": (P, I, P, P, P, P, I, I, I, I, I, I, I, P),
@@ -123,8 +124,14 @@ SIGNATURES = {
     "repro_banded_cheb_apply": (P, I, P, I, P, P, P, I, F, F, P, P, I, I,
                                 P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, v (k, n), z (k, n),
-    # n, k, chunk, unit, reverse, stream
-    "repro_banded_trisweep": (P, I, P, I, P, P, I, I, I, I, I, P),
+    # agg (route "scan": scratch, else null), n, k, chunk (0: route
+    # "scan"), threads, ring, far_l2, stages, vec, unit, reverse,
+    # blocks_per_sm, stream (the shape: tuning.trisweep_plan)
+    "repro_banded_trisweep": (P, I, P, I, P, P, P, I, I, I, I, I, I, I, I,
+                              I, I, I, P),
+    # the chunk route's chain on register data: offsets, nbands, out (1,),
+    # n, chunk, threads, ring, far_l2, unit, reverse, stream
+    "repro_trisweep_probe": (P, I, P, I, I, I, I, I, I, I, P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, fact (nbands, n),
     # n, eps, guard, stream
     "repro_ilu0_factor": (P, I, P, I, P, I, F, F, P),

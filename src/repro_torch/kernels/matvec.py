@@ -6,6 +6,11 @@ bound.  A is float32 or bfloat16 (widened in registers), X is taken as
 float32, and every sum accumulates in float32; the result has the dtype
 ``A @ X`` would promote to.
 
+The kernel takes ``tuning.gemv_rows_shape``'s launch: a warp takes R rows
+at once (route "rows") where every row starts at the same offset from a
+16-byte boundary, else one row at a time (route "row"); the routes are
+counted in ``block_matvec.routes``.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -51,17 +56,33 @@ def block_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"block_matvec: k = {k} columns; the kernel takes "
                          f"1..{MAX_K}")
     xf = x.to(torch.float32).contiguous()
-    y = torch.empty((m, k), dtype=torch.float32, device=a.device)
-    grid, threads = tuning.gemv_launch(m)
-    rc = _build.library().repro_block_matvec(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), xf.data_ptr(),
-        y.data_ptr(), m, n, k, grid, threads, _build.stream_ptr(a))
-    _build.check("block_matvec", rc)
+    shape = tuning.gemv_rows_shape(m, n, k, a.element_size(),
+                                   tuning.sm_count(a.device))
+    y = _launch_block_matvec(a, xf, shape)
     block_matvec.launches += 1
+    block_matvec.routes[shape["route"]] += 1
     return y.to(torch.promote_types(a.dtype, x.dtype))
 
 
+def _launch_block_matvec(a: torch.Tensor, xf: torch.Tensor,
+                         shape: dict) -> torch.Tensor:
+    """One launch with ``shape`` (uncounted: the wrapper counts;
+    chip_smoke.py's shape sweep calls this directly).  xf: (n, k)
+    float32, contiguous."""
+    m, n = a.shape
+    k = xf.shape[1]
+    y = torch.empty((m, k), dtype=torch.float32, device=a.device)
+    rc = _build.library().repro_block_matvec(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), xf.data_ptr(),
+        y.data_ptr(), m, n, k, shape["rows"], shape["unroll"],
+        int(shape["evict_first"]), shape["blocks"], shape["threads"],
+        _build.stream_ptr(a))
+    _build.check("block_matvec", rc)
+    return y
+
+
 block_matvec.launches = 0
+block_matvec.routes = {"rows": 0, "row": 0}
 
 
 def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

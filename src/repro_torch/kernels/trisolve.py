@@ -20,9 +20,13 @@ offsets negated.  v is (n,) or (k, n): k right-hand sides, swept in
 parallel.  The plain version splits the rows into chunks of c rows, c
 the nearest far offset (|off| >= 2): inside a chunk every far term is
 already solved, so z_i = a_i z_{i-1} + b_i is an affine recurrence, and a
-log-depth scan of the maps (a, b) solves the chunk.  The kernel does the
-same with a block per right-hand side.  The scan sums in another order
-than the JAX ``lax.scan`` reference, which the tests hold it to.
+log-depth scan of the maps (a, b) solves the chunk.  The kernel takes one
+of two routes (``tuning.trisweep_plan``, counted in
+``banded_trisweep.routes``): without a far band ("scan") all n rows are
+one scan over every SM; with one ("chunk", or "chunk_l2" where the ring of
+solved entries does not fit shared memory) a block per right-hand side
+walks the chunks with their loads in flight.  The scans sum in another
+order than the JAX ``lax.scan`` reference, which the tests hold them to.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -33,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, spmv
+from repro_torch.kernels import _build, spmv, tuning
 
 STORAGE = (torch.float32, torch.bfloat16)
 MAX_ILU_BANDS = 16      # csrc/trisolve.cu: the ILU kernel's row in registers
@@ -303,18 +307,70 @@ def banded_trisweep(bands: torch.Tensor, v: torch.Tensor, offsets, *,
                          f"at most {spmv.MAX_BANDS}")
     vf = v.reshape(-1, n).to(torch.float32).contiguous()
     z = torch.empty_like(vf)
-    offs = (ctypes.c_int * nbands)(*offsets)
-    rc = _build.library().repro_banded_trisweep(
-        bands.data_ptr(), int(bands.dtype == torch.bfloat16),
-        ctypes.addressof(offs), nbands, vf.data_ptr(), z.data_ptr(), n,
-        vf.shape[0], chunk_rows(offsets, n), int(unit_diag), int(not lower),
-        _build.stream_ptr(bands))
-    _build.check("banded_trisweep", rc)
+    plan = sweep_plan(bands, vf, z, offsets)
+    _launch_trisweep(bands, vf, z, offsets, plan, unit_diag, lower)
     banded_trisweep.launches += 1
+    banded_trisweep.routes[plan["route"]] += 1
     return z.reshape(v.shape).to(out_dtype)
 
 
+def sweep_plan(bands: torch.Tensor, vf: torch.Tensor, z: torch.Tensor,
+               offsets) -> dict:
+    """``tuning.trisweep_plan`` for these operands: (k, n) float32 v and z
+    and the band stack, aligned where every pointer is 16-byte aligned
+    and the row strides keep it so."""
+    k, n = vf.shape
+    s = bands.element_size()
+    aligned = (all(t.data_ptr() % 16 == 0 for t in (bands, vf, z))
+               and (bands.shape[0] == 1 or (n * s) % 16 == 0)
+               and (k == 1 or (n * 4) % 16 == 0))
+    return tuning.trisweep_plan(offsets, n, k, s, aligned)
+
+
+def _launch_trisweep(bands, vf, z, offsets, plan, unit_diag, lower) -> None:
+    """One launch of the sweep kernel with ``plan`` (uncounted: the wrapper
+    counts; chip_smoke.py's shape sweep calls this directly)."""
+    k, n = vf.shape
+    nbands = bands.shape[0]
+    agg = (torch.empty(plan["agg"], dtype=torch.float32, device=vf.device)
+           if plan["route"] == "scan" else None)
+    offs = (ctypes.c_int * nbands)(*offsets)
+    rc = _build.library().repro_banded_trisweep(
+        bands.data_ptr(), int(bands.dtype == torch.bfloat16),
+        ctypes.addressof(offs), nbands, vf.data_ptr(), z.data_ptr(),
+        agg.data_ptr() if agg is not None else None, n, k, plan["chunk"],
+        plan["threads"], plan["ring"], plan["far_l2"],
+        plan["stages"], int(plan["vec"]), int(unit_diag), int(not lower),
+        plan["blocks_per_sm"], _build.stream_ptr(vf))
+    _build.check(f"banded_trisweep ({plan})", rc)
+
+
+def chain_probe(offsets, n: int, *, unit_diag: bool, lower: bool,
+                device="cuda") -> torch.Tensor:
+    """The chunk route's chain with nothing loaded: one block walks the
+    chunks of a sweep over n rows with these (far) offsets, with the same
+    registers, ring, scans and hand-offs between warps, on constants in
+    registers shaped like a grid stencil's factor (no near coupling at a
+    chunk's first row; csrc/trisolve.cu's probe).  Its time is the
+    chain's floor.  Returns the last carry, (1,) float32.  Not counted:
+    no sweep uses it."""
+    offsets = tuple(int(o) for o in offsets)
+    plan = tuning.trisweep_plan(offsets, n, 1, 4, True)
+    if plan["route"] != "chunk":
+        raise ValueError(f"chain_probe: route {plan['route']}, not a chain "
+                         f"with its far terms on the card")
+    out = torch.empty(1, dtype=torch.float32, device=device)
+    offs = (ctypes.c_int * len(offsets))(*offsets)
+    rc = _build.library().repro_trisweep_probe(
+        ctypes.addressof(offs), len(offsets), out.data_ptr(), n,
+        plan["chunk"], plan["threads"], plan["ring"], 0,
+        int(unit_diag), int(not lower), _build.stream_ptr(out))
+    _build.check("trisweep_probe", rc)
+    return out
+
+
 banded_trisweep.launches = 0
+banded_trisweep.routes = {"scan": 0, "chunk": 0, "chunk_l2": 0}
 
 
 def _check_card(name: str, bands: torch.Tensor) -> None:

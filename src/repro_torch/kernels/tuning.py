@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/tuning.py``, redesigned for Hopper: the
 TPU's VMEM budget, (8, 128) tile rounding and persisted block choices have
 no meaning here.  What the kernels need is
 
-- the GEMV launch shape (csrc/matvec.cu: one warp per row);
+- the GEMV launch shape (csrc/matvec.cu: a warp takes R rows at once on a
+  persistent grid): ``gemv_rows_shape``;
 - the SpMV block size (csrc/spmv.cu: one thread per row, ELL and banded);
 - the cooperative kernels' shared-memory cap and blocks per SM
   (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu,
@@ -19,9 +20,9 @@ no meaning here.  What the kernels need is
 - the preconditioning kernels' shapes: the fused Chebyshev apply
   (csrc/matrix_powers.cu) is a persistent cooperative launch of
   CHEB_BLOCKS_PER_SM blocks per SM at most; the triangular sweep
-  (csrc/trisolve.cu) is one block of 1024 threads per right-hand side,
-  walking chunks of ``trisolve.chunk_rows`` rows (at most 1024); the ILU(0)
-  setup is one thread;
+  (csrc/trisolve.cu) takes a device-wide scan without a far band, else a
+  chain of chunks, one block per right-hand side: ``trisweep_plan``; the
+  ILU(0) setup is one thread;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check;
@@ -48,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 H100_SMS = 132            # SMs of an H100 SXM; used when no card is present
-GEMV_THREADS = 256        # 8 warps per block, one row of A per warp
+GEMV_THREADS = 256        # 8 warps per block (csrc/matvec.cu)
 GS_WARPS = 8              # warps per cooperative block (csrc/common.cuh)
 # Dynamic shared memory a cooperative block may use (of the 227 KB limit),
 # leaving room for the runtime's reserved shared memory.
@@ -107,12 +108,34 @@ PARTIAL_ROW_MAX_ITEMS = 8192
 # The fused Chebyshev apply takes the banded powers' row partition (a
 # thread per row), so the same value.
 CHEB_BLOCKS_PER_SM = POWERS_BLOCKS_PER_SM
-
-
-def gemv_launch(m: int) -> tuple[int, int]:
-    """(blocks, threads) for ``block_matvec`` over m rows."""
-    rows_per_block = GEMV_THREADS // 32
-    return -(-m // rows_per_block), GEMV_THREADS
+# block_matvec (csrc/matvec.cu): a warp takes R rows at once (each x
+# piece loaded once for them, all their 16-byte A pieces in flight), on a
+# persistent grid of a few blocks an SM whose warps split the rows evenly,
+# U pieces of each row in flight, A read evict-first (__ldcs) or not
+# (__ldg).  (R, blocks an SM, U, evict-first) by the widest k and A's
+# element size: the fastest of chip_smoke.py's sweep at n = 10^4, k = 1
+# and 4 (PERF.md section 6, row 1); wider X takes fewer rows (registers).
+# (U, evict-first) other than (2, True) only at k = 1 and 4 (the kernel's
+# instantiations).
+GEMV_SHAPES = {(2, 4): (2, 6, 4, False), (2, 2): (2, 6, 4, False),
+               (4, 4): (4, 4, 2, False), (4, 2): (8, 2, 2, True),
+               (8, 4): (1, 2, 2, True), (8, 2): (1, 2, 2, True)}
+GEMV_ROWS_CHOICES = (1, 2, 4, 8)   # the kernel's instantiations
+# The triangular sweep (csrc/trisolve.cu).  Route "scan": tiles of
+# TRISWEEP_SCAN_TILE rows (8 a thread, kThreads a block) on a cooperative
+# grid of at most TRISWEEP_SCAN_BLOCKS_PER_SM blocks an SM, each tile read
+# twice (its aggregate, then its rows).  Route "chunk": chunks of at most
+# TRISWEEP_MAX_CHUNK rows, TRISWEEP_ROWS consecutive rows a lane (the
+# kernel's kChunkRows) and a warp a strip of 32 x that (at most
+# TRISWEEP_MAX_THREADS threads a block), up to TRISWEEP_STAGES chunks'
+# loads in flight (8, 4 or 2, the most that fit SMEM_BUDGET).
+TRISWEEP_SCAN_ROWS = 8
+TRISWEEP_SCAN_TILE = 256 * TRISWEEP_SCAN_ROWS
+TRISWEEP_SCAN_BLOCKS_PER_SM = 2
+TRISWEEP_MAX_CHUNK = 1024
+TRISWEEP_ROWS = 4
+TRISWEEP_MAX_THREADS = 256
+TRISWEEP_STAGES = 8
 
 
 def sm_count(device) -> int:
@@ -202,6 +225,138 @@ def gemv_partial_shape(shape: dict, rows: int) -> dict:
     if max(shape["pieces"], shape["tail"]) > PARTIAL_ROW_MAX_ITEMS:
         return dict(shape, by_row=0)
     return dict(shape, by_row=1, threads=0, blocks=rows, unroll=1)
+
+
+def gemv_rows_shape(m: int, n: int, k: int, elem_size: int, sms: int,
+                    rows: Optional[int] = None,
+                    blocks_per_sm: Optional[int] = None,
+                    unroll: Optional[int] = None,
+                    evict_first: Optional[bool] = None) -> dict:
+    """Launch shape of ``block_matvec`` over an (m, n) A stored in
+    ``elem_size`` bytes and k columns of X, on ``sms`` SMs.
+
+    ``rows`` (R): the rows a warp takes at once, from one shared x piece;
+    R > 1 needs every row to start at the same distance from a 16-byte
+    boundary (n * elem_size % 16 == 0: route "rows"), else a warp takes
+    one row at a time with its own head (route "row", common.cuh's
+    row_dot).  ``blocks``: at most ``blocks_per_sm`` blocks an SM, never
+    more than a warp a row; warp w of the grid's W takes rows
+    [w m // W, (w + 1) m // W), R at a time.  ``unroll`` pieces of each
+    row in flight, A read ``evict_first`` or not.  Each defaults to
+    GEMV_SHAPES; the one-row route and k other than 1 and 4 take
+    (unroll, evict_first) = (2, True)."""
+    kk = 2 if k <= 2 else 4 if k <= 4 else 8
+    r0, bps0, u0, cs0 = GEMV_SHAPES[(kk, 2 if elem_size == 2 else 4)]
+    r = rows or r0
+    if r not in GEMV_ROWS_CHOICES:
+        raise ValueError(f"gemv_rows_shape: rows {r} not in "
+                         f"{GEMV_ROWS_CHOICES}")
+    if (n * elem_size) % 16:
+        r = 1
+    warps = GEMV_THREADS // 32
+    bps = blocks_per_sm or bps0
+    blocks = max(1, min(bps * sms, -(-m // warps)))
+    u = unroll or u0
+    cs = cs0 if evict_first is None else bool(evict_first)
+    if r == 1 or k not in (1, 4):
+        u, cs = 2, True
+    if u not in (2, 4):
+        raise ValueError(f"gemv_rows_shape: unroll {u} not in (2, 4)")
+    return {"rows": r, "blocks": blocks, "threads": GEMV_THREADS,
+            "unroll": u, "evict_first": cs,
+            "route": "rows" if r > 1 else "row"}
+
+
+def gemv_rows_of(shape: dict, m: int) -> list:
+    """The row groups of each warp under ``shape`` (what the kernel's
+    loops visit): a list, per warp, of (first row, rows) pairs."""
+    total = shape["blocks"] * (shape["threads"] // 32)
+    out = []
+    for w in range(total):
+        lo, hi = w * m // total, (w + 1) * m // total
+        out.append([(r0, min(shape["rows"], hi - r0))
+                    for r0 in range(lo, hi, shape["rows"])])
+    return out
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def trisweep_smem_bytes(threads: int, rows: int, nbands: int, elem: int,
+                        ring: int, stages: int) -> int:
+    """Dynamic shared memory of the chunk route (csrc/trisolve.cu's
+    chunk_smem_bytes): the ring, and per stage v and the bands of a
+    block's rows."""
+    return 4 * ring + stages * threads * rows * (4 + nbands * elem)
+
+
+def trisweep_plan(offsets, n: int, k: int, elem_size: int,
+                  aligned: bool) -> dict:
+    """The route and launch shape of ``banded_trisweep`` for a band stack
+    with these offsets (all on one side), n rows, k right-hand sides, bands
+    stored in ``elem_size`` bytes; ``aligned``: every operand 16-byte
+    aligned, with row strides that keep it so.
+
+    No far band (every |off| <= 1): route "scan", ``tiles`` tiles of
+    TRISWEEP_SCAN_TILE rows a right-hand side, ``agg`` floats of scratch;
+    ``vec``: 16-byte loads (aligned, n % 8 == 0).
+
+    Else a chain of ``chunks`` chunks of ``chunk`` rows: the nearest far
+    offset c (at most TRISWEEP_MAX_CHUNK), halved where another far offset
+    is neither a multiple of it nor at least twice it (so every far term
+    lies at the same position of the previous chunk, which the same
+    thread solved, or two chunks back or more).  ``rows`` a lane
+    (TRISWEEP_ROWS), ``threads`` = 32 x warps for the chunk; ``vec``: the
+    cp.async pipeline of ``stages`` chunks (aligned, chunk and n multiples
+    of rows), else loads one chunk at a time (``stages`` = 1).  A far term
+    ``chunk`` back is the thread's own z in registers; any other needs
+    ``ring``, a ring of solved entries in shared memory, a power of two >=
+    max|off| + chunk, or where that does not fit SMEM_BUDGET beside two
+    stages, route "chunk_l2" (``far_l2``: read back from z)."""
+    offsets = tuple(int(o) for o in offsets)
+    far = sorted({abs(o) for o in offsets if abs(o) >= 2})
+    if not far:
+        groups = -(-n // TRISWEEP_SCAN_ROWS)
+        tiles = -(-groups // (TRISWEEP_SCAN_TILE // TRISWEEP_SCAN_ROWS))
+        return {"route": "scan", "chunk": 0, "chunks": 1, "tiles": tiles,
+                "agg": 2 * k * tiles, "rows": TRISWEEP_SCAN_ROWS,
+                "threads": TRISWEEP_SCAN_TILE // TRISWEEP_SCAN_ROWS,
+                "vec": bool(aligned and n % TRISWEEP_SCAN_ROWS == 0),
+                "ring": 0, "far_l2": 0, "stages": 0, "smem": 0,
+                "blocks_per_sm": TRISWEEP_SCAN_BLOCKS_PER_SM}
+    r = TRISWEEP_ROWS
+    chunk = min(far[0], TRISWEEP_MAX_CHUNK)
+    if any(f % chunk and f < 2 * chunk for f in far):
+        chunk = max(1, chunk // 2)
+    warps = -(-chunk // (32 * r))
+    threads = 32 * warps
+    vec = bool(aligned and chunk % r == 0 and n % r == 0)
+    other = any(f != chunk for f in far)
+    ring = max(4, _pow2_at_least(far[-1] + chunk)) if other else 0
+    nbands = len(offsets)
+
+    def fits(ring, stages):
+        return trisweep_smem_bytes(threads, r, nbands, elem_size, ring,
+                                   stages) <= SMEM_BUDGET
+
+    def most_stages(ring):
+        return next((st for st in (TRISWEEP_STAGES, 4, 2)
+                     if fits(ring, st)), 0)
+    far_l2 = 0
+    stages = most_stages(ring) if vec else (1 if fits(ring, 1) else 0)
+    if not stages and ring:
+        ring, far_l2 = 0, 1
+        stages = most_stages(ring) if vec else 1
+    if not stages:
+        vec, stages = False, 1
+    return {"route": "chunk_l2" if far_l2 else "chunk", "chunk": chunk,
+            "chunks": -(-n // chunk), "tiles": 0, "agg": 0, "rows": r,
+            "threads": threads, "vec": vec, "ring": ring, "far_l2": far_l2,
+            "stages": stages,
+            "smem": trisweep_smem_bytes(threads, r, nbands, elem_size, ring,
+                                        stages),
+            "blocks_per_sm": 0}
 
 
 # --------------------------------------------------------------------------

@@ -690,6 +690,159 @@ def test_trisweep_kernel_matches_plain(dev, k):
         assert _relerr(z, zp) < TOL[torch.float32], (name, offs, unit, lower)
 
 
+def _sweep_bands(dev, offs, n, dtype, seed):
+    """A random band stack on the pattern ``offs``: off-diagonal entries in
+    [0.1, 0.5), the diagonal in [2.2, 3), out-of-range entries zeroed."""
+    from repro_torch.kernels import trisolve
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bands = (torch.rand(len(offs), n, device=dev, generator=g) * 0.4 + 0.1)
+    if 0 in offs:
+        bands[offs.index(0)] = bands[offs.index(0)] * 2 + 2.0
+    return trisolve._mask_oob(bands, offs).to(dtype).contiguous()
+
+
+# route "scan": every |off| <= 1; n not a multiple of the 2,048-row tile,
+# and 2^20 (k = 4: more tiles than blocks, rows read again)
+SCAN_CASES = [((-1,), True, True), ((-1, 0), False, True),
+              ((0, 1), False, False), ((1,), True, False),
+              ((0,), False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 4099, 2048 * 300 + 5, 1 << 20])
+def test_trisweep_scan_route_matches_plain(dev, n, dtype):
+    from repro_torch.kernels import trisolve
+
+    for offs, unit, lower in SCAN_CASES:
+        bands = _sweep_bands(dev, offs, n, dtype, seed=n)
+        for k in (1, 4):
+            g = torch.Generator(device=dev).manual_seed(k)
+            v = torch.randn(k, n, device=dev, generator=g)
+            v = v[0] if k == 1 else v
+            before = dict(trisolve.banded_trisweep.routes)
+            z = trisolve.banded_trisweep(bands, v, offs, unit_diag=unit,
+                                         lower=lower)
+            assert trisolve.banded_trisweep.routes["scan"] \
+                == before["scan"] + 1
+            zp = trisolve.banded_trisweep_plain(bands, v, offs,
+                                                unit_diag=unit, lower=lower)
+            torch.cuda.synchronize()
+            assert z.shape == v.shape
+            assert _relerr(z, zp) < TOL[dtype], (offs, k, n)
+            # a fixed order: the same bits every call
+            assert torch.equal(trisolve.banded_trisweep(
+                bands, v, offs, unit_diag=unit, lower=lower), z)
+
+
+# route "chunk": c = 2 (loads one chunk at a time), ILU(0)'s 1,024 with
+# n a multiple of 4 (the cp.async pipeline) and not (loads), 2,048 (the
+# chunk clipped to 1,024), 1,000 and 1,001 (not a multiple of the rows a
+# thread), (-1500, -1000, -1) (the chunk halved), 3-D patterns: one
+# with a chunk of one warp, two whose far terms from the ring lie whole
+# chunks back in a chunk of eight warps (a ring that is not a multiple of
+# the chunk: the warps must not drift apart by more than it holds)
+CHUNK_CASES = [((-2, -1), 4099), ((-1024, -1), 1024 * 37),
+               ((-1024, -1), 1024 * 37 + 2), ((-2048, -1), 2048 * 5 + 4),
+               ((-1000, -1), 10_000), ((-1001, -1), 10_010),
+               ((-1500, -1000, -1), 9_000), ((-2500, -50, -1), 12_500),
+               ((-3000, -1000, -1), 30_000), ((-2000, -1000, -1), 20_000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(CHUNK_CASES)))
+@pytest.mark.parametrize("grid", [False, True], ids=["coupled", "grid"])
+def test_trisweep_chunk_route_matches_plain(dev, case, dtype, grid):
+    # grid: a grid stencil's factor, no near entry at a chunk's start (the
+    # first warp then need not wait for the last one's carry)
+    from repro_torch.kernels import trisolve
+
+    lo_offs, n = CHUNK_CASES[case]
+    c = min(abs(o) for o in lo_offs if abs(o) >= 2)
+    for offs, unit, lower in ((lo_offs, True, True),
+                              (lo_offs + (0,), False, True),
+                              ((0,) + tuple(-o for o in lo_offs), False,
+                               False)):
+        bands = _sweep_bands(dev, offs, n, dtype, seed=case)
+        if grid:
+            near = [d for d, o in enumerate(offs) if abs(o) == 1]
+            starts = torch.arange(0, n, c, device=dev)
+            for d in near:
+                bands[d, starts if lower else n - 1 - starts] = 0
+        for k in (1, 4):
+            g = torch.Generator(device=dev).manual_seed(k + case)
+            vf = torch.randn(k, n, device=dev, generator=g)
+            zp = trisolve.banded_trisweep_plain(bands, vf, offs,
+                                                unit_diag=unit, lower=lower)
+            plan = trisolve.sweep_plan(bands, vf, torch.empty_like(vf),
+                                       offs)
+            assert plan["route"] == "chunk"
+            # the plan; far terms through L2 instead of the ring; fewer
+            # stages in flight
+            plans = [plan, dict(plan, ring=0, far_l2=1, route="chunk_l2")]
+            if plan["vec"]:
+                plans += [dict(plan, stages=st) for st in (2, 4)]
+            for p in plans:
+                z = torch.empty_like(vf)
+                trisolve._launch_trisweep(bands, vf, z, offs, p, unit,
+                                          lower)
+                z2 = torch.empty_like(vf)
+                trisolve._launch_trisweep(bands, vf, z2, offs, p, unit,
+                                          lower)
+                torch.cuda.synchronize()
+                assert _relerr(z, zp) < TOL[dtype], (offs, k, n, p)
+                assert torch.equal(z, z2)
+    before = dict(trisolve.banded_trisweep.routes)
+    trisolve.banded_trisweep(bands, vf, offs, unit_diag=unit, lower=lower)
+    assert trisolve.banded_trisweep.routes["chunk"] == before["chunk"] + 1
+
+
+def test_trisweep_chain_probe_runs(dev):
+    from repro_torch.kernels import trisolve
+
+    for offs, lower in (((-1024, -1), True), ((0, 1, 1024), False),
+                        ((-3000, -1000, -1), True)):
+        before = trisolve.banded_trisweep.launches
+        out = trisolve.chain_probe(offs, 1 << 20, unit_diag=lower,
+                                   lower=lower)
+        torch.cuda.synchronize()
+        assert out.shape == (1,) and bool(torch.isfinite(out).all())
+        assert trisolve.banded_trisweep.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", [(10_000, 10_000, 1), (10_000, 10_000, 4),
+                                   (97, 97, 1), (300, 1003, 3), (1, 8, 1),
+                                   (257, 64, 8), (1000, 2048, 2),
+                                   (33, 4096, 5)])
+def test_block_matvec_every_launch_shape(dev, m, n, k, dtype):
+    from repro_torch.kernels import tuning
+
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = torch.randn(m, n, device=dev, generator=g).to(dtype)
+    for off in (0, 1):          # x 16-byte aligned, and one float off
+        xbuf = torch.randn(n * k + off, device=dev, generator=g)
+        x = xbuf[off:].view(n, k)
+        want = matvec.block_matvec_plain(a, x)
+        for rows in tuning.GEMV_ROWS_CHOICES:
+            for bps in (1, 2, 4):
+                for u, cs in ((2, True), (2, False), (4, True), (4, False)):
+                    shape = tuning.gemv_rows_shape(
+                        m, n, k, a.element_size(), tuning.sm_count(dev),
+                        rows=rows, blocks_per_sm=bps, unroll=u,
+                        evict_first=cs)
+                    y = matvec._launch_block_matvec(a, x, shape)
+                    torch.cuda.synchronize()
+                    assert _relerr(y, want) < TOL[dtype], (shape, off)
+        before = dict(matvec.block_matvec.routes)
+        y = matvec.block_matvec(a, x)
+        rows = tuning.gemv_rows_shape(m, n, k, a.element_size(),
+                                      tuning.sm_count(dev))["rows"]
+        route = "rows" if rows > 1 else "row"
+        assert matvec.block_matvec.routes[route] == before[route] + 1
+        assert torch.equal(matvec.block_matvec(a, x), y)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nx", [16, 48])
 def test_ilu0_kernel_matches_plain(dev, nx, dtype):
