@@ -5,16 +5,17 @@
         # kernel-table rows and their cells, the tree at DIR (e.g. `git
         # archive` of the parent commit, unpacked) against this one in
         # turn (measure_cells); GROUP: redesign1 (rows 7 and 20), gemv
-        # (rows 4 and 6), redesign3 (rows 1 and 19); default all three;
-        # redesign3_sweep (the launch shapes of rows 1 and 19) only when
-        # named
+        # (rows 4 and 6), redesign3 (rows 1 and 19), redesign4 (row 13
+        # and the ILU(0) setup); default all four; redesign3_sweep (the
+        # launch shapes of rows 1 and 19) only when named
 
 Phases, one JSON line each (``"phase": ...``):
 
 1. build      compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
               per source, in parallel); nvcc version; card and power limit;
               ``ptxas -v``'s registers, spills and static shared memory of
-              the sliced-ELL and bf16 attention kernels, and the HGMMA
+              the sliced-ELL, bf16 attention, ILU(0) wavefront and
+              batched_cgs2 kernels, and the HGMMA
               (wgmma) instructions in each attention instantiation's SASS
               (``cuobjdump -sass``): none fails the run.
 2. kernels    every kernel of the main path against its plain PyTorch
@@ -60,7 +61,10 @@ The sparse slice (stencil and graph systems, the block multi-RHS solver):
               at k = 1, 4 and 8, in the sorted frame and through the
               operator (the permutation applied in the kernel);
               batched_cgs2 at k = 4, n = 2^20, m1 = 31,
-              per-lane j = (0, 7, 15, 29), and at k = 8, n = 8192.
+              per-lane j = (0, 7, 15, 29), and at k = 8, n = 8192, with
+              its split of the grid over the lanes and the same bits on a
+              second call; the kernel's own launch rule (bucket, pieces
+              at once, block size) equal to ``tuning``'s copy at 1-31 rows.
 7. sparse_solve GMRES(30), tol 1e-5, 200 restarts, on the 1024^2
               convection-diffusion system (b from numpy seed 1) through
               fmt = banded / ell / sell (each on its SpMV kernel), under gs =
@@ -96,8 +100,9 @@ The sparse slice (stencil and graph systems, the block multi-RHS solver):
               ``torch.mv`` of the same matrix, cuSPARSE, for ELL, banded
               and sliced ELL).  Per solve: wall / device ms per Arnoldi
               step, the device idle share and the device time per step of
-              each kernel, for the banded cgs2_fused solve and the
-              PageRank burst.
+              each kernel, for the banded cgs2_fused solve, the PageRank
+              burst and phase 8's 4-lane 1024^2 batch (per lockstep step,
+              with batched_cgs2's ms a launch in the solve).
 
 The s-step slice (s = 5, 6 blocks: m = 30):
 
@@ -189,10 +194,12 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               not a multiple of the scan's tile, chunks of 1,023 rows) and
               a random (-2, -1, 0) pattern at n = 200 and 2^16 (chunks of
               2), k = 1 and 4, each call's route (scan without a far band,
-              else chunk) and the same bits on a second call; ilu0_factor at 64^2, 128^2 and 1024^2 (relative error
-              1e-6, and whether the bits are the same) and at 1024^2 the
-              JAX test's property, (L U - A) on the pattern within 5e-5 of
-              max|A|, by banded products on the card.
+              else chunk) and the same bits on a second call; ilu0_factor
+              at 64^2, 128^2 and 1024^2 on the five-point pattern and at
+              1024^2 on line-Jacobi's (-1, 0, 1): the plain version's bits,
+              and at 1024^2 the JAX test's property, (L U - A) on the
+              pattern within 5e-5 of max|A|, by banded products on the
+              card.
 17. precond_solve  GMRES(30), tol 1e-5, 200 restarts, b from numpy seed
               1: gmres(gs="cgs2_fused") with chebyshev(order=4),
               banded_ilu0, line_jacobi and jacobi; gmres(gs=
@@ -209,7 +216,8 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               per cycle for the pipelined prologue, s x blocks + 1 per
               cycle (gmres_sstep: the reference powers over A M^-1);
               Chebyshev launches once per apply, ILU(0) sweeps twice; the
-              batched Chebyshev apply runs order - 1 block mat-vecs.  The
+              batched Chebyshev apply runs order - 1 block mat-vecs; each
+              solve's wall time with its preconditioner's setup.  The
               sweeps' routes exactly: ILU(0) all on the chunk route,
               line-Jacobi all on the scan.  gmres(cgs2_fused) restarts
               within +-1 of PRECOND_RESTARTS.
@@ -217,7 +225,9 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               ILU(0) and line-Jacobi L and U sweeps, k = 1, with the
               route, and for the chunk route the chain floor, the same
               chain with nothing loaded, trisolve.chain_probe; the ILU(0)
-              setup) with its launches, bound, plain version and
+              setup on the five-point and line-Jacobi patterns, with its
+              time per link of the chain of dependent rows, 2 NX - 1 and
+              NX) with its launches, bound, plain version and
               yardstick: for Chebyshev the composite of order - 1 CSR
               torch.mv calls and the vector ops, for a sweep
               torch.triangular_solve of the CSR factor (cuSPARSE) where
@@ -225,8 +235,9 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               thousands of small ops, by CUDA events over one call); the
               setup times of estimate_interval and the preconditioners;
               per solve wall, device and idle share
-              per Arnoldi step and the time to solution, beside the
-              unpreconditioned banded cgs2_fused solve timed in turn.
+              per Arnoldi step and the time to solution, without and with
+              the setup, beside the unpreconditioned banded cgs2_fused
+              solve timed in turn.
 
 The row-sharded slice, on a one-rank NCCL process group (``file://``
 rendezvous in a temporary directory; the card has one GPU, and NCCL puts
@@ -632,6 +643,32 @@ def solve_timing(run, steps: int, phase="sparse_timing", **info) -> dict:
     return row
 
 
+def bgs_split(v, w, js) -> dict:
+    """The blocks ``batched_cgs2`` gives each lane for these operands
+    (``block_gs.launch_plan``; trees without it: None)."""
+    from repro_torch.kernels import block_gs
+
+    if not hasattr(block_gs, "launch_plan"):
+        return None
+    wf = w.float().contiguous()
+    plan = block_gs.launch_plan(v, wf, torch.empty_like(wf), js)
+    return {key: plan[key] for key in ("blocks", "grid", "route")}
+
+
+def batch_timing(run, lockstep: int, phase: str, **info) -> dict:
+    """``solve_timing`` of a ``gmres_batched`` solve per lockstep step,
+    with ``batched_cgs2``'s device ms a launch in the solve (it launches
+    once a lockstep step)."""
+    row = solve_timing(run, lockstep, phase=phase, **info)
+    per = [ms for name, ms in row["device_ms_per_step_by_kernel"].items()
+           if "batched_cgs2" in name]
+    row["batched_cgs2_ms_per_launch"] = per[0] if per else None
+    emit(phase=phase, solve=info.get("solve"),
+         batched_cgs2_ms_per_launch=row["batched_cgs2_ms_per_launch"],
+         device_idle_share=row["device_idle_share"])
+    return row
+
+
 class Counters:
     """The launch counters of a phase: ``zero`` just before a solve,
     ``read`` just after it (adding the phase's own kernels' counts to
@@ -749,11 +786,25 @@ def sparse_phases(smi, gen):
         for k, nb, js in BGS_SHAPES:
             v = lane_bases(k, nb, M + 1, js, dtype, gen)
             w = torch.randn(k, nb, device="cuda", generator=gen)
-            compare("batched_cgs2", block_gs.batched_cgs2(v, w, js),
+            got = block_gs.batched_cgs2(v, w, js)
+            again = block_gs.batched_cgs2(v, w, js)
+            compare("batched_cgs2", got,
                     block_gs.batched_cgs2_plain(v, w, js), dtype, k=k, n=nb,
-                    m1=M + 1, j=list(js),
-                    shape=block_gs.launch_shape(dtype, k, M + 1, nb))
+                    m1=M + 1, j=list(js), split=bgs_split(v, w, js),
+                    same_bits_twice=all(torch.equal(a, b)
+                                        for a, b in zip(got, again)))
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"batched_cgs2 k={k} {dtype}: other bits on a second call")
             del v, w
+        # the split (tuning) keeps the kernel's buckets, pieces at once
+        # and block size
+        elem = 4 if dtype == torch.float32 else 2
+        rule = [(rows, block_gs.kernel_unroll(rows, elem),
+                 tuning.batched_unroll(rows, elem) + (tuning.BATCHED_THREADS,))
+                for rows in range(1, M + 2)]
+        check(all(c == py for _, c, py in rule),
+              f"batched_cgs2: the kernel's launch rule differs from "
+              f"tuning's: {[r for r in rule if r[1] != r[2]]}")
         # gs_project at the sparse solver's n: the streamed variant
         for j in (0, 15, 29):
             v = basis(n, M + 1, j, dtype, gen)
@@ -903,7 +954,8 @@ def sparse_phases(smi, gen):
     expect_counts(d, {"batched_cgs2": lockstep,
                       "banded_matvec": lockstep + int(res.restarts.max())
                       + 1}, "stencil batch")
-    del res, b4
+    stencil_batch = (b4, lockstep, res.restarts.tolist())
+    del res
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on the sparse path")
     emit(phase="batched_solve", launches_total=launches)
@@ -997,28 +1049,9 @@ def sparse_phases(smi, gen):
                 lambda: block_gs.batched_cgs2(v, w, js),
                 lambda: block_gs.batched_cgs2_plain(v, w, js),
                 composite="the plain version (4 batched matmuls)", k=k,
-                n=nb, m1=M + 1, j=list(js),
-                shape=block_gs.launch_shape(dtype, k, M + 1, nb),
+                n=nb, m1=M + 1, j=list(js), split=bgs_split(v, w, js),
                 bytes=sum(j + 1 for j in js) * nb * sz + 8 * k * nb,
                 flops=8 * sum(j + 1 for j in js) * nb)
-            if f32 and nb == NX * NX:
-                # blocks per SM of the cooperative launch (tuning's choice)
-                chosen = tuning.STREAM_BLOCKS_PER_SM
-                want = block_gs.batched_cgs2_plain(v, w, js)
-                for bps in (1, 2, 4, 8):
-                    tuning.STREAM_BLOCKS_PER_SM = bps
-                    got = block_gs.batched_cgs2(v, w, js)
-                    rel = max(relerr(got[0], want[0]),
-                              relerr(got[1], want[1]))
-                    check(rel < TOLS[dtype],
-                          f"batched_cgs2 at {bps} blocks/SM: {rel}")
-                    emit(phase="tuning", kernel="batched_cgs2",
-                         blocks_per_sm=bps, chosen=bps == chosen,
-                         shape=block_gs.launch_shape(dtype, k, M + 1, nb),
-                         max_rel_err=rel,
-                         **timed(lambda: block_gs.batched_cgs2(v, w, js)),
-                         card=smi)
-                tuning.STREAM_BLOCKS_PER_SM = chosen
             del v, w
         v = basis(n, M + 1, 15, dtype, gen)
         w = torch.randn(n, device="cuda", generator=gen)
@@ -1091,6 +1124,13 @@ def sparse_phases(smi, gen):
                  solve="pagerank burst (per lockstep step)", n=PAGERANK_N,
                  k=PAGERANK_K, restarts=pagerank_res.restarts.tolist(),
                  card=smi)
+    b4, lock4, restarts4 = stencil_batch
+    batch_timing(lambda: gmres_batched(ops["banded"], b4, m=M, tol=TOL,
+                                       max_restarts=SPARSE_RESTARTS),
+                 lock4, phase="sparse_timing",
+                 solve="4-lane 1024^2 banded batch (per lockstep step)",
+                 n=n, k=4, restarts=restarts4, card=smi)
+    del b4, stencil_batch
     zero()
     return (errs, launches, timing, solves[("banded", "cgs2")][0].restarts,
             banded_fused, solves)
@@ -1905,7 +1945,7 @@ def precond_phases(smi, gen, sparse_solves):
     from repro_torch.core import gmres, gmres_batched, gmres_sstep
     from repro_torch.core import operators, stencils
     from repro_torch.core import preconditioners as P
-    from repro_torch.kernels import block_gs, cgs2, spmv, trisolve
+    from repro_torch.kernels import block_gs, cgs2, spmv, trisolve, tuning
     from repro_torch.kernels import matrix_powers as mp
 
     ctr = Counters({"banded_cheb_apply": mp.banded_cheb_apply,
@@ -2011,18 +2051,24 @@ def precond_phases(smi, gen, sparse_solves):
                       f"banded_trisweep {system} {direction} k={k}: other "
                       f"bits on a second call")
 
-    for nx in (64, 128, NX):
+    ilu_cases = [(nx, "five-point") for nx in (64, 128, NX)]
+    ilu_cases.append((NX, "line-Jacobi (-1, 0, 1)"))
+    for nx, pattern in ilu_cases:
         o = op if nx == NX else stencils.convection_diffusion_2d(
             nx, nx, beta=BETA)
-        got = trisolve.ilu0_factor(o.bands, o.offsets)
-        want = trisolve.ilu0_factor_plain(o.bands.cpu(), o.offsets)
+        bands, offs = ((o.bands, o.offsets) if pattern == "five-point"
+                       else (o.bands[1:4].contiguous(), (-1, 0, 1)))
+        got = trisolve.ilu0_factor(bands, offs)
+        want = trisolve.ilu0_factor_plain(bands.cpu(), offs)
         torch.cuda.synchronize()
         same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
         rel = max(relerr(g.cpu(), w) for g, w in zip(got, want))
         errs["ilu0_factor"].append(max(abserr(g.cpu(), w)
                                        for g, w in zip(got, want)))
-        info = {"n": nx * nx, "same_bits": same, "max_rel_err": rel}
-        if nx == NX:        # the JAX test's property: L U = A on the pattern
+        info = {"n": nx * nx, "pattern": pattern, "same_bits": same,
+                "max_rel_err": rel}
+        if nx == NX and pattern == "five-point":
+            # the JAX test's property: L U = A on the pattern
             l_off = tuple(sorted(x for x in o.offsets if x < 0))
             u_off = tuple([0] + sorted(x for x in o.offsets if x > 0))
             lu = lu_on_pattern(got[0], l_off, got[1], u_off, o.offsets)
@@ -2035,7 +2081,8 @@ def precond_phases(smi, gen, sparse_solves):
                   f"ilu0_factor: (L U - A) on the pattern "
                   f"{info['lu_minus_a_on_pattern']}")
         emit(phase="precond_kernels", kernel="ilu0_factor", **info)
-        check(rel < 1e-6, f"ilu0_factor {nx}^2: {rel} from its plain version")
+        check(same, f"ilu0_factor {nx}^2 {pattern}: not the plain version's "
+                    f"bits ({rel})")
     ctr.zero()
 
     # ---- 17. preconditioned solves ----------------------------------------
@@ -2097,7 +2144,9 @@ def precond_phases(smi, gen, sparse_solves):
              n=n, converged=res.converged, restarts=res.restarts,
              unpreconditioned_restarts=ref.restarts,
              inner_steps=res.inner_steps, true_relres=rr,
-             x_rel_to_unpreconditioned=xr, wall_s=wall, launches=d,
+             x_rel_to_unpreconditioned=xr, wall_s=wall,
+             setup_s=setup_s[name], wall_with_setup_s=wall + setup_s[name],
+             launches=d,
              sweep_routes=dict(trisolve.banded_trisweep.routes))
         what = f"{name} {solver} {gs}"
         check(res.converged and rr <= 2 * TOL,
@@ -2304,22 +2353,35 @@ def precond_phases(smi, gen, sparse_solves):
         if label == "ILU(0) L":
             timing["banded_trisweep"] = row
 
-    lower = [x for x in op.offsets if x < 0]
-    pairs = sum(1 for lo in lower for up in op.offsets
-                if up > 0 and lo + up in op.offsets)
-    row = measure(lambda: trisolve.ilu0_factor(op.bands, op.offsets),
-                  lambda: trisolve.ilu0_factor_plain(op.bands, op.offsets),
-                  iters=3, plain_by_events=True, n=n,
-                  bytes=nbands * n * (4 + 4),
-                  flops=(len(lower) + 2 * pairs + 2 * nbands) * n)
-    row["launches_per_path"] = apply_launches["ilu0_factor"]
-    t0 = time.perf_counter()
-    P.estimate_interval(op)
-    torch.cuda.synchronize()
-    row["estimate_interval_s"] = time.perf_counter() - t0
-    row["setup_s"] = setup_s
-    emit(phase="precond_timing", kernel="ilu0_factor", card=smi, **row)
-    timing["ilu0_factor"] = row
+    # the setup on the five-point pattern (2 NX - 1 dependent rows: the
+    # anti-diagonals) and on line-Jacobi's (NX independent chains of NX)
+    for pattern, bands, offs, chain in (
+            ("five-point", op.bands, op.offsets, 2 * NX - 1),
+            ("line-Jacobi (-1, 0, 1)", op.bands[1:4].contiguous(),
+             (-1, 0, 1), NX)):
+        nb = bands.shape[0]
+        lower = [x for x in offs if x < 0]
+        pairs = sum(1 for lo in lower for up in offs
+                    if up > 0 and lo + up in offs)
+        row = measure(lambda bands=bands, offs=offs:
+                      trisolve.ilu0_factor(bands, offs),
+                      lambda bands=bands, offs=offs:
+                      trisolve.ilu0_factor_plain(bands, offs),
+                      iters=20, plain_by_events=True, n=n, pattern=pattern,
+                      bytes=nb * n * (4 + 4),
+                      flops=(len(lower) + 2 * pairs + 2 * nb) * n)
+        ms = row["ms"] or row["event_ms"]
+        row.update(chain_rows=chain, us_per_link=ms * 1e3 / chain,
+                   launches_per_path=apply_launches["ilu0_factor"],
+                   tile_rows=tuning.ilu0_plan(offs)["tile_rows"])
+        if pattern == "five-point":
+            t0 = time.perf_counter()
+            P.estimate_interval(op)
+            torch.cuda.synchronize()
+            row["estimate_interval_s"] = time.perf_counter() - t0
+            row["setup_s"] = setup_s
+            timing["ilu0_factor"] = row
+        emit(phase="precond_timing", kernel="ilu0_factor", card=smi, **row)
 
     # per solve: wall, device and idle per Arnoldi step and time to
     # solution, beside the unpreconditioned banded cgs2_fused solve
@@ -2341,7 +2403,10 @@ def precond_phases(smi, gen, sparse_solves):
                          solve=f"{name} {solver} {gs}", restarts=res.restarts,
                          card=smi)
         emit(phase="precond_timing", solve=f"{name} {solver} {gs}",
-             restarts=res.restarts, time_to_solution_s=r["wall_ms"] / 1e3)
+             restarts=res.restarts, time_to_solution_s=r["wall_ms"] / 1e3,
+             setup_s=setup_s.get(name, 0.0),
+             time_to_solution_with_setup_s=r["wall_ms"] / 1e3
+             + setup_s.get(name, 0.0))
     ctr.zero()
     return errs, ctr.totals, timing
 
@@ -3370,18 +3435,23 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
-    res = kernel_resources(so, ("sell_kernel", "attention_wgmma_kernel"))
+    res = kernel_resources(so, ("sell_kernel", "attention_wgmma_kernel",
+                                "ilu0_wave_kernel", "batched_cgs2_kernel"))
     sell = [r for name, r in res.items() if "sell_kernel" in name]
     attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
             for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
+    redesign4 = {name: r for name, r in res.items()
+                 if "ilu0_wave_kernel" in name or "batched_cgs2_kernel" in name}
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         resources=dict(attn, **{f"sell_kernel ({len(sell)} "
-                                 f"instantiations)": {
+         resources=dict(attn, **redesign4, **{f"sell_kernel ({len(sell)} "
+                                              f"instantiations)": {
              "registers_max": max(r["registers"] for r in sell),
              "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
                                 for r in sell),
              "static_smem_max": max(r["static_smem"] for r in sell)}}))
+    check(len(redesign4) == 8, f"ilu0_wave_kernel / batched_cgs2_kernel: "
+                               f"{len(redesign4)} instantiations")
     check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
           f"attention_wgmma_kernel: HGMMA instructions {attn}")
     check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
@@ -3804,7 +3874,7 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-CELL_GROUPS = ("redesign1", "gemv", "redesign3")
+CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4")
 # a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
 SWEEP_GROUPS = ("redesign3_sweep",)
 
@@ -3824,13 +3894,19 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
     warnings.filterwarnings("ignore", message="Sparse")
     _build.build()
     out = {"tree": label, "package": str(pathlib.Path(_build.__file__)
-                                          .parents[2])}
+                                          .parents[2]),
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True).stdout.strip().splitlines()[0]}
     if "gemv" in groups:
         out.update(gemv_cells(label))
     if "redesign1" in groups:
         out.update(redesign1_cells(label))
     if "redesign3" in groups:
         out.update(redesign3_cells(label))
+    if "redesign4" in groups:
+        out.update(redesign4_cells(label))
     if "redesign3_sweep" in groups:
         from repro_torch.kernels import trisolve
 
@@ -4293,6 +4369,115 @@ def redesign3_cells(label: str) -> dict:
     return out
 
 
+def redesign4_cells(label: str) -> dict:
+    """Kernel-table row 13 (``batched_cgs2``) and the ILU(0) setup, and the
+    cells they serve.  Row 13 at k = 4, n = 2^20 with j = (0, 7, 15, 29)
+    and j = (15, 15, 15, 15), and at k = 8, n = 8192 with the PageRank
+    burst's j, f32 and bf16 bases, cold (L2 rewritten before each call)
+    and warm, with the SHA-256 of (h, w''); the ILU(0) setup on the 1024^2
+    stencil's five-point pattern and on line-Jacobi's (-1, 0, 1), one
+    call at a time by CUDA events after an L2 rewrite, with the SHA-256 of
+    the factors; the 4-lane 1024^2 banded batch per lockstep step (wall,
+    device, idle share, row 13's ms a launch in the solve); the ILU(0)
+    and line-Jacobi ``gmres(gs="cgs2_fused")`` solves' time to solution
+    with their setup (``make_preconditioner`` and the solve, one host
+    clock)."""
+    import hashlib
+
+    from repro_torch.core import gmres, gmres_batched, stencils
+    from repro_torch.core import preconditioners as P
+    from repro_torch.kernels import block_gs, trisolve
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def one_call_ms(fn, iters):
+        """CUDA-event ms of single cold calls (median), after a warm one."""
+        flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32,
+                            device="cuda")
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(iters):
+            flush.bitwise_not_()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(stop))
+        return sorted(out)[len(out) // 2]
+
+    out = {}
+    for k, nb, js in BGS_SHAPES[:1] + ((4, NX * NX, (15, 15, 15, 15)),) \
+            + BGS_SHAPES[1:]:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(nb + k)
+            v = lane_bases(k, nb, M + 1, js, dtype, gen)
+            w = torch.randn(k, nb, device="cuda", generator=gen)
+            sz = v.element_size()
+
+            def fn(v=v, w=w, js=js):
+                return block_gs.batched_cgs2(v, w, js)
+            row = {"cold": timed(fn, iters=20, cold=True),
+                   "warm": timed(fn, iters=20), "sha256": sha(*fn()),
+                   "split": bgs_split(v, w, js),
+                   "bytes": sum(j + 1 for j in js) * nb * sz + 8 * k * nb,
+                   "flops": 8 * sum(j + 1 for j in js) * nb}
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                     row["flops"])
+            out[f"batched_cgs2 {str(dtype)[6:]} k={k} n={nb} "
+                f"j={list(js)}"] = row
+            del v, w
+
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    for name, bands, offs in (
+            ("five-point", op.bands, op.offsets),
+            ("line-Jacobi", op.bands[1:4].contiguous(), (-1, 0, 1))):
+        out[f"ilu0_factor {name}"] = {
+            "ms": one_call_ms(lambda bands=bands, offs=offs:
+                              trisolve.ilu0_factor(bands, offs), 5),
+            "sha256": sha(*trisolve.ilu0_factor(bands, offs)),
+            "bound_ms": bound(bands.shape[0] * NX * NX * 8, 0)[0]}
+
+    n = NX * NX
+    b4 = torch.stack([torch.from_numpy(np.random.default_rng(seed)
+                                       .standard_normal(n).astype(np.float32))
+                      for seed in (1, 2, 3, 4)]).cuda()
+    block_gs.batched_cgs2.launches = 0
+    res = gmres_batched(op, b4, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS)
+    lock = block_gs.batched_cgs2.launches
+    out["stencil batch"] = dict(batch_timing(
+        lambda: gmres_batched(op, b4, m=M, tol=TOL,
+                              max_restarts=SPARSE_RESTARTS),
+        lock, phase="in_turn", tree=label,
+        solve="4-lane 1024^2 banded batch (per lockstep step)"),
+        restarts=res.restarts.tolist(), converged=res.converged.tolist(),
+        lockstep=lock)
+    del b4, res
+
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    for name in ("banded_ilu0", "line_jacobi"):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pc = P.make_preconditioner(name, op)
+            res = gmres(op, b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
+                        gs="cgs2_fused", precond=pc)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"{name} setup + gmres cgs2_fused"] = {
+            "time_to_solution_with_setup_s": walls, "restarts": res.restarts,
+            "converged": res.converged}
+    return out
+
+
 def redesign3_sweep(label: str) -> None:
     """The launch shapes ``tuning.gemv_rows_shape`` and
     ``tuning.trisweep_plan`` choose among, each launched through the
@@ -4438,6 +4623,32 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
         emit(phase="in_turn", **out)
         check(all(out["sweep_same_bits_per_tree"].values()),
               "in turn: a tree's sweeps gave other bits in its two runs")
+    if "redesign4" in groups:
+        # the ILU(0) factors are the plain version's bits in every run;
+        # each tree's batched_cgs2 gives the same bits in both its runs;
+        # the batch's lanes converge with the same restarts (+-1)
+        ilu = [(r["ilu0_factor five-point"]["sha256"],
+                r["ilu0_factor line-Jacobi"]["sha256"]) for r in rows]
+        bgs = {t: [{key: cell["sha256"] for key, cell in r.items()
+                    if key.startswith("batched_cgs2")}
+                   for r in rows if r["tree"] == t] for t in ("parent", "this")}
+        batch = [r["stencil batch"] for r in rows]
+        out = {"ilu0_same_bits": all(x == ilu[0] for x in ilu),
+               "batched_cgs2_same_bits_per_tree": {
+                   t: len(b) == 2 and b[0] == b[1] for t, b in bgs.items()},
+               "batch_restarts": [c["restarts"] for c in batch]}
+        emit(phase="in_turn", **out)
+        check(out["ilu0_same_bits"], "in turn: the ILU(0) factors differ "
+                                     "between runs")
+        check(all(out["batched_cgs2_same_bits_per_tree"].values()),
+              "in turn: a tree's batched_cgs2 gave other bits in its two "
+              "runs")
+        check(all(all(c["converged"]) for c in batch)
+              and all(max(abs(a - b) for a, b in zip(c["restarts"],
+                                                      batch[0]["restarts"]))
+                      <= 1 for c in batch),
+              f"in turn: the 4-lane batch differs between the trees: "
+              f"{out['batch_restarts']}")
 
 
 if __name__ == "__main__":

@@ -12,130 +12,618 @@
 //
 // Bound: bytes.  The step must read each lane's valid rows of V once and w
 // and w'' once: sum_l (j_l + 1) * n * s + 8 k n bytes (s the basis storage
-// size).  At k = 4 lanes, n = 2^20, f32, j = 29 that is 520 MB, 0.155 ms at
-// 3.35 TB/s; the reductions are 4 flops per element of V, far below the
-// card's rate.
+// size).  At k = 4 lanes, n = 2^20, f32, j = (0, 7, 15, 29) that is 264
+// MB, 0.079 ms at 3.35 TB/s; the reductions are 4 flops per element of V,
+// far below the card's rate.
 //
-// Design: one cooperative launch whose blocks cover (lane, column slice):
-// block b of lane l owns columns [b * cols, b * cols + len) of V_l and w_l.
-// A lane's h depends on all of its w, and Hopper's blocks run in no order,
-// so each pass is the design of gs_project (cgs2.cu) per lane: the block
-// writes one partial sum per valid row to part[lane][row][block], the grid
-// syncs once, and every block of the lane sums its lane's partials itself,
-// in one fixed order, so all of them hold the same h without a second sync.
-// The two passes use separate partials buffers (a slow block may still be
-// reading the first).  The TPU kernel holds a lane's basis in VMEM; a
-// lane's basis is 130 MB at n = 2^20 and 1 MB at n = 8192, so a block's
-// slice fits no shared memory at the large size, and this kernel streams V
-// from global memory in every phase (common.cuh's streamed pass: a
-// project sweep summing eight rows per thread at once, the grid sync, the
-// lane's reduction, an update sweep).  That reads V four times per step
-// (twice per pass), against the bound's once.  Two levers are left for a later version: fusing the first update
-// with the second projection (three reads), and keeping the slice resident
-// in shared memory where it fits (k = 8, n = 8192 fits in 132 blocks).
-// The grid is sized with the occupancy calculator so the cooperative launch
-// is legal; lanes beyond what can be co-resident make the launch fail with
-// an error, never fall back.
+// The first design (one cooperative launch, the grid split evenly over the
+// lanes, common.cuh's streamed pass twice: a project sweep of 4-byte
+// loads eight rows at a time with two barriers a chunk, a grid sync, an
+// update sweep) read V four times a step and gave a lane of 30 rows the
+// blocks of a lane of one: 0.609 ms f32 (0.513 bf16) at that shape on an
+// H100, 0.83 TB/s from the heavy lane's quarter of the SMs.
+//
+// Design: three sweeps over V, not four, two grid syncs.
+//   sweep 1  h1 partials: each thread sums V[r, c] w[c] for every valid
+//            row r of its 16-byte pieces;
+//   sync     each block sums its lane's partials itself, in one fixed
+//            order, so all of them hold the same h1;
+//   sweep 2  fused: the V values a thread loads to form
+//            w1[c] = w[c] - sum_r h1[r] V[r, c] are exactly those it needs
+//            for h2[r] += V[r, c] w1[c]; w1 is written and the h2 partials
+//            summed from registers (a lane of 17-32 rows loads its first
+//            16 rows' piece a second time, soon after the first loads;
+//            how much of that second load hits in cache is not measured:
+//            at most one more pass over those rows);
+//   sync     the lane's h2, as after sweep 1;
+//   sweep 3  w''[c] = w1[c] - sum_r h2[r] V[r, c], in place over w1.
+// Bytes: V three times (3 sum_l (j_l + 1) n s), w read twice, w1 written
+// and read, w'' written (5 x 4 k n): 759 MB at the shape above (692 of
+// them V), 0.227 ms at 3.35 TB/s.  Measured in turn with the first
+// design on an H100 80GB HBM3 at 700 W (chip_smoke.py --in-turn):
+// 0.385 ms f32 (0.256 bf16) at that shape, 0.331 (0.187) at j = 15 in
+// every lane, against 0.609 (0.513) and 0.487 (0.344).  A lane of more
+// than 32 rows (m > 31) runs sweep 2 as an update and a projection (V
+// four times).
+// The grid is split by work (kernels/tuning.py::batched_cgs2_split): a
+// lane gets blocks in proportion to its rows, at least one, none for a
+// lane with j = -1, at most a round of pieces a thread; the wrapper ships
+// the split (a prefix sum a lane) in the same copy as j, and a lane's
+// partials are [row][global block], its blocks first[l] .. first[l + 1]
+// - 1.  Every block copies a share of the skipped lanes' w.  A thread
+// takes 16-byte pieces of its lane's columns (the streaming of
+// sr_payload.cu): up to 16 rows' loads in flight at once, no barrier per
+// row chunk; a lane of one or two rows takes 8 pieces at once (4 for
+// bf16 V) so that it keeps about as many loads in flight as the others
+// (two buckets, bc_bucket and bc_unroll, which tuning.batched_unroll
+// copies and repro_batched_cgs2_unroll reports: each is a copy of the
+// sweeps in the kernel, and more copies pushed it past 255 registers
+// into spills).  The kernel is built for kBcBlocksPerSm = 2 blocks of
+// 128 threads an SM (__launch_bounds__: with the block size alone ptxas
+// aimed at full occupancy and spilled; one block an SM was slower in 11
+// of 12 readings, PERF.md).  A misaligned V, w or row stride takes the
+// scalar route (pieces = 0; the wrapper counts it).  No float atomics:
+// every sum has one fixed order, the same bits every call.  The grid is
+// at most the co-resident blocks (cooperative launch); more active lanes
+// than that is refused, never run otherwise.
 #include "common.cuh"
 
 namespace repro {
 
+constexpr int kBcThreads = 128;
+constexpr int kBcWarps = kBcThreads / 32;
+constexpr int kBcSlots = 16;     // 16-byte loads of V a thread holds
+constexpr int kBcMaxRows = 32;   // rows of the largest bucket
+constexpr int kBcBlocksPerSm = 2;
+
+// The bucket of rows a lane of `rows` rows runs in: 2, or the largest
+// (kBcMaxRows rows at a time).
+__host__ __device__ constexpr int bc_bucket(int rows) {
+  return rows <= 2 ? 2 : kBcMaxRows;
+}
+
+// Pieces a thread takes at once for a bucket of R rows (tuning's
+// batched_unroll): U min(R, kBcSlots) <= kBcSlots loads of V and
+// U VEC <= 32 columns of w.
+__host__ __device__ constexpr int bc_unroll(int r, int vec) {
+  return r >= kBcSlots ? 1 : (kBcSlots / r < 32 / vec ? kBcSlots / r
+                                                       : 32 / vec);
+}
+
+// One lane's share of the work, as one thread sees it.
 template <typename TV>
-__global__ void __launch_bounds__(kThreads)
-    batched_cgs2_kernel(const TV* __restrict__ v, const float* __restrict__ w,
-                        const int* __restrict__ jl, float* __restrict__ h,
+struct BcLane {
+  const TV* v;      // the lane's basis (m1, n)
+  const float* w;   // its w
+  float* wo;        // its w'' (w1 after sweep 2)
+  int rows, n, pieces;
+  int t;            // this thread among the lane's threads
+  int g;            // the lane's threads
+};
+
+// 16 bytes of floats at p (plain loads: w1 is written in this launch).
+__device__ __forceinline__ void load_f4(const float* p, float* o) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  o[0] = q.x;
+  o[1] = q.y;
+  o[2] = q.z;
+  o[3] = q.w;
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_piece(const float* p, float* o) {
+#pragma unroll
+  for (int q = 0; q < VEC / 4; ++q) load_f4(p + 4 * q, o + 4 * q);
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_piece(float* p, const float* x) {
+#pragma unroll
+  for (int q = 0; q < VEC / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] =
+        make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// The next row of V: p + n, behind an empty asm so that the compiler
+// does not hoist every row's address out of the piece loop (a 64-bit
+// address a row held across it).
+template <typename TV>
+__device__ __forceinline__ const TV* next_row(const TV* p, int n) {
+  p += n;
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// raw[u][r] = the 16-byte piece p0 + u g of rows r0 .. r0 + nr - 1 (r <
+// C), every load issued before any is used.
+template <typename TV, int U, int C>
+__device__ __forceinline__ void load_rows(const BcLane<TV>& a, int p0,
+                                          const bool (&ok)[U], int r0,
+                                          int nr, uint4 (&raw)[U][C]) {
+  constexpr int VEC = Vec16<TV>::N;
+  const TV* q = a.v + (size_t)r0 * a.n + (size_t)p0 * VEC;
+#pragma unroll
+  for (int r = 0; r < C; ++r) {
+    if (r < nr) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u])
+          raw[u][r] = __ldg(
+              reinterpret_cast<const uint4*>(q + (size_t)u * a.g * VEC));
+    }
+    q = next_row(q, a.n);
+  }
+}
+
+// part[(r0 + r) * G + blockIdx.x] = the block's sum of acc[r0 + r],
+// r < nr: warp shuffles, then the warps in order.  Every thread must
+// call it.
+template <int R>
+__device__ __forceinline__ void bc_partials(const float (&acc)[R],
+                                            float* red, float* part, int r0,
+                                            int nr, int G) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < nr) {
+      const float s = warp_sum(acc[r]);
+      if (lane == 0) red[warp * kBcMaxRows + r] = s;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < nr) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kBcWarps; ++q) s += red[q * kBcMaxRows + threadIdx.x];
+    part[(size_t)(r0 + threadIdx.x) * G + blockIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// hs[r] = sum of the lane's partials of row r over its blocks, in one
+// fixed order (a warp a row), the same in every block of the lane.
+__device__ __forceinline__ void bc_reduce(const float* part, int rows,
+                                          int G, int b0, int nb,
+                                          float* hs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += kBcWarps) {
+    float acc = 0.f;
+    for (int b = lane; b < nb; b += 32)
+      acc += __ldcg(part + (size_t)r * G + b0 + b);   // other SMs wrote it
+    acc = warp_sum(acc);
+    if (lane == 0) hs[r] = acc;
+  }
+  __syncthreads();
+}
+
+// The sweeps of a lane in the bucket of R rows: rows <= R (R = 32: any
+// number of rows, R at a time where a sum per row is kept).  C = min(R,
+// kBcSlots) rows' loads are in flight at once, U pieces at once.
+//
+// Sweep 1, and sweep 2's projection when the rows exceed the largest
+// bucket: part[r][block] = sum over the thread's columns of V[r, c] x[c].
+template <typename TV, int R>
+__device__ __forceinline__ void bc_project(const BcLane<TV>& a,
+                                           const float* x, float* part,
+                                           int G, float* red) {
+  constexpr int VEC = Vec16<TV>::N;
+  constexpr int U = bc_unroll(R, VEC);
+  constexpr int C = R < kBcSlots ? R : kBcSlots;
+  for (int r0 = 0; r0 < a.rows; r0 += R) {
+    const int nr = min(R, a.rows - r0);
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int p0 = a.t; p0 < a.pieces; p0 += U * a.g) {
+      bool ok[U];
+      float xv[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        ok[u] = p0 + u * a.g < a.pieces;
+        if (ok[u]) load_piece<VEC>(x + (size_t)(p0 + u * a.g) * VEC, xv[u]);
+      }
+#pragma unroll
+      for (int c0 = 0; c0 < R; c0 += C) {
+        if (c0 >= nr) break;
+        uint4 raw[U][C];
+        load_rows<TV, U, C>(a, p0, ok, r0 + c0, nr - c0, raw);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (!ok[u]) continue;
+#pragma unroll
+          for (int r = 0; r < C; ++r) {
+            if (c0 + r < nr) {
+              float f[VEC];
+              Vec16<TV>::unpack(raw[u][r], f);
+#pragma unroll
+              for (int c = 0; c < VEC; ++c)
+                acc[c0 + r] = fmaf(f[c], xv[u][c], acc[c0 + r]);
+            }
+          }
+        }
+      }
+    }
+    for (int c = a.pieces * VEC + a.t; c < a.n; c += a.g) {
+      const float xc = x[c];
+      const TV* q = a.v + (size_t)r0 * a.n + c;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nr) acc[r] = fmaf(to_f(*q), xc, acc[r]);
+        q = next_row(q, a.n);
+      }
+    }
+    bc_partials<R>(acc, red, part, r0, nr, G);
+  }
+}
+
+// Sweep 3, and sweep 2's update when the rows exceed the largest bucket:
+// out[c] = x[c] - sum_r h[r] V[r, c], the sum in row order from 0.  out
+// may be x (each thread reads its piece before it writes it).
+template <typename TV, int R>
+__device__ __forceinline__ void bc_update(const BcLane<TV>& a,
+                                          const float* x, const float* h,
+                                          float* out) {
+  constexpr int VEC = Vec16<TV>::N;
+  constexpr int U = bc_unroll(R, VEC);
+  constexpr int C = R < kBcSlots ? R : kBcSlots;
+  for (int p0 = a.t; p0 < a.pieces; p0 += U * a.g) {
+    bool ok[U];
+    float xv[U][VEC], s[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = p0 + u * a.g < a.pieces;
+      if (ok[u]) load_piece<VEC>(x + (size_t)(p0 + u * a.g) * VEC, xv[u]);
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) s[u][c] = 0.f;
+    }
+    for (int r0 = 0; r0 < a.rows; r0 += C) {
+      uint4 raw[U][C];
+      const int nr = min(C, a.rows - r0);
+      load_rows<TV, U, C>(a, p0, ok, r0, nr, raw);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!ok[u]) continue;
+#pragma unroll
+        for (int r = 0; r < C; ++r) {
+          if (r < nr) {
+            float f[VEC];
+            Vec16<TV>::unpack(raw[u][r], f);
+            const float hr = h[r0 + r];
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) s[u][c] = fmaf(hr, f[c], s[u][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      float o[VEC];
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) o[c] = xv[u][c] - s[u][c];
+      store_piece<VEC>(out + (size_t)(p0 + u * a.g) * VEC, o);
+    }
+  }
+  for (int c = a.pieces * VEC + a.t; c < a.n; c += a.g) {
+    float s = 0.f;
+    const float xc = x[c];
+    const TV* q = a.v + c;
+    for (int r0 = 0; r0 < a.rows; r0 += C) {
+      float vv[C];
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        if (r0 + r < a.rows) vv[r] = to_f(*q);
+        q = next_row(q, a.n);
+      }
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+        if (r0 + r < a.rows) s = fmaf(h[r0 + r], vv[r], s);
+    }
+    out[c] = xc - s;
+  }
+}
+
+// Sweep 2 for rows <= R: w1 = w - V^T h1 written to wo, and the h2
+// partials sum V[r, c] w1[c] from the same V values: still in registers
+// where the rows fit one chunk of C, else the last chunk's are and the
+// first C rows' piece is loaded again.
+template <typename TV, int R>
+__device__ __forceinline__ void bc_update_project(const BcLane<TV>& a,
+                                                  const float* h1,
+                                                  float* part, int G,
+                                                  float* red) {
+  constexpr int VEC = Vec16<TV>::N;
+  constexpr int U = bc_unroll(R, VEC);
+  constexpr int C = R < kBcSlots ? R : kBcSlots;
+  const int nr = a.rows;
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int p0 = a.t; p0 < a.pieces; p0 += U * a.g) {
+    bool ok[U];
+    float xv[U][VEC], s[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = p0 + u * a.g < a.pieces;
+      if (ok[u]) load_piece<VEC>(a.w + (size_t)(p0 + u * a.g) * VEC, xv[u]);
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) s[u][c] = 0.f;
+    }
+    uint4 raw[U][C];
+#pragma unroll
+    for (int c0 = 0; c0 < R; c0 += C) {
+      if (c0 >= nr) break;
+      load_rows<TV, U, C>(a, p0, ok, c0, nr - c0, raw);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!ok[u]) continue;
+#pragma unroll
+        for (int r = 0; r < C; ++r) {
+          if (c0 + r < nr) {
+            float f[VEC];
+            Vec16<TV>::unpack(raw[u][r], f);
+            const float hr = h1[c0 + r];
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) s[u][c] = fmaf(hr, f[c], s[u][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) s[u][c] = xv[u][c] - s[u][c];   // w1
+      store_piece<VEC>(a.wo + (size_t)(p0 + u * a.g) * VEC, s[u]);
+    }
+    // last chunk first: the first loop left it in raw; an earlier one (a
+    // lane of more than C rows: its first C rows) is loaded again
+#pragma unroll
+    for (int c0 = (R - 1) / C * C; c0 >= 0; c0 -= C) {
+      if (c0 >= nr) continue;
+      if (R > C && c0 + C < nr)
+        load_rows<TV, U, C>(a, p0, ok, c0, nr - c0, raw);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!ok[u]) continue;
+#pragma unroll
+        for (int r = 0; r < C; ++r) {
+          if (c0 + r < nr) {
+            float f[VEC];
+            Vec16<TV>::unpack(raw[u][r], f);
+#pragma unroll
+            for (int c = 0; c < VEC; ++c)
+              acc[c0 + r] = fmaf(f[c], s[u][c], acc[c0 + r]);
+          }
+        }
+      }
+    }
+  }
+  for (int c = a.pieces * VEC + a.t; c < a.n; c += a.g) {
+    const float wc = a.w[c];
+    const TV* q = a.v + c;
+    float sc = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) sc = fmaf(h1[r], to_f(*q), sc);
+      q = next_row(q, a.n);
+    }
+    const float w1 = wc - sc;
+    a.wo[c] = w1;
+    q = a.v + c;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) acc[r] = fmaf(to_f(*q), w1, acc[r]);
+      q = next_row(q, a.n);
+    }
+  }
+  bc_partials<R>(acc, red, part, 0, nr, G);
+}
+
+template <typename TV, int R>
+__device__ __forceinline__ void bc_sweep(int pass, const BcLane<TV>& a,
+                                         const float* hs, float* part,
+                                         int G, float* red) {
+  if (pass == 1) {
+    bc_project<TV, R>(a, a.w, part, G, red);
+  } else if (pass == 2) {
+    if (a.rows <= R) {
+      bc_update_project<TV, R>(a, hs, part, G, red);
+    } else {   // more rows than the largest bucket: V twice in this pass
+      bc_update<TV, R>(a, a.w, hs, a.wo);
+      bc_project<TV, R>(a, a.wo, part, G, red);
+    }
+  } else {
+    bc_update<TV, R>(a, a.wo, hs, a.wo);
+  }
+}
+
+// The lane's sweep with its bucket of rows (block-uniform): a lane of at
+// most 2 rows takes 8 pieces at once (4 for bf16 V), a larger one a piece
+// at a time with up to 16 rows' loads in flight (bc_bucket, bc_unroll).
+// Each bucket is a copy of the three sweeps in this kernel; more buckets
+// pushed it past 255 registers.
+template <typename TV>
+__device__ __forceinline__ void bc_dispatch(int pass, const BcLane<TV>& a,
+                                            const float* hs, float* part,
+                                            int G, float* red) {
+  if (bc_bucket(a.rows) == 2)
+    bc_sweep<TV, 2>(pass, a, hs, part, G, red);
+  else
+    bc_sweep<TV, kBcMaxRows>(pass, a, hs, part, G, red);
+}
+
+// meta: j (k ints), then first (k + 1 ints: lane l owns blocks first[l] ..
+// first[l + 1] - 1).  part: 2 m1 G floats.  Dynamic shared memory:
+// hs1[m1], hs2[m1], red[kBcWarps * kBcMaxRows].
+// Built for kBcBlocksPerSm blocks an SM: up to 255 registers a thread,
+// the rows of a piece held without spilling.
+template <typename TV>
+__global__ void __launch_bounds__(kBcThreads, kBcBlocksPerSm)
+    batched_cgs2_kernel(const TV* __restrict__ v, const float* w,
+                        const int* __restrict__ meta, float* h,
                         float* w_out, float* part, int k, int m1, int n,
-                        int bpl, int cols) {
+                        int pieces) {
   extern __shared__ float smem[];
-  float* hs = smem;
-  float* htot = smem + m1;
+  float* hs1 = smem;
+  float* hs2 = smem + m1;
   float* red = smem + 2 * m1;
   cg::grid_group grid = cg::this_grid();
-  const int l = blockIdx.x / bpl;
-  const int b = blockIdx.x - l * bpl;
-  const int rows = __ldg(jl + l) + 1;
-  const int c0 = b * cols;
-  const int len = max(0, min(cols, n - c0));
-  const TV* vl = v + (size_t)l * m1 * n;
-  const float* wl = w + (size_t)l * n;
-  float* wo = w_out + (size_t)l * n;
-  float* p1 = part + (size_t)l * m1 * bpl;
-  float* p2 = part + ((size_t)k + l) * m1 * bpl;
-  for (int i = threadIdx.x; i < m1; i += blockDim.x) htot[i] = 0.f;
+  const int G = gridDim.x, b = blockIdx.x;
+  const int* jl = meta;
+  const int* first = meta + k;
+  // the lane owning block b: the last l with first[l] <= b (a lane with
+  // no block has first[l] == first[l + 1])
+  int l = -1;
+  if (b < __ldg(first + k)) {
+    int lo = 0, hi = k - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (__ldg(first + mid) <= b)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    l = lo;
+  }
+  BcLane<TV> a{};
+  int b0 = 0, nb = 0;
+  if (l >= 0) {
+    b0 = __ldg(first + l);
+    nb = __ldg(first + l + 1) - b0;
+    a = BcLane<TV>{v + (size_t)l * m1 * n, w + (size_t)l * n,
+                   w_out + (size_t)l * n, __ldg(jl + l) + 1, n, pieces,
+                   (b - b0) * kBcThreads + (int)threadIdx.x,
+                   nb * kBcThreads};
+  }
+  float* p1 = part;
+  float* p2 = part + (size_t)m1 * G;
 
-  // pass 1: w1 = w - V^T (V w), into w_out
-  stream_project(vl, wl, rows, c0, len, n, p1, bpl, b, red);
+  if (l >= 0) bc_dispatch<TV>(1, a, nullptr, p1, G, red);
+  // the skipped lanes: w'' = w, h = 0, shared by every block
+  for (int q = 0; q < k; ++q) {
+    if (__ldg(jl + q) >= 0) continue;
+    for (int c = b * kBcThreads + threadIdx.x; c < n; c += G * kBcThreads)
+      w_out[(size_t)q * n + c] = w[(size_t)q * n + c];
+    if (b == 0)
+      for (int r = threadIdx.x; r < m1; r += kBcThreads)
+        h[(size_t)q * m1 + r] = 0.f;
+  }
   grid.sync();
-  stream_reduce(p1, rows, bpl, hs);
-  stream_update(vl, wl, wo, hs, rows, c0, len, n);
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) htot[i] += hs[i];
-  __syncthreads();   // the block's w1 slice is complete (and visible)
-
-  // pass 2: w'' = w1 - V^T (V w1), in place
-  stream_project(vl, wo, rows, c0, len, n, p2, bpl, b, red);
+  if (l >= 0) {
+    bc_reduce(p1, a.rows, G, b0, nb, hs1);
+    bc_dispatch<TV>(2, a, hs1, p2, G, red);
+  }
   grid.sync();
-  stream_reduce(p2, rows, bpl, hs);
-  stream_update(vl, wo, wo, hs, rows, c0, len, n);
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) htot[i] += hs[i];
-  __syncthreads();
+  if (l >= 0) {
+    bc_reduce(p2, a.rows, G, b0, nb, hs2);
+    bc_dispatch<TV>(3, a, hs2, nullptr, G, red);
+    if (b == b0)
+      for (int r = threadIdx.x; r < m1; r += kBcThreads)
+        h[(size_t)l * m1 + r] = r < a.rows ? hs1[r] + hs2[r] : 0.f;
+  }
+}
 
-  if (b == 0)
-    for (int i = threadIdx.x; i < m1; i += blockDim.x)
-      h[(size_t)l * m1 + i] = i < rows ? htot[i] : 0.f;
+__host__ inline size_t bc_smem_bytes(int m1) {
+  return sizeof(float) * (2 * (size_t)m1 + (size_t)kBcWarps * kBcMaxRows);
+}
+
+// Co-resident blocks of the kernel, at most kBcBlocksPerSm an SM (the
+// occupancy calculator's, which the registers hold to that): the
+// cooperative grid's limit.  Kept per host thread for the last (kernel,
+// device, m1).
+template <typename TV>
+static cudaError_t bc_capacity(int m1, int* out) {
+  struct Key {
+    const void* kernel;
+    int dev, m1;
+  };
+  thread_local Key last{nullptr, -1, 0};
+  thread_local int last_cap = 0;
+  auto kernel = batched_cgs2_kernel<TV>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (last.kernel == (const void*)kernel && last.dev == dev &&
+      last.m1 == m1) {
+    *out = last_cap;
+    return cudaSuccess;
+  }
+  int sms = 0, occ = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const size_t sb = bc_smem_bytes(m1);
+  e = allow_smem(kernel, sb);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kBcThreads,
+                                                    sb);
+  if (e != cudaSuccess) return e;
+  *out = (occ < kBcBlocksPerSm ? occ : kBcBlocksPerSm) * sms;
+  last = Key{(const void*)kernel, dev, m1};
+  last_cap = *out;
+  return cudaSuccess;
 }
 
 template <typename TV>
 static cudaError_t launch_batched_cgs2(const void* v, const float* w,
-                                       const int* jl, float* h, float* w_out,
-                                       float* part, int part_blocks, int k,
-                                       int m1, int n, int blocks_per_sm,
+                                       const int* meta, float* h,
+                                       float* w_out, float* part, int grid,
+                                       int k, int m1, int n, int pieces,
                                        cudaStream_t stream) {
-  if (k <= 0 || m1 <= 0 || n <= 0) return cudaErrorInvalidValue;
-  auto kernel = batched_cgs2_kernel<TV>;
-  StreamShape sh;
-  cudaError_t e = stream_shape(kernel, k, m1, n, blocks_per_sm, &sh);
+  if (k <= 0 || m1 <= 0 || n <= 0 || grid <= 0 || pieces < 0)
+    return cudaErrorInvalidValue;
+  int cap = 0;
+  cudaError_t e = bc_capacity<TV>(m1, &cap);
   if (e != cudaSuccess) return e;
-  if (sh.bpl > part_blocks) return cudaErrorInvalidValue;
+  if (grid > cap) return cudaErrorCooperativeLaunchTooLarge;
+  auto kernel = batched_cgs2_kernel<TV>;
   const TV* vt = static_cast<const TV*>(v);
-  int bpl = sh.bpl, cols = sh.cols;
-  void* args[] = {(void*)&vt,   (void*)&w,  (void*)&jl, (void*)&h,
+  void* args[] = {(void*)&vt, (void*)&w,  (void*)&meta, (void*)&h,
                   (void*)&w_out, (void*)&part, (void*)&k, (void*)&m1,
-                  (void*)&n,    (void*)&bpl, (void*)&cols};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, k * bpl, kThreads,
-                                  args, sh.smem, stream);
+                  (void*)&n,  (void*)&pieces};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, kBcThreads,
+                                  args, bc_smem_bytes(m1), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace repro
 
-// v (k, m1, n) f32 or bf16; w (k, n) f32; jl (k,) int32 in device memory,
-// each in -1..m1-1; h (k, m1) and w_out (k, n) f32; part holds
-// 2 * k * m1 * part_blocks floats.
+// v (k, m1, n) f32 or bf16; w (k, n) f32; meta (device, 2 k + 1 ints): j
+// (each in -1..m1-1) then the split's prefix sums (tuning.
+// batched_cgs2_split); h (k, m1) and w_out (k, n) f32; part 2 m1 grid
+// floats; pieces: 16-byte pieces of V a lane row (0: the scalar route);
+// grid at most the co-resident blocks (repro_batched_cgs2_capacity).
 extern "C" int repro_batched_cgs2(const void* v, int v_bf16, const float* w,
-                                  const int* jl, float* h, float* w_out,
-                                  float* part, int part_blocks, int k, int m1,
-                                  int n, int blocks_per_sm, void* stream) {
+                                  const int* meta, float* h, float* w_out,
+                                  float* part, int grid, int k, int m1,
+                                  int n, int pieces, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_bf16 ? repro::launch_batched_cgs2<repro::bf16>(
-                      v, w, jl, h, w_out, part, part_blocks, k, m1, n,
-                      blocks_per_sm, s)
+                      v, w, meta, h, w_out, part, grid, k, m1, n, pieces, s)
                 : repro::launch_batched_cgs2<float>(
-                      v, w, jl, h, w_out, part, part_blocks, k, m1, n,
-                      blocks_per_sm, s);
+                      v, w, meta, h, w_out, part, grid, k, m1, n, pieces,
+                      s);
 }
 
-// The launch shape repro_batched_cgs2 would use: out = {grid, cols, smem}.
-extern "C" int repro_batched_cgs2_shape(int v_bf16, int k, int m1, int n,
-                                        int blocks_per_sm, int* out) {
-  repro::StreamShape sh;
-  const cudaError_t e =
-      v_bf16 ? repro::stream_shape(repro::batched_cgs2_kernel<repro::bf16>, k,
-                                m1, n, blocks_per_sm, &sh)
-             : repro::stream_shape(repro::batched_cgs2_kernel<float>, k, m1, n,
-                                blocks_per_sm, &sh);
-  out[0] = k * sh.bpl;
-  out[1] = sh.cols;
-  out[2] = (int)sh.smem;
-  return e;
+// The co-resident blocks of the kernel (at most kBcBlocksPerSm an SM):
+// out[0].
+extern "C" int repro_batched_cgs2_capacity(int v_bf16, int m1, int* out) {
+  return v_bf16 ? repro::bc_capacity<repro::bf16>(m1, out)
+                : repro::bc_capacity<float>(m1, out);
+}
+
+// The kernel's launch-shape rule for a lane of `rows` valid rows of
+// `elem_size`-byte V (tuning.batched_unroll and BATCHED_THREADS keep a
+// copy for the split, which the card tests hold to this): out[0] the
+// bucket of rows, out[1] the 16-byte pieces a thread takes at once,
+// out[2] the threads of a block.
+extern "C" int repro_batched_cgs2_unroll(int rows, int elem_size, int* out) {
+  if (rows < 1 || (elem_size != 2 && elem_size != 4))
+    return (int)cudaErrorInvalidValue;
+  const int r = repro::bc_bucket(rows);
+  out[0] = r;
+  out[1] = repro::bc_unroll(r, 16 / elem_size);
+  out[2] = repro::kBcThreads;
+  return (int)cudaSuccess;
 }

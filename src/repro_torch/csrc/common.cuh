@@ -301,8 +301,8 @@ cudaError_t coop_shape(Kernel kernel, int m1, int n, int smem_cap,
 
 // ---------------------------------------------------------------------------
 // Streamed classical Gram-Schmidt pass, for bases whose column slice does
-// not fit a block's shared memory (batched_cgs2.cu for every lane, and
-// cgs2.cu's gs_project at n = 2^20).  The grid covers (lane, column slice):
+// not fit a block's shared memory (cgs2.cu's gs_project at n = 2^20).
+// The grid covers (lane, column slice):
 // block b of a lane owns columns [b * cols, b * cols + len).  V is read from
 // global memory in each phase:
 //   stream_project  part[r * bpl + b] = sum over the slice of V[r, c] x[c];

@@ -112,22 +112,58 @@
 //     Replaces repro/kernels/trisolve.py::_ilu0_factor, a lax.scan with no
 //     Pallas in it that carries the last K factored rows in a ring.
 //
-//     Bound: bytes, nbands * n * (s + 4) (20.9 MB at the 1024 x 1024
-//     five-point stencil, 0.0063 ms), but it is a recurrence over all n
-//     rows: row i needs rows i - 1 and i - K.
+//     Bound: bytes, nbands * n * (s + 4), each band read once and each
+//     factor written once: 41.9 MB at the 1024 x 1024 five-point stencil
+//     in f32 (5 bands x 2^20 rows x 8 B), 0.0125 ms at 3.35 TB/s.  But it
+//     is a recurrence: row i needs row i + l for a lower offset l where
+//     a[i, l] != 0, or where l is a slot an earlier elimination can fill
+//     (the plain version's `deps`).  On the five-point stencil the -1
+//     coupling is zero at the start of each grid line, so the rows form
+//     2,047 anti-diagonal levels: a chain of 2,047 dependent rows sets the
+//     floor (chain floor = 2,047 x the time of one link).  Line-Jacobi's
+//     (-1, 0, 1) is 1,024 independent chains of 1,024 rows.  Measured on
+//     an H100 80GB HBM3 at 700 W (chip_smoke.py phase 18): 4.45 ms at
+//     1024^2, 2.2 us a link of the 2,047; line-Jacobi's 0.56 ms, 0.54 us
+//     a row of its chains.
 //
-//     Design: one thread walks the rows.  The offset combinatorics are
-//     resolved on the host into an IluPlan passed by value (the lower
-//     offsets in order, and for each the (upper band, target band) pairs
-//     it updates), read at constant indices in unrolled loops, and the
-//     row is held in registers, kMaxIluBands floats read and written only
-//     at constant indices.  The ring is the output itself: row i + l is
-//     read back from the factors the thread wrote.  (A shared-memory ring
-//     of the last K rows was no faster: the single thread's chain of
-//     dependent instructions, not the ring, sets the pace; PERF.md.)
-//     Every product and sum is rounded as the plain version rounds it (no
-//     fused multiply-add), and the division is IEEE, so the factors match
-//     the plain version's bits.
+//     The first design walked all n rows on one thread (<<<1, 1>>>): 1.27
+//     s at 1024^2 on an H100, its chain of dependent instructions the
+//     pace.
+//
+//     Design: a point-to-point wavefront, not level-synchronous sweeps
+//     (those need the levels, which cost seconds on the host, and a grid
+//     barrier per level).  The rows are cut into tiles of tile_rows
+//     consecutive rows (kernels/tuning.py::ilu0_plan: the nearest lower
+//     offset of at least 32, a grid line for a 2-D stencil, at most 1,024);
+//     a warp takes the next tile by an atomic ticket, so every row a warp
+//     waits for belongs to a warp that already runs: no deadlock, whatever
+//     the grid and the residency.  Each factored row that a later tile can
+//     read publishes a ready flag: its factors, then st.release.gpu of the
+//     flag; a consumer polls with ld.acquire.gpu and reads the factors
+//     through L2 (__ldcg), never through the read-only path.  The flags
+//     and the ticket are a zeroed scratch from the wrapper.
+//     Inside the tile a warp factors groups of 32 consecutive rows, a lane
+//     a row, in rounds: each round the lanes whose rows are ready (by the
+//     warp's ballot of finished lanes for the group's own rows, the flags
+//     for other tiles', at once for the tile's earlier groups) factor
+//     their rows, and the round ends in __syncwarp; the current and the
+//     previous group's rows stay in shared memory for the warp.  So the
+//     -1 chain inside a grid line is a round a row (a ballot, the row's
+//     work, a shared store) and never a spin of one lane on another's
+//     flag under independent thread scheduling; bands are loaded a group
+//     ahead.  Where the plain version cuts a dependency the row
+//     eliminates against a unit-diagonal row, as it does.
+//     Each row's arithmetic is the one-thread kernel's: the offset
+//     combinatorics resolved on the host into an IluPlan passed by value
+//     (the lower offsets in order, whether each is always waited for, and
+//     for each the (upper band, target band) pairs it updates), the row in
+//     registers at constant indices (NB = 4, 8 or 16 slots, the smallest
+//     that holds the bands; a slot at a run-time index is a tree of
+//     selects, not a chain of NB), every product and sum rounded as the
+//     plain version rounds it (no fused multiply-add), IEEE division, the
+//     same pivot guard.  Any order of the rows that respects the
+//     dependencies gives the same bits: the factors match the plain
+//     version's.
 #include "common.cuh"
 
 #include <algorithm>
@@ -752,76 +788,214 @@ struct IluPlan {
   int off[kMaxIluBands];             // every band's offset (the OOB mask)
   int l_off[kMaxIluBands];           // lower offsets, most negative first
   int l_band[kMaxIluBands];          // their bands
+  int wait[kMaxIluBands];            // 1: always wait (the slot can fill)
   int npair[kMaxIluBands];           // per lower offset: the updates,
   int pair_u[kMaxIluBands][kMaxIluBands];   // upper band read from row k
   int pair_t[kMaxIluBands][kMaxIluBands];   // band of row i it updates
 };
 
-// row[d] at a run-time d, the row held in registers (constant indices).
-__device__ __forceinline__ float get(const float (&row)[kMaxIluBands],
-                                     int d) {
-  float x = 0.f;
+// row[d] at a run-time d, the row held in registers (constant indices):
+// a tree of selects on d's bits, log2(NB) deep.
+template <int NB>
+__device__ __forceinline__ float get(const float (&row)[NB], int d) {
+  float t[NB];
 #pragma unroll
-  for (int q = 0; q < kMaxIluBands; ++q)
-    if (q == d) x = row[q];
-  return x;
+  for (int q = 0; q < NB; ++q) t[q] = row[q];
+#pragma unroll
+  for (int w = NB / 2, bit = 0; w >= 1; w >>= 1, ++bit) {
+#pragma unroll
+    for (int q = 0; q < w; ++q)
+      t[q] = ((d >> bit) & 1) ? t[2 * q + 1] : t[2 * q];
+  }
+  return t[0];
 }
 
-__device__ __forceinline__ void put(float (&row)[kMaxIluBands], int d,
-                                    float x) {
+template <int NB>
+__device__ __forceinline__ void put(float (&row)[NB], int d, float x) {
 #pragma unroll
-  for (int q = 0; q < kMaxIluBands; ++q)
+  for (int q = 0; q < NB; ++q)
     if (q == d) row[q] = x;
 }
 
-template <typename T>
-__global__ void ilu0_kernel(const T* __restrict__ bands, IluPlan plan,
-                            float* fact, int n, float eps, float guard) {
-  const int nb = plan.nbands;
-  for (int i = 0; i < n; ++i) {
-    float row[kMaxIluBands];
+// A row's ready flag: written once, after its factors (release), and
+// polled by rows of later tiles (acquire).
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Row i of the band stack, out-of-range entries zeroed (rows past n: 0).
+template <typename T, int NB>
+__device__ __forceinline__ void ilu_load_row(const T* __restrict__ bands,
+                                             const IluPlan& plan, int i,
+                                             int n, float (&row)[NB]) {
 #pragma unroll
-    for (int d = 0; d < kMaxIluBands; ++d) {
-      row[d] = 0.f;
-      if (d < nb) {
-        const int col = i + plan.off[d];
-        if (col >= 0 && col < n)
-          row[d] = to_f(__ldg(bands + (size_t)d * n + i));
-      }
+  for (int d = 0; d < NB; ++d) {
+    row[d] = 0.f;
+    if (d < plan.nbands && i < n) {
+      const int col = i + plan.off[d];
+      if (col >= 0 && col < n)
+        row[d] = to_f(__ldg(bands + (size_t)d * n + i));
     }
-#pragma unroll
-    for (int j = 0; j < kMaxIluBands; ++j) {   // the plan at constant indices
-      if (j >= plan.nlower) break;
-      const int k = i + plan.l_off[j];
-      const int lb = plan.l_band[j];
-      // row k of the factors, or a unit-diagonal row before row 0
-      const float kd = k < 0 ? 1.f : fact[(size_t)plan.idx0 * n + k];
-      const float lik = __fdiv_rn(get(row, lb), kd);
-      put(row, lb, lik);
-#pragma unroll
-      for (int q = 0; q < kMaxIluBands; ++q) {
-        if (q >= plan.npair[j]) break;
-        const int u = plan.pair_u[j][q], t = plan.pair_t[j][q];
-        const float ku = k < 0 ? (u == plan.idx0 ? 1.f : 0.f)
-                               : fact[(size_t)u * n + k];
-        put(row, t, __fadd_rn(get(row, t), __fmul_rn(-lik, ku)));
-      }
-    }
-    float mx = 0.f;
-#pragma unroll
-    for (int d = 0; d < kMaxIluBands; ++d) mx = fmaxf(mx, fabsf(row[d]));
-    const float floor = fmaxf(__fmul_rn(mx, eps), guard);
-    const float piv = get(row, plan.idx0);
-    if (!(fabsf(piv) >= floor))
-      put(row, plan.idx0, piv < 0.f ? -floor : floor);
-#pragma unroll
-    for (int d = 0; d < kMaxIluBands; ++d)
-      if (d < nb) fact[(size_t)d * n + i] = row[d];
   }
 }
 
-// The plan of offsets (host memory, nbands ints; must include 0).
-static cudaError_t ilu_plan(const int* offsets, int nbands, IluPlan* plan) {
+constexpr int kIluWarps = 4;     // warps a block (a warp a tile)
+constexpr int kIluGroup = 32;    // rows a warp factors at once, a lane each
+// Blocks an SM the kernel is built for (at most 128 registers a thread):
+// with the maximum block size alone ptxas aims at full occupancy and
+// spills the row.
+constexpr int kIluBlocksPerSm = 4;
+
+// The wavefront.  A warp takes tiles in ticket order (an atomic counter
+// after the flags); in its tile it factors groups of 32 consecutive rows,
+// a lane a row, in rounds: every lane whose rows are ready factors its row
+// (the whole row, in the elimination order of the one-thread kernel), and
+// the round ends in __syncwarp.  Row k is ready for row i when k is in an
+// earlier group of the tile, or done in an earlier round of this group
+// (the warp's ballot), or, in an earlier tile, when its flag is set.  The
+// current and previous groups' factored rows are kept in shared memory
+// for the lanes of the warp; older rows of the tile and other tiles' rows
+// are read back from the factors through L2 (__ldcg: written by another
+// SM, never through the read-only path).  NB: the row's slots in
+// registers, a power of two at least nbands (4, 8 or 16).
+template <typename T, int NB>
+__global__ void __launch_bounds__(kIluWarps * 32, kIluBlocksPerSm)
+    ilu0_wave_kernel(const T* __restrict__ bands, IluPlan plan, float* fact,
+                     unsigned* flags, int n, int tile_rows, int ntiles,
+                     float eps, float guard) {
+  __shared__ float ring[kIluWarps][2][kIluGroup * NB];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int tile = 0;
+  if (lane == 0) tile = (int)atomicAdd(flags + n, 1u);
+  tile = __shfl_sync(0xffffffffu, tile, 0);
+  if (tile >= ntiles) return;
+  const int t0 = tile * tile_rows;
+  const int t1 = min(n, t0 + tile_rows);
+  // rows that a row of a later tile may read publish a flag
+  const int reach = plan.nlower ? -plan.l_off[0] : 0;
+  float nxt[NB];
+  ilu_load_row(bands, plan, t0 + lane < t1 ? t0 + lane : n, n, nxt);
+  for (int g0 = t0, gi = 0; g0 < t1; g0 += kIluGroup, ++gi) {
+    float* cur = ring[warp][gi & 1];
+    const float* prev = ring[warp][(gi & 1) ^ 1];
+    const int i = g0 + lane;
+    bool done = i >= t1;
+    float row[NB];
+#pragma unroll
+    for (int d = 0; d < NB; ++d) row[d] = nxt[d];
+    {
+      const int inext = i + kIluGroup;
+      ilu_load_row(bands, plan, inext < t1 ? inext : n, n, nxt);
+    }
+    // need: the lower offsets whose row this row waits for (the plain
+    // version's deps); pend: those not yet seen ready
+    unsigned need = 0;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j >= plan.nlower) break;
+      const int k = i + plan.l_off[j];
+      if (!done && k >= 0 &&
+          (plan.wait[j] || get(row, plan.l_band[j]) != 0.f))
+        need |= 1u << j;
+    }
+    unsigned pend = 0;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j >= plan.nlower) break;
+      const int k = i + plan.l_off[j];
+      if (((need >> j) & 1u) && !(k >= t0 && k < g0)) pend |= 1u << j;
+    }
+    while (true) {
+      const unsigned dmask = __ballot_sync(0xffffffffu, done);
+      if (dmask == 0xffffffffu) break;
+      if (!done) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          if (j >= plan.nlower) break;
+          if (!((pend >> j) & 1u)) continue;
+          const int k = i + plan.l_off[j];
+          const bool ok = k >= g0 ? ((dmask >> (k - g0)) & 1u) != 0u
+                                  : ld_acquire(flags + k) != 0u;
+          if (ok) pend &= ~(1u << j);
+        }
+        if (pend == 0u) {
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            if (j >= plan.nlower) break;
+            const int k = i + plan.l_off[j];
+            const int lb = plan.l_band[j];
+            const bool dep = (need >> j) & 1u;
+            // row k of the factors, or a unit-diagonal row where the
+            // dependency is cut (the plain version's seed)
+            const float* src = nullptr;
+            size_t stride = 1;
+            if (dep) {
+              if (k >= g0) {
+                src = cur + (k - g0) * NB;
+              } else if (k >= g0 - kIluGroup && k >= t0) {
+                src = prev + (k - g0 + kIluGroup) * NB;
+              } else {
+                src = fact + k;
+                stride = (size_t)n;
+              }
+            }
+            const bool global = dep && stride != 1;
+            const float kd =
+                !dep ? 1.f
+                     : global ? __ldcg(src + (size_t)plan.idx0 * stride)
+                              : src[plan.idx0];
+            const float lik = __fdiv_rn(get(row, lb), kd);
+            put(row, lb, lik);
+#pragma unroll
+            for (int q = 0; q < NB; ++q) {
+              if (q >= plan.npair[j]) break;
+              const int u = plan.pair_u[j][q], t = plan.pair_t[j][q];
+              const float ku =
+                  !dep ? (u == plan.idx0 ? 1.f : 0.f)
+                       : global ? __ldcg(src + (size_t)u * stride) : src[u];
+              put(row, t, __fadd_rn(get(row, t), __fmul_rn(-lik, ku)));
+            }
+          }
+          float m[NB];   // max |row|, a tree (max is exact)
+#pragma unroll
+          for (int d = 0; d < NB; ++d) m[d] = fabsf(row[d]);
+#pragma unroll
+          for (int w = NB / 2; w >= 1; w >>= 1) {
+#pragma unroll
+            for (int q = 0; q < w; ++q) m[q] = fmaxf(m[q], m[q + w]);
+          }
+          const float mx = m[0];
+          const float floor = fmaxf(__fmul_rn(mx, eps), guard);
+          const float piv = get(row, plan.idx0);
+          if (!(fabsf(piv) >= floor))
+            put(row, plan.idx0, piv < 0.f ? -floor : floor);
+#pragma unroll
+          for (int d = 0; d < NB; ++d) {
+            cur[lane * NB + d] = row[d];
+            if (d < plan.nbands) fact[(size_t)d * n + i] = row[d];
+          }
+          if (i + reach >= t1) st_release(flags + i, 1u);
+          done = true;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The plan of offsets (host memory, nbands ints; must include 0); bit j
+// of wait_mask: the j-th lower offset (most negative first) is always
+// waited for.
+static cudaError_t ilu_plan(const int* offsets, int nbands, int wait_mask,
+                            IluPlan* plan) {
   if (nbands <= 0 || nbands > kMaxIluBands) return cudaErrorInvalidValue;
   *plan = IluPlan{};
   plan->nbands = nbands;
@@ -845,6 +1019,7 @@ static cudaError_t ilu_plan(const int* offsets, int nbands, IluPlan* plan) {
   for (int j = 0; j < plan->nlower; ++j) {
     plan->l_off[j] = lower[j];
     plan->l_band[j] = band_of(lower[j]);
+    plan->wait[j] = (wait_mask >> j) & 1;
     int q = 0;
     for (int u : upper) {
       const int t = band_of(u + lower[j]);
@@ -1022,21 +1197,38 @@ extern "C" int repro_trisweep_probe(const int* offsets, int nbands,
 }
 
 // bands (nbands, n) row-major, offsets host memory (with 0); fact (nbands,
-// n) f32 out; eps and guard the pivot floor's terms.
+// n) f32 out; flags n + 1 zeroed ints (a ready flag a row, then the
+// ticket counter); wait_mask: bit j, always wait for the j-th lower
+// offset (most negative first); tiles of tile_rows rows, a warp each
+// (the plan: kernels/tuning.py::ilu0_plan); eps and guard the pivot
+// floor's terms.
 extern "C" int repro_ilu0_factor(const void* bands, int b_bf16,
                                  const int* offsets, int nbands, float* fact,
-                                 int n, float eps, float guard,
-                                 void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+                                 unsigned* flags, int wait_mask,
+                                 int tile_rows, int n, float eps,
+                                 float guard, void* stream) {
+  if (n <= 0 || tile_rows <= 0) return cudaErrorInvalidValue;
   repro::IluPlan plan;
-  cudaError_t e = repro::ilu_plan(offsets, nbands, &plan);
+  cudaError_t e = repro::ilu_plan(offsets, nbands, wait_mask, &plan);
   if (e != cudaSuccess) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b_bf16)
-    repro::ilu0_kernel<repro::bf16><<<1, 1, 0, st>>>(
-        static_cast<const repro::bf16*>(bands), plan, fact, n, eps, guard);
+  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  const int grid = (ntiles + repro::kIluWarps - 1) / repro::kIluWarps;
+  const int threads = repro::kIluWarps * 32;
+  auto launch = [&](auto kernel, const auto* b) {
+    kernel<<<grid, threads, 0, st>>>(b, plan, fact, flags, n, tile_rows,
+                                     ntiles, eps, guard);
+  };
+  const auto* bf = static_cast<const repro::bf16*>(bands);
+  const auto* f32 = static_cast<const float*>(bands);
+  if (nbands <= 4)
+    b_bf16 ? launch(repro::ilu0_wave_kernel<repro::bf16, 4>, bf)
+           : launch(repro::ilu0_wave_kernel<float, 4>, f32);
+  else if (nbands <= 8)
+    b_bf16 ? launch(repro::ilu0_wave_kernel<repro::bf16, 8>, bf)
+           : launch(repro::ilu0_wave_kernel<float, 8>, f32);
   else
-    repro::ilu0_kernel<float><<<1, 1, 0, st>>>(
-        static_cast<const float*>(bands), plan, fact, n, eps, guard);
+    b_bf16 ? launch(repro::ilu0_wave_kernel<repro::bf16, 16>, bf)
+           : launch(repro::ilu0_wave_kernel<float, 16>, f32);
   return cudaGetLastError();
 }

@@ -70,11 +70,15 @@ SIGNATURES = {
     "repro_banded_matvec_halo": (P, I, P, I, P, P, I, I, I, I, P),
     # values, v_bf16, cols, x, x_rows, y, rows, width, k, threads, stream
     "repro_ell_matvec_halo": (P, I, P, P, I, P, I, I, I, I, P),
-    # v, v_bf16, w, j (device int[k]), h, w_out, partials, partial_blocks,
-    # k, m1, n, blocks_per_sm, stream
+    # v, v_bf16, w, meta (device int[2 k + 1]: j, then the split's prefix
+    # sums), h, w_out, partials, grid, k, m1, n, pieces, stream (the
+    # split: tuning.batched_cgs2_split)
     "repro_batched_cgs2": (P, I, P, P, P, P, P, I, I, I, I, I, P),
-    # v_bf16, k, m1, n, blocks_per_sm, out
-    "repro_batched_cgs2_shape": (I, I, I, I, I, P),
+    # v_bf16, m1, out (int[1]: co-resident blocks)
+    "repro_batched_cgs2_capacity": (I, I, P),
+    # rows, elem_size, out (int[3]: bucket of rows, pieces at once,
+    # threads a block; tuning.batched_unroll's rule)
+    "repro_batched_cgs2_unroll": (I, I, P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, x, shifts (device
     # float[s] or null), u, sigma, raw, partials, partial_blocks, n, s, eps,
     # blocks_per_sm, stream
@@ -133,8 +137,9 @@ SIGNATURES = {
     # n, chunk, threads, ring, far_l2, unit, reverse, stream
     "repro_trisweep_probe": (P, I, P, I, I, I, I, I, I, I, P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, fact (nbands, n),
-    # n, eps, guard, stream
-    "repro_ilu0_factor": (P, I, P, I, P, I, F, F, P),
+    # flags (zeroed int[n + 1]), wait_mask, tile_rows, n, eps, guard,
+    # stream (the plan: tuning.ilu0_plan)
+    "repro_ilu0_factor": (P, I, P, I, P, P, I, I, I, F, F, P),
     # The model stack's kernels:
     # float32 attention: q, k, v, o, b, hq, hkv, sq, skv, d, strides (host
     # long long[12]: batch, head, position strides of q, k, v, o), scale,

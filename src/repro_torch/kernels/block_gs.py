@@ -34,6 +34,9 @@ the bases from global memory, so no basis is too large for them.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -100,35 +103,83 @@ def batched_cgs2(v: torch.Tensor, w: torch.Tensor, j):
                         f"got v {v.dtype}, w {w.dtype}")
     if not v.is_contiguous():
         raise ValueError("batched_cgs2: v must be contiguous")
-    cap = tuning.partial_blocks(v.device, tuning.STREAM_BLOCKS_PER_SM)
-    per_lane = cap // k
-    if per_lane < 1:
-        raise ValueError(f"batched_cgs2: {k} lanes exceed the {cap} "
-                         f"co-resident blocks of one cooperative launch")
     wf = w.to(torch.float32).contiguous()
-    jd = torch.from_numpy(j).to(v.device)
     h = torch.empty((k, m1), dtype=torch.float32, device=v.device)
     w_out = torch.empty((k, n), dtype=torch.float32, device=v.device)
-    part = torch.empty(2 * k * m1 * per_lane, dtype=torch.float32,
+    split, meta = _split_meta(v, wf, w_out, j)
+    # j and the split's prefix sums in one host-to-device copy
+    meta = torch.from_numpy(meta).to(v.device)
+    part = torch.empty(2 * m1 * split["grid"], dtype=torch.float32,
                        device=v.device)
     rc = _build.library().repro_batched_cgs2(
         v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
-        jd.data_ptr(), h.data_ptr(), w_out.data_ptr(), part.data_ptr(),
-        per_lane, k, m1, n, tuning.STREAM_BLOCKS_PER_SM,
-        _build.stream_ptr(v))
+        meta.data_ptr(), h.data_ptr(), w_out.data_ptr(), part.data_ptr(),
+        split["grid"], k, m1, n, split["pieces"], _build.stream_ptr(v))
     _build.check("batched_cgs2", rc)
     batched_cgs2.launches += 1
+    batched_cgs2.routes[split["route"]] += 1
     return h, w_out
 
 
 batched_cgs2.launches = 0
+batched_cgs2.routes = {"vec": 0, "scalar": 0}
 
 
-def launch_shape(v_dtype, k: int, m1: int, n: int) -> dict:
-    """The grid batched_cgs2 launches at this shape on the current card."""
-    return _build.shape("repro_batched_cgs2_shape",
-                        int(v_dtype == torch.bfloat16), k, m1, n,
-                        tuning.STREAM_BLOCKS_PER_SM)
+def capacity(v: torch.Tensor) -> int:
+    """The co-resident blocks of the kernel for this basis (the
+    cooperative grid's limit) on its card."""
+    return _capacity(v.device.index, v.dtype == torch.bfloat16, v.shape[1])
+
+
+@functools.lru_cache(maxsize=64)
+def _capacity(index: int, bf16: bool, m1: int) -> int:
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(index):
+        _build.check("batched_cgs2 capacity",
+                     _build.library().repro_batched_cgs2_capacity(
+                         int(bf16), m1, out))
+    return out[0]
+
+
+def kernel_unroll(rows: int, elem_size: int) -> tuple:
+    """The kernel's own launch-shape rule for a lane of ``rows`` rows of
+    ``elem_size``-byte V: (bucket of rows, pieces a thread takes at once,
+    threads a block), which ``tuning.batched_unroll`` and
+    ``tuning.BATCHED_THREADS`` copy for the split.  Needs the built
+    library."""
+    out = (ctypes.c_int * 3)()
+    _build.check("batched_cgs2 unroll",
+                 _build.library().repro_batched_cgs2_unroll(rows, elem_size,
+                                                            out))
+    return out[0], out[1], out[2]
+
+
+def launch_plan(v: torch.Tensor, wf: torch.Tensor, w_out: torch.Tensor,
+                j) -> dict:
+    """``tuning.batched_cgs2_split`` for these operands on the current
+    card: 16-byte pieces where V, w and w'' are 16-byte aligned and the
+    row strides keep them so, else the scalar route."""
+    return dict(_split_meta(v, wf, w_out, j)[0])
+
+
+def _split_meta(v, wf, w_out, j):
+    """(the split, its kernel argument: j then the prefix sums, int32)."""
+    k, m1, n = v.shape
+    aligned = tuning.stream_aligned(
+        (v.data_ptr(), wf.data_ptr(), w_out.data_ptr()),
+        n * v.element_size(), 2) and (n * 4) % 16 == 0
+    return _split_of(tuple(int(x) for x in j), n, v.element_size(), aligned,
+                     capacity(v))
+
+
+@functools.lru_cache(maxsize=1024)
+def _split_of(js: tuple, n: int, elem: int, aligned: bool, budget: int):
+    """The split and its meta array, cached: a solve repeats a few lane
+    patterns (callers only read them)."""
+    split = tuning.batched_cgs2_split(js, n, elem, aligned, budget)
+    meta = np.concatenate([np.asarray(js, np.int32),
+                           np.asarray(split["first"], np.int32)])
+    return split, meta
 
 
 # --------------------------------------------------------------------------

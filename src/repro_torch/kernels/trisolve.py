@@ -6,7 +6,9 @@ and ``banded_block_jacobi`` restrictions).  The kernels are
 ``csrc/trisolve.cu``; its source note gives the designs and the bounds.
 
 ``banded_ilu0(bands, offsets)`` is the setup: incomplete LU restricted to
-the band pattern, one pass over the rows (``ilu0_factor``).  Entries whose
+the band pattern, one pass over the rows (``ilu0_factor``), run on the
+card as a wavefront: a warp a tile of rows, each row waiting only for
+the rows the plain version's dependency rule names (``tuning.ilu0_plan``).  Entries whose
 column falls outside [0, n) are zeroed first, rows before the first see
 unit-diagonal rows, and each pivot gets the scale-relative safe
 replacement ``max(max|row| eps, tiny^(1/2))`` at factor time, so the
@@ -166,11 +168,15 @@ def ilu0_factor(bands: torch.Tensor, offsets):
     if nbands > MAX_ILU_BANDS:
         raise ValueError(f"ilu0_factor: {nbands} bands; the kernel takes at "
                          f"most {MAX_ILU_BANDS}")
+    plan = tuning.ilu0_plan(offsets)
     fact = torch.empty((nbands, n), dtype=torch.float32, device=bands.device)
+    # a ready flag a row, then the tiles' ticket counter
+    flags = torch.zeros(n + 1, dtype=torch.int32, device=bands.device)
     offs = (ctypes.c_int * nbands)(*offsets)
     rc = _build.library().repro_ilu0_factor(
         bands.data_ptr(), int(bands.dtype == torch.bfloat16),
-        ctypes.addressof(offs), nbands, fact.data_ptr(), n,
+        ctypes.addressof(offs), nbands, fact.data_ptr(), flags.data_ptr(),
+        plan["wait_mask"], plan["tile_rows"], n,
         torch.finfo(torch.float32).eps,
         torch.finfo(torch.float32).tiny ** 0.5, _build.stream_ptr(bands))
     _build.check("ilu0_factor", rc)

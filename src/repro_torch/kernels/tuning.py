@@ -22,7 +22,9 @@ no meaning here.  What the kernels need is
   CHEB_BLOCKS_PER_SM blocks per SM at most; the triangular sweep
   (csrc/trisolve.cu) takes a device-wide scan without a far band, else a
   chain of chunks, one block per right-hand side: ``trisweep_plan``; the
-  ILU(0) setup is one thread;
+  ILU(0) setup is a wavefront of warps over tiles of rows: ``ilu0_plan``;
+- the per-lane CGS2 of the block solver (csrc/batched_cgs2.cu): blocks
+  split over the active lanes by their rows, ``batched_cgs2_split``;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check;
@@ -64,9 +66,9 @@ SMEM_LIMIT = 232_448
 # warps in flight.
 GS_BLOCKS_PER_SM = 1
 FUSED_BLOCKS_PER_SM = 4
-# The streamed GS passes (V read from global memory: gs_project where a
-# block's slice does not fit shared memory, batched_cgs2 always) are
-# latency-bound and want as many warps in flight as the SM holds (the
+# The streamed GS pass (V read from global memory: gs_project where a
+# block's slice does not fit shared memory) is
+# latency-bound and wants as many warps in flight as the SM holds (the
 # occupancy calculator caps this; see PERF.md for the sweep).
 STREAM_BLOCKS_PER_SM = 8
 SPMV_THREADS = 256        # rows per SpMV block, one thread per row
@@ -129,6 +131,25 @@ GEMV_ROWS_CHOICES = (1, 2, 4, 8)   # the kernel's instantiations
 # kernel's kChunkRows) and a warp a strip of 32 x that (at most
 # TRISWEEP_MAX_THREADS threads a block), up to TRISWEEP_STAGES chunks'
 # loads in flight (8, 4 or 2, the most that fit SMEM_BUDGET).
+# The ILU(0) setup (csrc/trisolve.cu): a warp a tile of at most
+# ILU_MAX_TILE consecutive rows, in groups of ILU_GROUP rows (a lane a
+# row); a tile is the nearest lower offset of at least ILU_GROUP rows (a
+# grid line of a stencil), so a tile's rows wait for the tile before it
+# row by row.
+ILU_GROUP = 32
+ILU_MAX_TILE = 1024
+# batched_cgs2 (csrc/batched_cgs2.cu): blocks of BATCHED_THREADS threads,
+# as many as are co-resident (two an SM, fixed in the kernel), split over
+# the active lanes by their rows; a lane's thread keeps
+# up to BATCHED_SLOTS 16-byte loads of V in flight: a lane of at most 2
+# rows takes BATCHED_SLOTS / 2 pieces at once (at most 32 columns of w),
+# a larger one a piece with up to BATCHED_SLOTS of its rows.  Two buckets
+# only: each is a copy of the three sweeps in the one kernel, and more
+# copies pushed it past 255 registers (PERF.md).  The kernel keeps the
+# same rule (block_gs.kernel_unroll reports it; the card tests compare).
+BATCHED_THREADS = 128
+BATCHED_SLOTS = 16
+BATCHED_BUCKETS = (2, 32)
 TRISWEEP_SCAN_ROWS = 8
 TRISWEEP_SCAN_TILE = 256 * TRISWEEP_SCAN_ROWS
 TRISWEEP_SCAN_BLOCKS_PER_SM = 2
@@ -357,6 +378,116 @@ def trisweep_plan(offsets, n: int, k: int, elem_size: int,
             "smem": trisweep_smem_bytes(threads, r, nbands, elem_size, ring,
                                         stages),
             "blocks_per_sm": 0}
+
+
+def ilu0_plan(offsets) -> dict:
+    """The ILU(0) setup's dependency rule and tiles for a band stack with
+    these offsets (0 among them).
+
+    ``lower``: the lower offsets, most negative first (the elimination
+    order); ``wait``: for each, whether a row always waits for row i + l
+    (l is a slot an earlier elimination can fill, u + l' for an upper u
+    and a lower l': the plain version's ``filled``) or only where
+    a[i, l] != 0; ``wait_mask`` the same as bits.  ``tile_rows``: the rows
+    a warp takes (the nearest lower offset of at least ILU_GROUP rows, at
+    most ILU_MAX_TILE; ILU_MAX_TILE without one)."""
+    lower = tuple(sorted(o for o in offsets if o < 0))
+    upper = [o for o in offsets if o > 0]
+    filled = {u + lo for lo in lower for u in upper}
+    wait = tuple(lo in filled for lo in lower)
+    far = [-lo for lo in lower if -lo >= ILU_GROUP]
+    tile = min(ILU_MAX_TILE, min(far)) if far else ILU_MAX_TILE
+    return {"lower": lower, "wait": wait,
+            "wait_mask": sum(1 << j for j, w in enumerate(wait) if w),
+            "tile_rows": tile}
+
+
+def batched_unroll(rows: int, elem_size: int) -> tuple:
+    """(R, U) of a lane with ``rows`` valid basis rows: the bucket of R
+    rows (the smallest of BATCHED_BUCKETS that holds them, else the
+    largest, looped) and the U 16-byte pieces a thread takes at once, so
+    that U min(R, BATCHED_SLOTS) <= BATCHED_SLOTS loads of V and
+    U x (16 / elem_size) <= 32 columns of w are in flight
+    (csrc/batched_cgs2.cu's bc_unroll)."""
+    r = next((b for b in BATCHED_BUCKETS if b >= rows), BATCHED_BUCKETS[-1])
+    vec = 16 // elem_size
+    if r >= BATCHED_SLOTS:
+        return r, 1
+    return r, min(BATCHED_SLOTS // r, 32 // vec)
+
+
+def _split_blocks(js, cap, budget: int) -> list:
+    """The blocks of ``batched_cgs2_split``: shares clamp(c (j + 1), 1,
+    cap) summing to min(budget, sum of caps), rounded down, the rest to
+    the largest remainders."""
+    active = [lane for lane, j in enumerate(js) if j >= 0]
+    total = min(budget, sum(cap[lane] for lane in active))
+
+    def shares(c):
+        return [min(cap[lane], max(1.0, c * (js[lane] + 1)))
+                for lane in active]
+    lo, hi = 0.0, float(max(cap))
+    for _ in range(60):                    # sum of shares(c) is monotone
+        mid = (lo + hi) / 2
+        if sum(shares(mid)) < total:
+            lo = mid
+        else:
+            hi = mid
+    x = dict(zip(active, shares(hi)))
+    blocks = [0] * len(js)
+    for lane in active:
+        blocks[lane] = min(cap[lane], max(1, int(x[lane])))
+    spare = total - sum(blocks)
+    order = sorted((lane for lane in active if blocks[lane] < cap[lane]),
+                   key=lambda lane: (blocks[lane] - x[lane], lane))
+    for lane in order[:max(0, spare)]:
+        blocks[lane] += 1
+    return blocks
+
+
+def batched_cgs2_split(js, n: int, elem_size: int, aligned: bool,
+                       budget: int) -> dict:
+    """How ``batched_cgs2`` spreads its cooperative grid over the lanes.
+
+    js: each lane's step (rows 0..j valid; -1: no work); ``budget``: the
+    co-resident blocks (the cooperative launch's limit).  A lane with
+    j = -1 gets no block.  Every active lane gets at least one, at most
+    what gives each of its threads one round of U pieces (``cap``), and
+    between those bounds blocks in proportion to its rows j + 1: shares
+    x_l = clamp(c (j_l + 1), 1, cap_l) with c set so they sum to the
+    budget (or to the caps' sum, if smaller), rounded down, the blocks
+    left given to the largest remainders.  Raises where the active lanes
+    outnumber the budget.
+
+    Returns ``blocks`` (per lane), ``first`` (k + 1 prefix sums: lane l
+    owns blocks first[l] .. first[l + 1] - 1), ``grid`` (first[k]; with
+    no active lane, min(budget, k) blocks that only copy w), ``cap``,
+    and the column split: ``vec`` columns a 16-byte piece, ``pieces``
+    (0 where not ``aligned``: the scalar route) and the scalar ``tail``;
+    ``route`` "vec" or "scalar"."""
+    js = [int(j) for j in js]
+    k = len(js)
+    vec = 16 // elem_size
+    pieces = n // vec if aligned else 0
+    tail = n - pieces * vec
+    t = BATCHED_THREADS
+    active = [lane for lane, j in enumerate(js) if j >= 0]
+    if len(active) > budget:
+        raise ValueError(f"batched_cgs2: {len(active)} active lanes exceed "
+                         f"the {budget} co-resident blocks of one "
+                         f"cooperative launch")
+    cap = [0] * k
+    for lane in active:
+        u = batched_unroll(js[lane] + 1, elem_size)[1]
+        cap[lane] = max(1, -(-pieces // (t * u)), -(-tail // t))
+    blocks = _split_blocks(js, cap, budget) if active else [0] * k
+    first = [0]
+    for b in blocks:
+        first.append(first[-1] + b)
+    grid = first[-1] if active else max(1, min(budget, k))
+    return {"blocks": blocks, "first": first, "grid": grid, "cap": cap,
+            "threads": t, "vec": vec, "pieces": pieces, "tail": tail,
+            "route": "vec" if pieces else "scalar"}
 
 
 # --------------------------------------------------------------------------

@@ -1133,3 +1133,141 @@ def test_reduced_zamba_on_card_matches_cpu(dev, num_layers):
         lc, cache_c = model.decode(params_c, cache_c, toks[:, i], i)
         lh, cache = model.decode(params, cache, toks[:, i], i)
         assert _relerr(lc.cpu(), lh) < 1e-4
+
+
+# --------------------------------------------------------------------------
+# the fourth redesigns: the ILU(0) setup's wavefront, batched_cgs2's three
+# sweeps over a work-split grid
+# --------------------------------------------------------------------------
+def _ilu_cases(dev):
+    """(name, bands, offsets): stencils, line-Jacobi's pattern, a random
+    (-2, -1, 0) pattern with zero entries, at the shapes the wavefront
+    tiles differently (a tile a grid line, several lines a tile, one
+    tile)."""
+    from repro_torch.core import stencils
+
+    cases = []
+    for nx in (64, 128):
+        op = stencils.convection_diffusion_2d(nx, nx, device=dev)
+        cases.append((f"five-point {nx}^2", op.bands, op.offsets))
+        cases.append((f"line-Jacobi {nx}^2", op.bands[1:4].contiguous(),
+                      (-1, 0, 1)))
+    op3 = stencils.poisson_3d(16, 16, 16, device=dev)
+    cases.append(("seven-point 16^3", op3.bands, op3.offsets))
+    g = torch.Generator(device=dev).manual_seed(21)
+    n = 1 << 16
+    b = torch.rand(3, n, device=dev, generator=g) - 0.5
+    b[2] += 2.0
+    b[:2] *= torch.rand(2, n, device=dev, generator=g) > 0.3   # zero entries
+    cases.append(("random (-2, -1, 0), 2^16", b, (-2, -1, 0)))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ilu0_wavefront_gives_the_plain_bits(dev, dtype):
+    from repro_torch.kernels import trisolve
+
+    for name, bands, offs in _ilu_cases(dev):
+        b = bands.to(dtype).contiguous()
+        before = trisolve.ilu0_factor.launches
+        got = trisolve.ilu0_factor(b, offs)
+        torch.cuda.synchronize()
+        assert trisolve.ilu0_factor.launches == before + 1
+        want = trisolve.ilu0_factor_plain(b.cpu(), offs)
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == torch.float32
+            assert torch.equal(g_.cpu(), w_), name
+
+
+@pytest.mark.parametrize("n", [1, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ilu0_wavefront_tiny_systems(dev, n, dtype):
+    from repro_torch.kernels import trisolve
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    offs = (-2, -1, 0, 1)
+    b = torch.rand(4, n, device=dev, generator=g) - 0.5
+    b[2] += 2.0
+    b = b.to(dtype)
+    got = trisolve.ilu0_factor(b, offs)
+    want = trisolve.ilu0_factor_plain(b.cpu(), offs)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.cpu(), w_)
+
+
+def test_ilu0_wavefront_repeats_without_a_hang(dev):
+    """20 launches back to back (each with its own zeroed flags): no hang,
+    the same bits every time."""
+    from repro_torch.core import stencils
+    from repro_torch.kernels import trisolve
+
+    op = stencils.convection_diffusion_2d(256, 256, device=dev)
+    outs = [trisolve.ilu0_factor(op.bands, op.offsets) for _ in range(20)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,js", [
+    (4, 1 << 20, (0, 7, 15, 29)),
+    (4, 1 << 20, (15, 15, 15, 15)),
+    (8, 8192, (0, 3, 7, 12, 15, 20, 25, 29)),
+    (3, 5000, (-1, -1, -1)),
+    (5, 1001, (4, -1, 30, 0, 9)),                 # n off the 16-byte grid
+    (2, 40_000, (40, 3)),                         # a lane of 41 rows
+    (3, 65_536, (16, 2, 1))])                     # 17 rows: two chunks
+def test_batched_cgs2_three_sweeps_match_plain(dev, k, n, js, dtype):
+    from repro_torch.kernels import block_gs
+
+    m1 = max(31, max(js) + 1)
+    v = torch.stack([_basis(n, m1, max(j, 0), torch.float32, dev, seed=i)
+                     for i, j in enumerate(js)]).to(dtype).contiguous()
+    w = torch.randn(k, n, device=dev)
+    before = dict(block_gs.batched_cgs2.routes)
+    h, w2 = block_gs.batched_cgs2(v, w, js)
+    hp, wp = block_gs.batched_cgs2_plain(v, w, js)
+    torch.cuda.synchronize()
+    route = "vec" if (n * v.element_size()) % 16 == 0 else "scalar"
+    assert block_gs.batched_cgs2.routes[route] == before[route] + 1
+    assert _relerr(h, hp) < TOL[dtype] and _relerr(w2, wp) < TOL[dtype]
+    for lane, j in enumerate(js):
+        if j < 0:
+            assert torch.equal(w2[lane], w[lane])
+            assert not h[lane].any()
+    h2, w22 = block_gs.batched_cgs2(v, w, js)
+    assert torch.equal(h, h2) and torch.equal(w2, w22)
+
+
+def test_batched_cgs2_kernel_keeps_the_splits_rule(dev):
+    """The split (tuning) copies the kernel's buckets, pieces at once and
+    block size; the capacity is at most two blocks an SM."""
+    from repro_torch.kernels import block_gs, tuning
+
+    for elem in (2, 4):
+        for rows in range(1, 65):
+            r, u = tuning.batched_unroll(rows, elem)
+            assert block_gs.kernel_unroll(rows, elem) == (
+                r, u, tuning.BATCHED_THREADS), (rows, elem)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        v = torch.zeros(1, 31, 8, device=dev, dtype=dtype)
+        assert 1 <= block_gs.capacity(v) <= 2 * sms
+
+
+def test_batched_cgs2_misaligned_view_takes_the_scalar_route(dev):
+    from repro_torch.kernels import block_gs
+
+    k, n, m1 = 2, 4096, 9
+    buf = torch.randn(k * n + 1, device=dev)
+    w = buf[1:].view(k, n)                        # 4 bytes off 16
+    v = torch.stack([_basis(n, m1, 8, torch.float32, dev, seed=i)
+                     for i in range(k)]).contiguous()
+    before = block_gs.batched_cgs2.routes["scalar"]
+    h, w2 = block_gs.batched_cgs2(v, w, (8, 5))
+    hp, wp = block_gs.batched_cgs2_plain(v, w, (8, 5))
+    torch.cuda.synchronize()
+    assert block_gs.batched_cgs2.routes["scalar"] == before + 1
+    assert _relerr(h, hp) < TOL[torch.float32]
+    assert _relerr(w2, wp) < TOL[torch.float32]
