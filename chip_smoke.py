@@ -6,16 +6,21 @@
         # archive` of the parent commit, unpacked) against this one in
         # turn (measure_cells); GROUP: redesign1 (rows 7 and 20), gemv
         # (rows 4 and 6), redesign3 (rows 1 and 19), redesign4 (row 13
-        # and the ILU(0) setup); default all four; redesign3_sweep (the
-        # launch shapes of rows 1 and 19) only when named
+        # and the ILU(0) setup), redesign5 (rows 2 and 9: the streamed
+        # cgs2 / gs_project and block_gs_pass, each wrapper's host cost,
+        # the dense and banded cgs2_fused and banded s-step solves);
+        # default all five;
+        # redesign3_sweep (the launch shapes of rows 1 and 19) only when
+        # named
 
 Phases, one JSON line each (``"phase": ...``):
 
 1. build      compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
               per source, in parallel); nvcc version; card and power limit;
               ``ptxas -v``'s registers, spills and static shared memory of
-              the sliced-ELL, bf16 attention, ILU(0) wavefront and
-              batched_cgs2 kernels, and the HGMMA
+              the sliced-ELL, bf16 attention, ILU(0) wavefront,
+              batched_cgs2, streamed GS (gs_stream_kernel) and block-GS
+              pass kernels, and the HGMMA
               (wgmma) instructions in each attention instantiation's SASS
               (``cuobjdump -sass``): none fails the run.
 2. kernels    every kernel of the main path against its plain PyTorch
@@ -45,8 +50,8 @@ Phases, one JSON line each (``"phase": ...``):
               bound (the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s
               float32).  The cooperative kernels' blocks per SM are swept
               (each setting checked against the plain version), and
-              gs_project's streamed variant is swept at the same shape
-              beside its shared-memory variant.  Per solve: wall and device
+              gs_project's streamed kernel is timed at the same shape
+              beside its shared-memory pass.  Per solve: wall and device
               time per Arnoldi step.
 
 The sparse slice (stencil and graph systems, the block multi-RHS solver):
@@ -64,14 +69,18 @@ The sparse slice (stencil and graph systems, the block multi-RHS solver):
               per-lane j = (0, 7, 15, 29), and at k = 8, n = 8192, with
               its split of the grid over the lanes and the same bits on a
               second call; the kernel's own launch rule (bucket, pieces
-              at once, block size) equal to ``tuning``'s copy at 1-31 rows.
+              at once, block size) equal to ``tuning``'s copy at 1-31 rows;
+              gs_project and the streamed cgs2 (one launch) at n = 2^20,
+              j = 0, 15, 29 and 30, and on their scalar route (n = 2^20 +
+              3; w one element off 16 bytes), each call's route counted
+              and the same bits on a second call.
 7. sparse_solve GMRES(30), tol 1e-5, 200 restarts, on the 1024^2
               convection-diffusion system (b from numpy seed 1) through
               fmt = banded / ell / sell (each on its SpMV kernel), under gs =
               cgs2 and cgs2_fused.  Counters zeroed around each solve and
               held to the scheme (SpMV launches = steps + restarts + 1, one
-              per mat-vec in every format; gs_project = 2 x steps under
-              cgs2_fused).  Checks:
+              per mat-vec in every format; the streamed cgs2 = steps
+              under cgs2_fused, no gs_project).  Checks:
               converged, true relres <= 2 tol, the true residual after the
               first restart equal across formats within 1e-4, restarts
               within 10% (about 70 restarts on an ill-conditioned system
@@ -113,8 +122,10 @@ The s-step slice (s = 5, 6 blocks: m = 30):
               convection-diffusion stencil, unshifted and with the Newton
               shifts of its Gershgorin interval (and whether the two formats
               give the same bits); dense powers at n = 10,000;
-              block_gs_pass at m1 = 31, n = 2^20 and n = 10,000, k_start
-              0, 10 and 25.
+              block_gs_pass at m1 = 31, n = 2^20 and n = 10,000, s = 1,
+              2, 5 and 8, k_start 0, 10, 25 and 30, and on its scalar route
+              (n = 2^20 + 3; W one element off 16 bytes), each call's route
+              and the same bits on a second call.
 11. sstep_solve  gmres_sstep, tol 1e-5, monomial and Newton bases: the
               dense n = 10,000 dominance-0.015 system (Newton runs the
               reference powers over the GEMV kernel) and the 1024^2 stencil
@@ -610,21 +621,27 @@ def csr_of(values, cols):
     return coo.coalesce().to_sparse_csr()
 
 
-def solve_timing(run, steps: int, phase="sparse_timing", **info) -> dict:
+def solve_timing(run, steps: int, phase="sparse_timing", walls: int = 1,
+                 **info) -> dict:
     """Wall (host clock ending in a sync) and device (profiler) time of one
     solve, per Arnoldi step, the device's idle share, and each kernel's
     device time per step inside the solve (operands as the solve leaves
     them in L2, not as a timing loop does).  The profile records the
     card's activity only: per-op host records cost tens of seconds over a
-    solve of some 30,000 small ops."""
+    solve of some 30,000 small ops.  ``walls`` > 1: the solve's wall is
+    the median of that many runs (host time varies from run to run), each
+    listed in ``wall_ms_per_step_runs``."""
     from torch.profiler import ProfilerActivity, profile
 
     run()                                     # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    runs = []
+    for _ in range(walls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(runs)[len(runs) // 2]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -639,6 +656,8 @@ def solve_timing(run, steps: int, phase="sparse_timing", **info) -> dict:
                device_idle_share=1 - dev_ms / wall_ms if dev_ms > 0 else None,
                device_ms_per_step_by_kernel={name[:100]: ms / steps
                                              for name, ms in by_kernel[:8]})
+    if walls > 1:
+        row["wall_ms_per_step_runs"] = [ms / steps for ms in runs]
     emit(phase=phase, **row)
     return row
 
@@ -709,7 +728,8 @@ def sparse_phases(smi, gen):
     ctr = Counters({"ell_matvec": spmv.ell_matvec,
                     "sell_matvec": spmv.sell_matvec,
                     "banded_matvec": spmv.banded_matvec,
-                    "batched_cgs2": block_gs.batched_cgs2},
+                    "batched_cgs2": block_gs.batched_cgs2,
+                    "cgs2": cgs2.cgs2},
                    block_matvec=matvec.block_matvec,
                    gs_project=cgs2.gs_project,
                    arnoldi_step=arnoldi_fused.arnoldi_step)
@@ -805,13 +825,30 @@ def sparse_phases(smi, gen):
         check(all(c == py for _, c, py in rule),
               f"batched_cgs2: the kernel's launch rule differs from "
               f"tuning's: {[r for r in rule if r[1] != r[2]]}")
-        # gs_project at the sparse solver's n: the streamed variant
-        for j in (0, 15, 29):
-            v = basis(n, M + 1, j, dtype, gen)
-            w = torch.randn(n, device="cuda", generator=gen)
-            compare("gs_project", cgs2.gs_project(v, w, j),
-                    cgs2.gs_project_plain(v, w, j), dtype, n=n, m1=M + 1,
-                    j=j, shape=cgs2.launch_shape(dtype, M + 1, n))
+        # gs_project (one pass) and cgs2 (one launch, three sweeps) at the
+        # sparse solver's n: the streamed kernel from j = 0 to m1 - 1, and
+        # its scalar route (n not a multiple of 4; w one element off 16
+        # bytes), each call's route counted and the same bits twice
+        for nb, j, off in ((n, 0, 0), (n, 15, 0), (n, 29, 0), (n, M, 0),
+                           (n + 3, 15, 0), (n, 15, 1)):
+            v = basis(nb, M + 1, j, dtype, gen)
+            w = torch.randn(nb + off, device="cuda", generator=gen)[off:]
+            want = "vec" if off == 0 and (nb * v.element_size()) % 16 == 0 \
+                else "scalar"
+            for name, fn, plain in (
+                    ("gs_project", cgs2.gs_project, cgs2.gs_project_plain),
+                    ("cgs2", cgs2.cgs2, cgs2.cgs2_plain)):
+                routes = dict(fn.routes)
+                got, again = fn(v, w, j), fn(v, w, j)
+                route = [r for r, c in fn.routes.items() if c != routes[r]]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                compare(name, got, plain(v, w, j), dtype, n=nb, m1=M + 1,
+                        j=j, w_offset=off, route=route, same_bits_twice=same,
+                        plan=cgs2.launch_plan(v, w, j))
+                check(route == [want] and fn.routes[want] == routes[want] + 2,
+                      f"{name} n={nb} j={j} w+{off} {dtype}: route {route}")
+                check(same, f"{name} n={nb} j={j} {dtype}: other bits on a "
+                            f"second call")
             del v, w
         del ell, band
 
@@ -849,8 +886,8 @@ def sparse_phases(smi, gen):
             check(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,),
                   f"{fmt}/{gs}: x not finite or wrong shape")
             expect = {fmt_kernel[fmt]: res.inner_steps + res.restarts + 1}
-            if gs == "cgs2_fused":
-                expect["gs_project"] = 2 * res.inner_steps
+            if gs == "cgs2_fused":     # the streamed cgs2: one launch
+                expect["cgs2"] = res.inner_steps
             expect_counts(d, expect, f"{fmt}/{gs}")
             solves[(fmt, gs)] = (res, first)
         ref_first = solves[("banded", gs)][1]
@@ -1056,12 +1093,22 @@ def sparse_phases(smi, gen):
         v = basis(n, M + 1, 15, dtype, gen)
         w = torch.randn(n, device="cuda", generator=gen)
         vj1 = v[:16].float()
+
+        def two_passes():
+            w1 = w - (vj1 @ w) @ vj1
+            return w1 - (vj1 @ w1) @ vj1
         rows[("gs_project", "streamed, n = 2^20")] = measure(
             lambda: cgs2.gs_project(v, w, 15),
             lambda: cgs2.gs_project_plain(v, w, 15),
             composite_ms=cold_ms(lambda: w - (vj1 @ w) @ vj1),
             n=n, m1=M + 1, j=15, shape=cgs2.launch_shape(dtype, M + 1, n),
             bytes=16 * n * sz + 8 * n + (M + 1) * 4, flops=4 * 16 * n)
+        # the bound of cgs2 is one pass's bytes: V once, w in, w'' out
+        rows[("cgs2", "streamed, n = 2^20")] = measure(
+            lambda: cgs2.cgs2(v, w, 15), lambda: cgs2.cgs2_plain(v, w, 15),
+            composite_ms=cold_ms(two_passes), n=n, m1=M + 1, j=15,
+            plan=cgs2.launch_plan(v, w, 15),
+            bytes=16 * n * sz + 8 * n + (M + 1) * 4, flops=8 * 16 * n)
         del v, w, vj1
         for (name, system), r in rows.items():
             r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
@@ -1072,7 +1119,8 @@ def sparse_phases(smi, gen):
                       "banded_matvec": rows[("banded_matvec", "stencil")],
                       "sell_matvec": rows[("sell_matvec", "pagerank")],
                       "batched_cgs2": rows[("batched_cgs2",
-                                            f"k = 4, n = {NX * NX}")]}
+                                            f"k = 4, n = {NX * NX}")],
+                      "cgs2": rows[("cgs2", "streamed, n = 2^20")]}
             # each sliced-ELL bin alone: the bin-table kernel on a one-bin
             # table (its rule's threads per row)
             xf = x_pr.contiguous()
@@ -1256,21 +1304,38 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
                     mp.dense_powers_plain(a, x_d, sp), dtype, s=sp, n=N,
                     shape=mp.launch_shape("dense", dtype, N))
         del a
-        for nb in (n, N):
-            for k in BGS_K:
-                v = basis(nb, M + 1, k, dtype, gen)
-                for sp in SSTEP_S_CHECK:
-                    w = torch.randn(sp, nb, device="cuda", generator=gen)
-                    tin = (torch.triu(torch.randn(sp, sp, device="cuda",
-                                                  generator=gen))
-                           + 2 * torch.eye(sp, device="cuda"))
-                    compare("block_gs_pass",
-                            block_gs.block_gs_pass(v, w, tin, k),
-                            block_gs.block_gs_pass_plain(v, w, tin, k),
-                            dtype, n=nb, m1=M + 1, k_start=k, s=sp,
-                            shape=block_gs.block_gs_launch_shape(
-                                dtype, M + 1, nb, sp))
-                del v
+        # block_gs_pass at s = 1 .. 8 and k_start 0 .. m1 - 1, and on its
+        # scalar route (n not a multiple of 4; W one element off 16 bytes,
+        # k_start 25, s = 5), each call's route counted and the same bits
+        # twice
+        cases = [(nb, k, sp, 0) for nb in (n, N) for k in BGS_K + (M,)
+                 for sp in (1,) + SSTEP_S_CHECK]
+        cases += [(n + 3, 25, SSTEP_S, 0), (n, 25, SSTEP_S, 1)]
+        for nb, k, sp, off in cases:
+            v = basis(nb, M + 1, k, dtype, gen)
+            w = torch.randn(sp * nb + off, device="cuda",
+                            generator=gen)[off:].view(sp, nb)
+            tin = (torch.triu(torch.randn(sp, sp, device="cuda",
+                                          generator=gen))
+                   + 2 * torch.eye(sp, device="cuda"))
+            want = "vec" if off == 0 and nb % 8 == 0 else "scalar"
+            routes = dict(block_gs.block_gs_pass.routes)
+            got = block_gs.block_gs_pass(v, w, tin, k)
+            again = block_gs.block_gs_pass(v, w, tin, k)
+            route = [r for r, c in block_gs.block_gs_pass.routes.items()
+                     if c != routes[r]]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            compare("block_gs_pass", got,
+                    block_gs.block_gs_pass_plain(v, w, tin, k),
+                    dtype, n=nb, m1=M + 1, k_start=k, s=sp, w_offset=off,
+                    route=route, same_bits_twice=same,
+                    plan=block_gs.block_gs_plan(v, w, k))
+            check(route == [want], f"block_gs_pass n={nb} k={k} s={sp} "
+                                   f"w+{off}: route {route}")
+            check(same and not got[0][k + 1:].any(),
+                  f"block_gs_pass n={nb} k={k} s={sp}: other bits on a "
+                  f"second call, or C past k_start not zero")
+            del v, w
         del band, ell
     zero()
 
@@ -1554,7 +1619,7 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                     "gs_update": cgs2.gs_update,
                     "block_gs_project_gram": block_gs.block_gs_project_gram,
                     "block_gs_update": block_gs.block_gs_update},
-                   gs_project=cgs2.gs_project,
+                   gs_project=cgs2.gs_project, cgs2=cgs2.cgs2,
                    arnoldi_step=arnoldi_fused.arnoldi_step,
                    block_gs_pass=block_gs.block_gs_pass,
                    block_matvec=matvec.block_matvec,
@@ -1952,7 +2017,7 @@ def precond_phases(smi, gen, sparse_solves):
                     "banded_trisweep": trisolve.banded_trisweep,
                     "ilu0_factor": trisolve.ilu0_factor},
                    banded_matvec=spmv.banded_matvec,
-                   gs_project=cgs2.gs_project,
+                   gs_project=cgs2.gs_project, cgs2=cgs2.cgs2,
                    gs_project_norm_partial=cgs2.gs_project_norm_partial,
                    gs_update=cgs2.gs_update,
                    block_gs_pass=block_gs.block_gs_pass,
@@ -2175,8 +2240,7 @@ def precond_phases(smi, gen, sparse_solves):
                       "gs_update": 2 * steps}
         else:
             applies = steps + cyc
-            expect = {"banded_matvec": steps + cyc + 1,
-                      "gs_project": 2 * steps}
+            expect = {"banded_matvec": steps + cyc + 1, "cgs2": steps}
         if name == "chebyshev":
             expect["banded_cheb_apply"] = applies
         elif name != "jacobi":
@@ -2524,7 +2588,7 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                    banded_matvec=spmv.banded_matvec,
                    ell_matvec=spmv.ell_matvec, sell_matvec=spmv.sell_matvec,
                    block_matvec=matvec.block_matvec,
-                   gs_project=cgs2.gs_project,
+                   gs_project=cgs2.gs_project, cgs2=cgs2.cgs2,
                    arnoldi_step=arnoldi_fused.arnoldi_step,
                    gs_project_norm_partial=cgs2.gs_project_norm_partial,
                    gs_update=cgs2.gs_update,
@@ -3436,22 +3500,41 @@ def main() -> None:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     res = kernel_resources(so, ("sell_kernel", "attention_wgmma_kernel",
-                                "ilu0_wave_kernel", "batched_cgs2_kernel"))
+                                "ilu0_wave_kernel", "batched_cgs2_kernel",
+                                "gs_stream_kernel", "block_gs_kernel"))
     sell = [r for name, r in res.items() if "sell_kernel" in name]
     attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
             for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
     redesign4 = {name: r for name, r in res.items()
                  if "ilu0_wave_kernel" in name or "batched_cgs2_kernel" in name}
+    # rows 2 and 9: the streamed pass (storage) and the block pass
+    # (storage, s = 1..8), the latter summed by storage
+    stream = {name: r for name, r in res.items()
+              if "gs_stream_kernel" in name}
+    bgs = {name: r for name, r in res.items() if "block_gs_kernel" in name}
+
+    def summary(rs):
+        return {"registers_max": max(r["registers"] for r in rs),
+                "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
+                                   for r in rs),
+                "spill_bytes_max": max(r["spill_stores"] + r["spill_loads"]
+                                       for r in rs)}
+    bgs_summary = {
+        f"block_gs_kernel<{t}, S = 1..8>": summary(
+            [r for name, r in bgs.items() if tag in name])
+        for t, tag in (("float", "block_gs_kernelIf"),
+                       ("bf16", "block_gs_kernelI13__nv_bfloat16"))}
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         resources=dict(attn, **redesign4, **{f"sell_kernel ({len(sell)} "
-                                              f"instantiations)": {
-             "registers_max": max(r["registers"] for r in sell),
-             "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
-                                for r in sell),
-             "static_smem_max": max(r["static_smem"] for r in sell)}}))
+         resources=dict(attn, **redesign4, **stream, **bgs_summary,
+                        **{f"sell_kernel ({len(sell)} instantiations)":
+                           dict(summary(sell), static_smem_max=max(
+                               r["static_smem"] for r in sell))}))
     check(len(redesign4) == 8, f"ilu0_wave_kernel / batched_cgs2_kernel: "
                                f"{len(redesign4)} instantiations")
+    check(len(stream) == 2 and len(bgs) == 16,
+          f"gs_stream_kernel / block_gs_kernel: {len(stream)} / {len(bgs)} "
+          f"instantiations")
     check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
           f"attention_wgmma_kernel: HGMMA instructions {attn}")
     check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
@@ -3703,24 +3786,20 @@ def main() -> None:
                          chosen=bps == chosen, shape=shape(), max_rel_err=rel,
                          **timed(fn), card=smi)
                 setattr(tuning, attr, chosen)
-            # gs_project's streamed variant at this shape (a zero
-            # shared-memory budget sends the launch there): does the
-            # shared-memory variant earn its own path at n = 10,000?
-            budget, chosen = tuning.SMEM_BUDGET, tuning.STREAM_BLOCKS_PER_SM
+            # gs_project's streamed kernel at this shape (its plan,
+            # launched directly): does the shared-memory pass earn its own
+            # path at n = 10,000?
             want = cgs2.gs_project_plain(v, w, j)
-            tuning.SMEM_BUDGET = 0
-            for bps in (1, 2, 4, 8):
-                tuning.STREAM_BLOCKS_PER_SM = bps
-                got = cgs2.gs_project(v, w, j)
-                rel = max(relerr(got[0], want[0]), relerr(got[1], want[1]))
-                check(rel < TOLS[dtype], f"streamed gs_project at {bps} "
-                                         f"blocks/SM: {rel}")
-                emit(phase="tuning", kernel="gs_project", variant="streamed",
-                     blocks_per_sm=bps, chosen=False,
-                     shape=cgs2.launch_shape(dtype, M + 1, N),
-                     max_rel_err=rel,
-                     **timed(lambda: cgs2.gs_project(v, w, j)), card=smi)
-            tuning.SMEM_BUDGET, tuning.STREAM_BLOCKS_PER_SM = budget, chosen
+            plan = tuning.gs_stream_plan(M + 1, N, j, size, True,
+                                         cgs2.stream_capacity(v))
+            got = cgs2._launch_stream(v, w, j, 1, plan)
+            rel = max(relerr(got[0], want[0]), relerr(got[1], want[1]))
+            check(rel < TOLS[dtype], f"streamed gs_project at n = {N}: "
+                                     f"{rel}")
+            emit(phase="tuning", kernel="gs_project", variant="streamed",
+                 chosen=False, plan=plan, max_rel_err=rel,
+                 **timed(lambda: cgs2._launch_stream(v, w, j, 1, plan)),
+                 card=smi)
         del a
     flush_counters()
 
@@ -3805,6 +3884,8 @@ def main() -> None:
                                 "src/repro/kernels/matvec.py:80"),
                "gs_project": ("src/repro_torch/csrc/cgs2.cu",
                               "src/repro/kernels/cgs2.py:116"),
+               "cgs2": ("src/repro_torch/csrc/cgs2.cu",
+                        "src/repro/kernels/cgs2.py:116"),
                "arnoldi_step": ("src/repro_torch/csrc/arnoldi_fused.cu",
                                 "src/repro/kernels/arnoldi_fused.py:123"),
                "ell_matvec": ("src/repro_torch/csrc/spmv.cu",
@@ -3874,7 +3955,7 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4")
+CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4", "redesign5")
 # a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
 SWEEP_GROUPS = ("redesign3_sweep",)
 
@@ -3907,6 +3988,8 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
         out.update(redesign3_cells(label))
     if "redesign4" in groups:
         out.update(redesign4_cells(label))
+    if "redesign5" in groups:
+        out.update(redesign5_cells(label))
     if "redesign3_sweep" in groups:
         from repro_torch.kernels import trisolve
 
@@ -4478,6 +4561,112 @@ def redesign4_cells(label: str) -> dict:
     return out
 
 
+def redesign5_cells(label: str) -> dict:
+    """Kernel-table rows 2 (``gs_project`` and the streamed ``cgs2``) and 9
+    (``block_gs_pass``) and the solves they serve.  Rows 2 at n = 2^20,
+    j = 0, 7, 15 and 29, and row 9 at n = 2^20, s = 5, k_start 0, 12 and
+    25, f32 and bf16 bases, cold (L2 rewritten before each call) and warm,
+    with the SHA-256 of the outputs ((h, w'') and (C, W', G)) and the
+    bound; each timing's ``host_ms`` is the wrapper's enqueue cost a call
+    (warm: the solver's), also for ``cgs2`` at the dense n = 10,000 (two
+    shared-memory passes); the dense 10,000 and banded 1024^2
+    ``gmres(gs="cgs2_fused")`` solves and the banded ``gmres_sstep(s=5,
+    blocks=6, gs="cgs2")`` solve: wall (the median of five runs, each
+    listed), device, idle share and kernels' device ms a step, restarts,
+    x (saved for the comparison across the trees)."""
+    import hashlib
+
+    from repro_torch.core import gmres, gmres_sstep, operators, stencils
+    from repro_torch.kernels import block_gs, cgs2
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    n = NX * NX
+    for dtype in (torch.float32, torch.bfloat16):
+        name_t = str(dtype)[6:]
+        for j in (0, 7, 15, 29):
+            gen = torch.Generator(device="cuda").manual_seed(1000 + j)
+            v = basis(n, M + 1, j, dtype, gen)
+            w = torch.randn(n, device="cuda", generator=gen)
+            nbytes = (j + 1) * n * v.element_size() + 8 * n
+            for name, fn in (("cgs2", cgs2.cgs2),
+                             ("gs_project", cgs2.gs_project)):
+                def call(fn=fn, v=v, w=w, j=j):
+                    return fn(v, w, j)
+                row = {"cold": timed(call, iters=20, cold=True),
+                       "warm": timed(call, iters=20), "sha256": sha(*call()),
+                       "bytes": nbytes, "bound_ms": bound(nbytes, 0)[0]}
+                out[f"{name} {name_t} n={n} j={j}"] = row
+            del v, w
+        for k in (0, 12, 25):
+            gen = torch.Generator(device="cuda").manual_seed(2000 + k)
+            v = basis(n, M + 1, k, dtype, gen)
+            w = torch.randn(SSTEP_S, n, device="cuda", generator=gen)
+            tin = torch.triu(torch.randn(SSTEP_S, SSTEP_S, device="cuda",
+                                         generator=gen)) \
+                + 2 * torch.eye(SSTEP_S, device="cuda")
+
+            def call(v=v, w=w, tin=tin, k=k):
+                return block_gs.block_gs_pass(v, w, tin, k)
+            nbytes = (k + 1) * n * v.element_size() + 8 * SSTEP_S * n
+            out[f"block_gs_pass {name_t} n={n} s={SSTEP_S} k_start={k}"] = {
+                "cold": timed(call, iters=20, cold=True),
+                "warm": timed(call, iters=20), "sha256": sha(*call()),
+                "bytes": nbytes, "bound_ms": bound(nbytes, 0)[0]}
+            del v, w, tin
+        # the dense s-step solver's shape, warm (phase 12's method)
+        gen = torch.Generator(device="cuda").manual_seed(3000)
+        v = basis(N, M + 1, 25, dtype, gen)
+        w = torch.randn(SSTEP_S, N, device="cuda", generator=gen)
+        tin = torch.eye(SSTEP_S, device="cuda")
+        out[f"block_gs_pass {name_t} n={N} s={SSTEP_S} k_start=25"] = {
+            "warm": timed(lambda: block_gs.block_gs_pass(v, w, tin, 25)),
+            "sha256": sha(*block_gs.block_gs_pass(v, w, tin, 25))}
+        del v, w, tin
+        # the dense solver's cgs2 (two shared-memory passes), warm
+        gen = torch.Generator(device="cuda").manual_seed(3001)
+        v = basis(N, M + 1, 15, dtype, gen)
+        w = torch.randn(N, device="cuda", generator=gen)
+        out[f"cgs2 {name_t} n={N} j=15"] = {
+            "warm": timed(lambda: cgs2.cgs2(v, w, 15)),
+            "sha256": sha(*cgs2.cgs2(v, w, 15))}
+        del v, w
+
+    a = operators.random_diagdom(N, dominance=0.015, seed=0)
+    b_d = torch.from_numpy(np.random.default_rng(1).standard_normal(N)
+                           .astype(np.float32)).cuda()
+    op_d = operators.DenseOperator(a, backend="cuda")
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    save = ROOT / "build" / "in_turn"
+    save.mkdir(parents=True, exist_ok=True)
+    for name, run in (
+            ("dense gmres cgs2_fused",
+             lambda: gmres(op_d, b_d, m=M, tol=TOL,
+                           max_restarts=TIMING_RESTARTS, gs="cgs2_fused")),
+            ("banded gmres cgs2_fused",
+             lambda: gmres(op, b, m=M, tol=TOL, max_restarts=SPARSE_RESTARTS,
+                           gs="cgs2_fused")),
+            ("banded gmres_sstep cgs2",
+             lambda: gmres_sstep(op, b, s=SSTEP_S, blocks=SSTEP_BLOCKS,
+                                 tol=TOL, max_restarts=SPARSE_RESTARTS,
+                                 gs="cgs2"))):
+        res = run()
+        r = solve_timing(run, res.inner_steps, phase="in_turn", walls=5,
+                         solve=name, tree=label, restarts=res.restarts)
+        path = save / f"{label}-{name.replace(' ', '_')}-{os.getpid()}.pt"
+        torch.save(res.x.cpu(), path)
+        out[name] = dict(r, restarts=res.restarts, converged=res.converged,
+                         x_path=str(path))
+    return out
+
+
 def redesign3_sweep(label: str) -> None:
     """The launch shapes ``tuning.gemv_rows_shape`` and
     ``tuning.trisweep_plan`` choose among, each launched through the
@@ -4649,6 +4838,36 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
                       <= 1 for c in batch),
               f"in turn: the 4-lane batch differs between the trees: "
               f"{out['batch_restarts']}")
+
+    if "redesign5" in groups:
+        # each tree's kernels give the same bits in both its runs; the
+        # solves end as the parent's (the banded two converged) with
+        # restarts within 10% and x within 1e-3 of the parent's
+        keys = [key for key in rows[0] if key.startswith(
+            ("cgs2 ", "gs_project ", "block_gs_pass "))]
+        bits = {t: [{key: r[key]["sha256"] for key in keys}
+                    for r in rows if r["tree"] == t]
+                for t in ("parent", "this")}
+        out = {"same_bits_per_tree": {
+            t: len(b) == 2 and b[0] == b[1] for t, b in bits.items()}}
+        for name in ("dense gmres cgs2_fused", "banded gmres cgs2_fused",
+                     "banded gmres_sstep cgs2"):
+            solves = [r[name] for r in rows]
+            xs = [torch.load(s_["x_path"]) for s_ in solves]
+            ref = xs[0]
+            restarts = [s_["restarts"] for s_ in solves]
+            out[name] = {"restarts": restarts,
+                         "x_rel_to_parent": [float((x - ref).norm()
+                                                   / ref.norm()) for x in xs]}
+            check(all(s_["converged"] == solves[0]["converged"]
+                      for s_ in solves)
+                  and (solves[0]["converged"] or name.startswith("dense"))
+                  and max(restarts) <= 1.1 * min(restarts)
+                  and max(out[name]["x_rel_to_parent"]) <= 1e-3,
+                  f"in turn: {name} differs between the trees: {out[name]}")
+        emit(phase="in_turn", **out)
+        check(all(out["same_bits_per_tree"].values()),
+              "in turn: a tree's rows 2 / 9 gave other bits in its two runs")
 
 
 if __name__ == "__main__":

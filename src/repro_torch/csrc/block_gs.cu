@@ -22,108 +22,221 @@
 //
 // Design: one cooperative launch with three grid syncs.  C needs all of n
 // before W' can be formed, and G needs all of W'; Hopper's blocks run in
-// no order, so each of those is a grid sync.  Block b owns the column slice
-// [b * cols, b * cols + len); a thread takes its columns in turn.
-//   1. Q = T W for the block's columns (T in shared memory), written to
-//      the W' output, which holds Q until step 4 overwrites it.
-//   2. C partials: the valid rows in chunks of eight, each thread summing
-//      eight rows times s columns of Q at once (eight loads of V in flight,
-//      coalesced across the warp), reduced over the block in a fixed order
-//      to part_c[row][col][block].  Rows past k_start are never read.
-//   3. grid sync; each of the (k_start + 1) * s entries of C is summed by
+// no order, so each of those is a grid sync.  One block of kThreads an SM;
+// block b owns a contiguous range of 16-byte pieces of V's columns (4 f32
+// or 8 bf16 columns) and of the scalar tail (kernels/tuning.py::
+// block_gs_plan; pieces = 0 where V, W, W' or a row stride is not 16-byte
+// aligned: the scalar route, every column a tail column).
+//   1. Projection sweep.  The block's warps split the valid rows into
+//      groups of eight (a warp a group, the rest of the warps a second,
+//      third ... column share of the same groups), so a thread holds 8 x S
+//      accumulators.  For each of its pieces a thread issues its eight
+//      rows' 16-byte loads of V, then forms Q = T W for the piece's columns
+//      in registers (W in 16-byte loads, T in shared memory: Q is never
+//      written to HBM and never read back), and sums V[r, c] Q[a, c].
+//      Reduced over the block in a fixed order to part_c[row][col][block].
+//   2. grid sync; each of the (k_start + 1) * s entries of C is summed by
 //      one warp of the grid, over all blocks in one order, into the C
-//      output; grid sync.  (Every block summing every entry itself, as
-//      gs_project does for its m1 entries, would read (k_start + 1) * s
-//      times the grid's partials in every block: 280 MB of L2 traffic at
-//      528 blocks.)
-//   4. every block reads C into shared memory and forms W' = Q - C^T V for
-//      its columns (the sum over rows first, in row order, then the
-//      difference, as the plain version rounds it), writes W', and keeps
-//      the s (s + 1) / 2 products of G's upper triangle per thread, reduced
-//      over the block to part_g; grid sync; block 0 sums part_g in one order
-//      and writes G (both triangles from the same sums).
-// V is read twice (steps 2 and 4), against the bound's once: its slices
-// do not fit shared memory at n = 2^20 (7,944 columns x 31 rows per SM).
-// The TPU kernel keeps V whole in VMEM; at n = 10,000 a slice would fit,
-// and a shared-memory variant is the first lever for a faster version.
-#include "common.cuh"
+//      output; grid sync.  (Every block summing every entry itself would
+//      read (k_start + 1) * s times the grid's partials in every block.)
+//   3. Update sweep.  A thread a piece: u = C^T V[:, piece] over the rows
+//      in row order (16 f32 or 8 bf16 rows' loads in flight), then Q of the
+//      piece again from W and T (the same fmaf chain as the projection, so
+//      Q's bits match), W' = Q - u (the sum first, then the difference, as
+//      the plain version rounds it) written once, and the s (s + 1) / 2
+//      products of G's upper triangle per thread, reduced over the block to
+//      part_g; grid sync; block 0 sums part_g in one order and writes G
+//      (both triangles from the same sums).
+// Bytes: V twice, W twice, W' once: 281 MB at k_start 25, s = 5, n = 2^20,
+// f32, 0.084 ms at 3.35 TB/s.  No barrier per row chunk, no Q round trip.
+// The design this replaces walked the columns once per 8-row chunk
+// with 4-byte loads and two barriers a chunk, and wrote Q to W' to read it
+// back: 0.238 ms f32 (0.273 bf16) at that shape on an H100 80GB HBM3,
+// 700.00 W.
+//
+// A Hopper variant that kept the block's leading rows of V in shared
+// memory between the projection and the update (cp.async) was timed and
+// left out: slower at k_start 25 in f32 and bf16 (PERF.md section 6).
+#include "stream_gs.cuh"
 
 namespace repro {
 
+constexpr int kBgRows = 8;                  // rows a warp's group holds
+constexpr int kBgSetRows = kBgRows * kWarps;   // rows one sweep covers
+
+// Q[a][0..3] = sum_b T[a, b] W[b, c0..c0+3] for the four columns at wp
+// (W row stride n; T in shared memory), each an fmaf chain from 0 over b:
+// the projection and the update form Q through this one function, so its
+// bits are the same in both.
+template <int S>
+__device__ __forceinline__ void q_of_four(const float* ts, const float* wp,
+                                          int n, float (&q)[S][4]) {
+  float wv[S][4];
+#pragma unroll
+  for (int b = 0; b < S; ++b) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(
+        wp + (size_t)b * n));
+    wv[b][0] = t.x;
+    wv[b][1] = t.y;
+    wv[b][2] = t.z;
+    wv[b][3] = t.w;
+  }
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float t = 0.f;
+#pragma unroll
+      for (int b = 0; b < S; ++b) t = fmaf(ts[a * S + b], wv[b][c], t);
+      q[a][c] = t;
+    }
+}
+
+// The same for one column c (the scalar tail and route).
+template <int S>
+__device__ __forceinline__ void q_of_one(const float* ts, const float* w,
+                                         int n, int c, float (&q)[S]) {
+  float wv[S];
+#pragma unroll
+  for (int b = 0; b < S; ++b) wv[b] = __ldg(w + (size_t)b * n + c);
+#pragma unroll
+  for (int a = 0; a < S; ++a) {
+    float t = 0.f;
+#pragma unroll
+    for (int b = 0; b < S; ++b) t = fmaf(ts[a * S + b], wv[b], t);
+    q[a] = t;
+  }
+}
+
+// Columns 4 q4 .. 4 q4 + 3 of a 16-byte piece of V, widened to floats.
+template <typename TV>
+__device__ __forceinline__ void unpack_four(uint4 raw, int q4, float* f) {
+  if constexpr (Vec16<TV>::N == 4) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  } else {
+    const uint32_t lo = q4 ? raw.z : raw.x, hi = q4 ? raw.w : raw.y;
+    f[0] = __uint_as_float(lo << 16);
+    f[1] = __uint_as_float(lo & 0xffff0000u);
+    f[2] = __uint_as_float(hi << 16);
+    f[3] = __uint_as_float(hi & 0xffff0000u);
+  }
+}
+
+// Dynamic shared memory: ts[S * S], cs[m1 * S], red[kWarps * kBgRows * S].
+__host__ __device__ inline size_t block_gs_smem_bytes(int m1, int s) {
+  return sizeof(float) * ((size_t)s * s + (size_t)m1 * s +
+                          (size_t)kWarps * kBgRows * s);
+}
+
+// rows = k_start + 1 valid rows; pieces 16-byte pieces of a row (0: the
+// scalar route), pb of them a block; the tail columns [pieces VEC, n), tb
+// a block.
 template <typename TV, int S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     block_gs_kernel(const TV* __restrict__ v, const float* __restrict__ w,
                     const float* __restrict__ tin, float* c_out,
-                    float* w_out, float* __restrict__ g_out, float* part_c,
-                    float* part_g, int m1, int n, int rows, int cols) {
+                    float* __restrict__ w_out, float* __restrict__ g_out,
+                    float* part_c, float* part_g, int m1, int n, int rows,
+                    int pieces, int pb, int tb) {
+  constexpr int VEC = Vec16<TV>::N;
   constexpr int kG = S * (S + 1) / 2;
-  extern __shared__ float smem[];
-  float* ts = smem;                      // T, (S, S)
-  float* cs = ts + S * S;                // C, (rows, S)
-  float* red = cs + (size_t)m1 * S;      // kWarps * kRowChunk * S
+  constexpr int CU = 64 / VEC;     // rows' loads in flight in the update
+  extern __shared__ __align__(16) float bg_smem[];
+  float* ts = bg_smem;                       // T, (S, S)
+  float* cs = ts + S * S;                    // C, (rows, S)
+  float* red = cs + (size_t)m1 * S;          // kWarps * kBgRows * S
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nb = gridDim.x;
-  const int c0 = blockIdx.x * cols;
-  const int len = max(0, min(cols, n - c0));
-  float* wq = w_out + c0;
+  const int p_lo = min(pieces, (int)blockIdx.x * pb);
+  const int p_hi = min(pieces, p_lo + pb);
+  const int t_lo = min(n, pieces * VEC + (int)blockIdx.x * tb);
+  const int t_hi = min(n, t_lo + tb);
 
   for (int i = threadIdx.x; i < S * S; i += blockDim.x) ts[i] = tin[i];
   __syncthreads();
 
-  // 1. Q = T W
-  for (int c = threadIdx.x; c < len; c += blockDim.x) {
-    float wc[S];
+  // 1. C partials, a set of up to kBgSetRows rows at a time (one set for
+  // m1 <= 64): warp w takes rows rs + 8 (w % ng) .. of the set over column
+  // share w / ng of the block's pieces
+  for (int rs = 0; rs < rows; rs += kBgSetRows) {
+    const int nrs = min(kBgSetRows, rows - rs);
+    const int ng = (nrs + kBgRows - 1) / kBgRows;   // row groups
+    const int nsh = kWarps / ng;                     // column shares
+    const bool active = warp < ng * nsh;
+    const int rg = warp % ng, sh = warp / ng;
+    const int r0 = rs + rg * kBgRows;
+    const int nr = active ? min(kBgRows, rows - r0) : 0;
+    float acc[kBgRows][S];
 #pragma unroll
-    for (int b = 0; b < S; ++b) wc[b] = __ldg(w + (size_t)b * n + c0 + c);
-#pragma unroll
-    for (int a = 0; a < S; ++a) {
-      float q = 0.f;
-#pragma unroll
-      for (int b = 0; b < S; ++b) q = fmaf(ts[a * S + b], wc[b], q);
-      wq[(size_t)a * n + c] = q;
-    }
-  }
-
-  // 2. C partials, eight rows at a time
-  for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-    const int nr = rows - r0 < kRowChunk ? rows - r0 : kRowChunk;
-    float acc[kRowChunk][S];
-#pragma unroll
-    for (int r = 0; r < kRowChunk; ++r)
+    for (int r = 0; r < kBgRows; ++r)
 #pragma unroll
       for (int a = 0; a < S; ++a) acc[r][a] = 0.f;
-    const TV* vr = v + (size_t)r0 * n + c0;
-    for (int c = threadIdx.x; c < len; c += blockDim.x) {
-      float vv[kRowChunk], q[S];
+    const int step = nsh * 32;
+    for (int p = p_lo + sh * 32 + lane; active && p < p_hi; p += step) {
+      uint4 raw[kBgRows];
+      const TV* q = v + (size_t)r0 * n + (size_t)p * VEC;
 #pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        vv[r] = r < nr ? to_f(vr[(size_t)r * n + c]) : 0.f;
+      for (int r = 0; r < kBgRows; ++r) {
+        if (r < nr) raw[r] = __ldg(reinterpret_cast<const uint4*>(q));
+        q = next_row(q, n);
+      }
 #pragma unroll
-      for (int a = 0; a < S; ++a) q[a] = wq[(size_t)a * n + c];
+      for (int q4 = 0; q4 < VEC / 4; ++q4) {
+        float qv[S][4];
+        q_of_four<S>(ts, w + (size_t)p * VEC + 4 * q4, n, qv);
 #pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
+        for (int r = 0; r < kBgRows; ++r) {
+          if (r < nr) {
+            float f[4];
+            unpack_four<TV>(raw[r], q4, f);
 #pragma unroll
-        for (int a = 0; a < S; ++a) acc[r][a] = fmaf(vv[r], q[a], acc[r][a]);
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+              for (int a = 0; a < S; ++a)
+                acc[r][a] = fmaf(f[c], qv[a][c], acc[r][a]);
+          }
+        }
+      }
+    }
+    for (int c = t_lo + sh * 32 + lane; active && c < t_hi; c += step) {
+      float qv[S];
+      q_of_one<S>(ts, w, n, c, qv);
+      const TV* q = v + (size_t)r0 * n + c;
+#pragma unroll
+      for (int r = 0; r < kBgRows; ++r) {
+        if (r < nr) {
+          const float f = to_f(*q);
+#pragma unroll
+          for (int a = 0; a < S; ++a) acc[r][a] = fmaf(f, qv[a], acc[r][a]);
+        }
+        q = next_row(q, n);
+      }
     }
 #pragma unroll
-    for (int r = 0; r < kRowChunk; ++r)
+    for (int r = 0; r < kBgRows; ++r)
 #pragma unroll
       for (int a = 0; a < S; ++a) {
         const float t = warp_sum(acc[r][a]);
-        if (lane == 0) red[(warp * kRowChunk + r) * S + a] = t;
+        if (lane == 0) red[(warp * kBgRows + r) * S + a] = t;
       }
     __syncthreads();
-    for (int e = threadIdx.x; e < nr * S; e += blockDim.x) {
+    for (int e = threadIdx.x; e < nrs * S; e += blockDim.x) {
+      const int i = e / S, a = e - i * S;   // row rs + i, column a of C
+      const int g = i / kBgRows, r = i - g * kBgRows;
       float t = 0.f;
-      for (int q = 0; q < kWarps; ++q) t += red[q * kRowChunk * S + e];
-      part_c[((size_t)r0 * S + e) * nb + blockIdx.x] = t;
+      for (int s2 = 0; s2 < nsh; ++s2)
+        t += red[((s2 * ng + g) * kBgRows + r) * S + a];
+      part_c[((size_t)(rs + i) * S + a) * nb + blockIdx.x] = t;
     }
     __syncthreads();
   }
   grid.sync();
 
-  // 3. each entry of C summed by one warp of the grid, in one order
+  // 2. each entry of C summed by one warp of the grid, in one order
   for (int e = blockIdx.x * kWarps + warp; e < rows * S; e += nb * kWarps) {
     float t = 0.f;
     for (int b = lane; b < nb; b += 32) t += __ldcg(part_c + (size_t)e * nb + b);
@@ -132,42 +245,89 @@ __global__ void __launch_bounds__(kThreads)
   }
   grid.sync();
 
-  // 4. W' = Q - C^T V and the Gram partials
+  // 3. W' = Q - C^T V and the Gram partials, a thread a piece
   for (int i = threadIdx.x; i < rows * S; i += blockDim.x)
     cs[i] = __ldcg(c_out + i);
   __syncthreads();
   float gacc[kG];
 #pragma unroll
   for (int k = 0; k < kG; ++k) gacc[k] = 0.f;
-  for (int c = threadIdx.x; c < len; c += blockDim.x) {
+  for (int p = p_lo + threadIdx.x; p < p_hi; p += blockDim.x) {
+    float u[S][VEC];
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) u[a][c] = 0.f;
+    const TV* q = v + (size_t)p * VEC;
+    for (int r0 = 0; r0 < rows; r0 += CU) {
+      const int nr = min(CU, rows - r0);
+      uint4 raw[CU];
+#pragma unroll
+      for (int r = 0; r < CU; ++r) {
+        if (r < nr) raw[r] = __ldg(reinterpret_cast<const uint4*>(q));
+        q = next_row(q, n);
+      }
+#pragma unroll
+      for (int r = 0; r < CU; ++r) {
+        if (r < nr) {
+          float f[VEC];
+          Vec16<TV>::unpack(raw[r], f);
+#pragma unroll
+          for (int a = 0; a < S; ++a) {
+            const float cr = cs[(r0 + r) * S + a];
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) u[a][c] = fmaf(cr, f[c], u[a][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q4 = 0; q4 < VEC / 4; ++q4) {
+      float qv[S][4];
+      q_of_four<S>(ts, w + (size_t)p * VEC + 4 * q4, n, qv);
+#pragma unroll
+      for (int a = 0; a < S; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) qv[a][c] -= u[a][4 * q4 + c];   // W'
+#pragma unroll
+      for (int a = 0; a < S; ++a)
+        *reinterpret_cast<float4*>(w_out + (size_t)a * n + (size_t)p * VEC +
+                                   4 * q4) =
+            make_float4(qv[a][0], qv[a][1], qv[a][2], qv[a][3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        int k = 0;
+#pragma unroll
+        for (int a = 0; a < S; ++a)
+#pragma unroll
+          for (int b = a; b < S; ++b, ++k)
+            gacc[k] = fmaf(qv[a][c], qv[b][c], gacc[k]);
+      }
+    }
+  }
+  for (int c = t_lo + threadIdx.x; c < t_hi; c += blockDim.x) {
     float u[S];
 #pragma unroll
     for (int a = 0; a < S; ++a) u[a] = 0.f;
-    for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-      const int nr = rows - r0 < kRowChunk ? rows - r0 : kRowChunk;
-      const TV* vr = v + (size_t)r0 * n + c0 + c;
-      float vv[kRowChunk];
+    const TV* q = v + c;
+    for (int r = 0; r < rows; ++r) {
+      const float f = to_f(*q);
 #pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        vv[r] = r < nr ? to_f(vr[(size_t)r * n]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        if (r < nr)
-#pragma unroll
-          for (int a = 0; a < S; ++a)
-            u[a] = fmaf(cs[(r0 + r) * S + a], vv[r], u[a]);
+      for (int a = 0; a < S; ++a) u[a] = fmaf(cs[r * S + a], f, u[a]);
+      q = next_row(q, n);
     }
-    float w2[S];
+    float qv[S];
+    q_of_one<S>(ts, w, n, c, qv);
 #pragma unroll
     for (int a = 0; a < S; ++a) {
-      w2[a] = wq[(size_t)a * n + c] - u[a];
-      wq[(size_t)a * n + c] = w2[a];
+      qv[a] -= u[a];
+      w_out[(size_t)a * n + c] = qv[a];
     }
     int k = 0;
 #pragma unroll
     for (int a = 0; a < S; ++a)
 #pragma unroll
-      for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(w2[a], w2[b], gacc[k]);
+      for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(qv[a], qv[b], gacc[k]);
   }
 #pragma unroll
   for (int k = 0; k < kG; ++k) {
@@ -198,18 +358,13 @@ __global__ void __launch_bounds__(kThreads)
     c_out[i] = 0.f;   // the masked rows
 }
 
-__host__ __device__ inline size_t block_gs_smem_bytes(int m1, int s) {
-  return sizeof(float) *
-         ((size_t)s * s + (size_t)m1 * s + (size_t)kWarps * kRowChunk * s);
-}
-
-// The kernel for (storage, s), and its grid: at most a thread per column.
+// The kernel for (storage, s).
 template <typename TV>
 static cudaError_t block_gs_kernel_for(int s, const void** kernel) {
   switch (s) {
-#define REPRO_CASE(S)                                          \
-  case S:                                                      \
-    *kernel = (const void*)block_gs_kernel<TV, S>;             \
+#define REPRO_CASE(S)                                                   \
+  case S:                                                               \
+    *kernel = (const void*)block_gs_kernel<TV, S>;                      \
     return cudaSuccess;
     REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
     REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
@@ -220,40 +375,41 @@ static cudaError_t block_gs_kernel_for(int s, const void** kernel) {
 }
 
 template <typename TV>
-static cudaError_t block_gs_grid(int m1, int n, int s, int blocks_per_sm,
-                                 const void** kernel, int* grid) {
-  cudaError_t e = block_gs_kernel_for<TV>(s, kernel);
-  if (e != cudaSuccess) return e;
-  return persistent_grid(*kernel, block_gs_smem_bytes(m1, s), blocks_per_sm,
-                         (n + kThreads - 1) / kThreads, grid);
-}
-
-template <typename TV>
 static cudaError_t launch_block_gs(const void* v, const float* w,
                                    const float* tin, float* c, float* w_out,
-                                   float* g, float* part, int part_blocks,
-                                   int m1, int n, int s, int rows,
-                                   int blocks_per_sm, cudaStream_t stream) {
-  if (m1 <= 0 || n <= 0 || rows < 1 || rows > m1) return cudaErrorInvalidValue;
+                                   float* g, float* part, int grid, int m1,
+                                   int n, int s, int rows, int pieces,
+                                   cudaStream_t stream) {
+  constexpr int VEC = Vec16<TV>::N;
+  if (m1 <= 0 || n <= 0 || rows < 1 || rows > m1 || grid < 1 ||
+      pieces < 0 || (size_t)pieces * VEC > (size_t)n)
+    return cudaErrorInvalidValue;
   const void* kernel = nullptr;
-  int grid = 0;
-  cudaError_t e = block_gs_grid<TV>(m1, n, s, blocks_per_sm, &kernel, &grid);
+  cudaError_t e = block_gs_kernel_for<TV>(s, &kernel);
   if (e != cudaSuccess) return e;
-  if (grid > part_blocks) return cudaErrorInvalidValue;
+  int pb = (pieces + grid - 1) / grid;
+  const int tail = n - pieces * VEC;
+  int tb = (tail + grid - 1) / grid;
+  const size_t smem = block_gs_smem_bytes(m1, s);
+  int cap = 0;
+  e = persistent_grid(kernel, smem, 1, grid, &cap);
+  if (e != cudaSuccess) return e;
+  if (cap < grid) return cudaErrorCooperativeLaunchTooLarge;
   const TV* vt = static_cast<const TV*>(v);
-  int cols = (n + grid - 1) / grid;
   // part holds m1 * s partials per block for C, then s (s + 1) / 2 for G
   float* part_c = part;
   float* part_g = part + (size_t)m1 * s * grid;
-  void* args[] = {(void*)&vt,     (void*)&w,      (void*)&tin,  (void*)&c,
-                  (void*)&w_out,  (void*)&g,      (void*)&part_c,
-                  (void*)&part_g, (void*)&m1,     (void*)&n,    (void*)&rows,
-                  (void*)&cols};
-  e = cudaLaunchCooperativeKernel(kernel, grid, kThreads, args,
-                                  block_gs_smem_bytes(m1, s), stream);
+  void* args[] = {(void*)&vt,     (void*)&w,      (void*)&tin,
+                  (void*)&c,      (void*)&w_out,  (void*)&g,
+                  (void*)&part_c, (void*)&part_g, (void*)&m1,
+                  (void*)&n,      (void*)&rows,   (void*)&pieces,
+                  (void*)&pb,     (void*)&tb};
+  e = cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, smem,
+                                  stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
+
 
 // ---------------------------------------------------------------------------
 // The single-reduce pass (gs = "cgs2_pipelined"): two kernels, each a plain
@@ -573,35 +729,27 @@ static cudaError_t launch_block_update(const void* v, const float* q,
 
 // v (m1, n) f32 or bf16, row-major; w (s, n) and tin (s, s) f32; rows =
 // k_start + 1 valid basis rows; c (m1, s), w_out (s, n), g (s, s) f32 out;
-// part holds (m1 * s + s * (s + 1) / 2) * part_blocks floats.
+// part holds (m1 * s + s * (s + 1) / 2) * grid floats; grid blocks, one
+// an SM at most (tuning.block_gs_plan), pieces 16-byte pieces of V a row
+// (0: the scalar route).
 extern "C" int repro_block_gs_pass(const void* v, int v_bf16, const float* w,
                                    const float* tin, float* c, float* w_out,
-                                   float* g, float* part, int part_blocks,
-                                   int m1, int n, int s, int rows,
-                                   int blocks_per_sm, void* stream) {
+                                   float* g, float* part, int grid, int m1,
+                                   int n, int s, int rows, int pieces,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return v_bf16 ? repro::launch_block_gs<repro::bf16>(
-                      v, w, tin, c, w_out, g, part, part_blocks, m1, n, s,
-                      rows, blocks_per_sm, st)
+                      v, w, tin, c, w_out, g, part, grid, m1, n, s, rows,
+                      pieces, st)
                 : repro::launch_block_gs<float>(
-                      v, w, tin, c, w_out, g, part, part_blocks, m1, n, s,
-                      rows, blocks_per_sm, st);
+                      v, w, tin, c, w_out, g, part, grid, m1, n, s, rows,
+                      pieces, st);
 }
 
-// The launch shape repro_block_gs_pass would use: out = {grid, cols, smem}.
-extern "C" int repro_block_gs_pass_shape(int v_bf16, int m1, int n, int s,
-                                         int blocks_per_sm, int* out) {
-  const void* kernel = nullptr;
-  int g = 0;
-  const cudaError_t e =
-      v_bf16 ? repro::block_gs_grid<repro::bf16>(m1, n, s, blocks_per_sm,
-                                                 &kernel, &g)
-             : repro::block_gs_grid<float>(m1, n, s, blocks_per_sm, &kernel,
-                                           &g);
-  out[0] = g;
-  out[1] = g ? (n + g - 1) / g : 0;
-  out[2] = (int)repro::block_gs_smem_bytes(m1, s);
-  return e;
+// The dynamic shared memory of repro_block_gs_pass's kernel: out[0] bytes.
+extern "C" int repro_block_gs_pass_smem(int m1, int s, int* out) {
+  out[0] = (int)repro::block_gs_smem_bytes(m1, s);
+  return 0;
 }
 
 // v (m1, n) f32 or bf16, row-major (every row is read); w (s, n), tin

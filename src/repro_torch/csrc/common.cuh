@@ -3,9 +3,10 @@
 // block_gs.cu, sr_payload.cu, trisolve.cu, attention.cu, ssd.cu,
 // gated_norm.cu): storage-type conversion, 16-byte row
 // streaming with a warp, block sums in a fixed order, the grid-synchronised
-// classical Gram-Schmidt pass, with the basis slice in shared memory or
-// streamed, partials of a plain launch and their reduction by a second one,
-// and the grid of a persistent cooperative kernel.
+// classical Gram-Schmidt pass with the basis slice in shared memory
+// (stream_gs.cuh streams it from global memory), partials of a plain
+// launch and their reduction by a second one, and the grid of a
+// persistent cooperative kernel.
 //
 // Storage types are float and __nv_bfloat16; every sum is taken in float.
 #pragma once
@@ -299,155 +300,10 @@ cudaError_t coop_shape(Kernel kernel, int m1, int n, int smem_cap,
   return cudaErrorCooperativeLaunchTooLarge;
 }
 
-// ---------------------------------------------------------------------------
-// Streamed classical Gram-Schmidt pass, for bases whose column slice does
-// not fit a block's shared memory (cgs2.cu's gs_project at n = 2^20).
-// The grid covers (lane, column slice):
-// block b of a lane owns columns [b * cols, b * cols + len).  V is read from
-// global memory in each phase:
-//   stream_project  part[r * bpl + b] = sum over the slice of V[r, c] x[c];
-//                   each thread takes columns in turn and sums eight rows
-//                   at once (eight independent loads in flight, coalesced
-//                   across the warp), then warp shuffles and one
-//                   shared-memory step reduce each row;
-//   stream_reduce   after the grid sync, every block of the lane sums the
-//                   lane's partials itself, in one fixed order;
-//   stream_update   out[c] = x[c] - sum_r h[r] V[r, c], a thread per column,
-//                   eight rows' loads in flight.
-// Dynamic shared memory: hs[m1], htot[m1], red[kWarps * kRowChunk].
-// ---------------------------------------------------------------------------
-constexpr int kRowChunk = 8;   // basis rows one project sweep handles
-
-__host__ __device__ inline size_t stream_smem_bytes(int m1) {
-  // hs[m1], htot[m1], red[kWarps * kRowChunk]
-  return sizeof(float) * (2 * (size_t)m1 + (size_t)kWarps * kRowChunk);
-}
-
-// part[r * bpl + b] = sum over the block's columns of V[r, c] * x[c].
-template <typename TV>
-__device__ void stream_project(const TV* __restrict__ vl, const float* x,
-                               int rows, int c0, int len, int n, float* part,
-                               int bpl, int b, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-    float acc[kRowChunk];
-#pragma unroll
-    for (int r = 0; r < kRowChunk; ++r) acc[r] = 0.f;
-    const int nr = rows - r0 < kRowChunk ? rows - r0 : kRowChunk;
-    const TV* vr = vl + (size_t)r0 * n + c0;
-    for (int c = threadIdx.x; c < len; c += blockDim.x) {
-      const float xc = x[c0 + c];
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        if (r < nr) acc[r] = fmaf(to_f(vr[(size_t)r * n + c]), xc, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowChunk; ++r) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0) red[warp * kRowChunk + r] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < nr) {
-      float s = 0.f;
-      for (int q = 0; q < kWarps; ++q) s += red[q * kRowChunk + threadIdx.x];
-      part[(size_t)(r0 + threadIdx.x) * bpl + b] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// hs[r] = sum_b part[r * bpl + b], the same order in every block.
-__device__ inline void stream_reduce(const float* part, int rows, int bpl,
-                                     float* hs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows; r += kWarps) {
-    float acc = 0.f;
-    for (int b = lane; b < bpl; b += 32)
-      acc += __ldcg(part + (size_t)r * bpl + b);   // written by other SMs
-    acc = warp_sum(acc);
-    if (lane == 0) hs[r] = acc;
-  }
-  __syncthreads();
-}
-
-// out[c] = x[c] - sum_r hs[r] V[r, c] over the block's columns.
-// Rows are loaded eight at a time (eight loads in flight per thread), then
-// summed in row order.
-template <typename TV>
-__device__ void stream_update(const TV* __restrict__ vl, const float* x,
-                              float* out, const float* hs, int rows, int c0,
-                              int len, int n) {
-  for (int c = threadIdx.x; c < len; c += blockDim.x) {
-    float u = 0.f;
-    for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-      const int nr = rows - r0 < kRowChunk ? rows - r0 : kRowChunk;
-      const TV* vr = vl + (size_t)r0 * n + c0 + c;
-      float vv[kRowChunk];
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        vv[r] = r < nr ? to_f(vr[(size_t)r * n]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        if (r < nr) u = fmaf(hs[r0 + r], vv[r], u);
-    }
-    out[c0 + c] = x[c0 + c] - u;
-  }
-}
-
-// The streamed pass's cooperative grid over k lanes: bpl blocks per lane,
-// as many as `blocks_per_sm` blocks on every SM allow (never more than a
-// lane has columns), checked
-// against the occupancy calculator.  Kept per host thread for the last
-// (kernel, device, shape), so a solve's repeated launches skip the queries.
-struct StreamShape {
-  int bpl = 0;
-  int cols = 0;
-  size_t smem = 0;
-};
-
-template <typename Kernel>
-cudaError_t stream_shape(Kernel kernel, int k, int m1, int n,
-                         int blocks_per_sm, StreamShape* out) {
-  struct Key {
-    const void* kernel;
-    int dev, k, m1, n, bps;
-  };
-  thread_local Key last{nullptr, -1, 0, 0, 0, 0};
-  thread_local StreamShape last_shape;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const Key key{(const void*)kernel, dev, k, m1, n, blocks_per_sm};
-  if (key.kernel == last.kernel && key.dev == last.dev && key.k == last.k &&
-      key.m1 == last.m1 && key.n == last.n && key.bps == last.bps) {
-    *out = last_shape;
-    return cudaSuccess;
-  }
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const size_t sb = stream_smem_bytes(m1);
-  if (sb > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sb);
-    if (e != cudaSuccess) return e;
-  }
-  int occ = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads,
-                                                    sb);
-  if (e != cudaSuccess) return e;
-  const int per_sm = occ < blocks_per_sm ? occ : blocks_per_sm;
-  int bpl = per_sm * sms / k;
-  if (bpl > n) bpl = n;
-  if (bpl < 1) return cudaErrorCooperativeLaunchTooLarge;
-  out->bpl = bpl;
-  out->cols = (n + bpl - 1) / bpl;
-  out->smem = sb;
-  last = key;
-  last_shape = *out;
-  return cudaSuccess;
-}
+// Basis rows one projection sweep of the shared-memory-staged kernels
+// handles at once (sr_payload.cu's payload, block_gs.cu's single-reduce
+// pair): eight loads of V in flight a thread.
+constexpr int kRowChunk = 8;
 
 // ---------------------------------------------------------------------------
 // Partials of a plain (non-cooperative) launch, reduced by a second launch

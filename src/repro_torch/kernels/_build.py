@@ -43,15 +43,20 @@ SIGNATURES = {
     # a, a_bf16, x, y, m, n, k, rows, unroll, cs, grid, threads, stream
     # (the shape: tuning.gemv_rows_shape)
     "repro_block_matvec": (P, I, P, P, I, I, I, I, I, I, I, I, P),
-    # v, v_bf16, w, h, w_out, partials, partial_blocks, m1, n, j,
-    # smem_cap, blocks_per_sm, stream_blocks_per_sm, stream
-    "repro_gs_project": (P, I, P, P, P, P, I, I, I, I, I, I, I, P),
+    # The shared-memory pass: v, v_bf16, w, h, w_out, partials,
+    # partial_blocks, m1, n, j, smem_cap, blocks_per_sm, stream
+    "repro_gs_project": (P, I, P, P, P, P, I, I, I, I, I, I, P),
+    # The streamed pass (tuning.gs_stream_plan): v, v_bf16, w, h, w_out,
+    # partials, grid, m1, n, j, pieces, passes (2: cgs2), stream
+    "repro_gs_stream": (P, I, P, P, P, P, I, I, I, I, I, I, P),
+    # v_bf16, m1, out (int[2]: co-resident blocks, shared memory bytes)
+    "repro_gs_stream_capacity": (I, I, P),
     # a, a_bf16, v, v_bf16, h, w_out, partials, partial_blocks, m1, n, j,
     # smem_cap, blocks_per_sm, stream
     "repro_arnoldi_step": (P, I, P, I, P, P, P, I, I, I, I, I, I, P),
     # Launch shapes, out = int[3] {grid, cols, smem bytes}:
-    # v_bf16, m1, n, smem_cap, blocks_per_sm, stream_blocks_per_sm, out
-    "repro_gs_project_shape": (I, I, I, I, I, I, P),
+    # v_bf16, m1, n, smem_cap, blocks_per_sm, out
+    "repro_gs_project_shape": (I, I, I, I, I, P),
     # a_bf16, v_bf16, m1, n, smem_cap, blocks_per_sm, out
     "repro_arnoldi_step_shape": (I, I, I, I, I, I, P),
     # values, v_bf16, cols, x, y, rows, width, k, threads, stream
@@ -95,11 +100,11 @@ SIGNATURES = {
     # int[nbands]), nbands, x, z, nrm, raw, partials, partial_blocks, width,
     # s, blocks_per_sm, stream
     "repro_banded_powers_halo": (P, I, P, I, P, P, P, P, P, I, I, I, I, P),
-    # v, v_bf16, w, tin, c, w_out, g, partials, partial_blocks, m1, n, s,
-    # rows, blocks_per_sm, stream
+    # v, v_bf16, w, tin, c, w_out, g, partials, grid, m1, n, s, rows,
+    # pieces, stream (the plan: tuning.block_gs_plan)
     "repro_block_gs_pass": (P, I, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    # v_bf16, m1, n, s, blocks_per_sm, out
-    "repro_block_gs_pass_shape": (I, I, I, I, I, P),
+    # m1, s, out (int[1]: shared memory bytes)
+    "repro_block_gs_pass_smem": (I, I, P),
     # The single-reduce kernels (two launches each: partials, then their
     # reduction; grid = tuning.sr_grid):
     # v, v_bf16, z, out (m1 + 1, 2), partials, grid, m1, n, j, stream

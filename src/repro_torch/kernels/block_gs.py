@@ -237,6 +237,25 @@ def _card_inputs(name: str, v, *fs):
     return [f.to(torch.float32).contiguous() for f in fs]
 
 
+def block_gs_plan(v: torch.Tensor, w: torch.Tensor, k_start: int) -> dict:
+    """``tuning.block_gs_plan`` for these operands on their card: 16-byte
+    pieces where V and W and their row strides are 16-byte aligned (W' is
+    allocated aligned), else the scalar route.  Cached by shape, storage,
+    card and alignment: callers read the plan and never change it."""
+    m1, n = v.shape
+    aligned = tuning.stream_aligned((v.data_ptr(), w.data_ptr()),
+                                    n * v.element_size(), k_start + 1) \
+        and (n * 4) % 16 == 0
+    return _block_plan_of(m1, n, w.shape[0], k_start + 1, v.element_size(),
+                          aligned, v.device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _block_plan_of(m1, n, s, rows, elem, aligned, device) -> dict:
+    return tuning.block_gs_plan(m1, n, s, rows, elem, aligned,
+                                tuning.sm_count(device))
+
+
 def block_gs_pass(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
                   k_start: int):
     """One fused block-GS pass.  v: (m1, n) basis, rows 0..k_start valid;
@@ -246,34 +265,43 @@ def block_gs_pass(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
     if v.device.type == "cpu":
         return block_gs_pass_plain(v, w, tin, k_start)
     wf, tf = _card_inputs("block_gs_pass", v, w, tin)
+    plan = block_gs_plan(v, wf, k_start)
     m1, n = v.shape
     s = w.shape[0]
     dev = v.device
     c = torch.empty((m1, s), dtype=torch.float32, device=dev)
     w_out = torch.empty((s, n), dtype=torch.float32, device=dev)
     g = torch.empty((s, s), dtype=torch.float32, device=dev)
-    grid = tuning.persistent_grid(dev, tuning.BLOCK_GS_BLOCKS_PER_SM,
-                                  -(-n // (32 * tuning.GS_WARPS)))
+    grid = plan["grid"]
     part = torch.empty(((m1 * s + s * (s + 1) // 2) * grid,),
                        dtype=torch.float32, device=dev)
     rc = _build.library().repro_block_gs_pass(
         v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
         tf.data_ptr(), c.data_ptr(), w_out.data_ptr(), g.data_ptr(),
-        part.data_ptr(), grid, m1, n, s, k_start + 1,
-        tuning.BLOCK_GS_BLOCKS_PER_SM, _build.stream_ptr(v))
+        part.data_ptr(), grid, m1, n, s, k_start + 1, plan["pieces"],
+        _build.stream_ptr(v))
     _build.check("block_gs_pass", rc)
     block_gs_pass.launches += 1
+    block_gs_pass.routes[plan["route"]] += 1
     return c, w_out, g
 
 
 block_gs_pass.launches = 0
+block_gs_pass.routes = {"vec": 0, "scalar": 0}
 
 
-def block_gs_launch_shape(v_dtype, m1: int, n: int, s: int) -> dict:
-    """The grid block_gs_pass launches at this shape on the current card."""
-    return _build.shape("repro_block_gs_pass_shape",
-                        int(v_dtype == torch.bfloat16), m1, n, s,
-                        tuning.BLOCK_GS_BLOCKS_PER_SM)
+def block_gs_launch_shape(v_dtype, m1: int, n: int, s: int,
+                          k_start: int = 25) -> dict:
+    """The grid block_gs_pass launches at this shape on the current card
+    (aligned operands, rows 0..k_start) and its dynamic shared memory."""
+    elem = torch.finfo(v_dtype).bits // 8
+    plan = tuning.block_gs_plan(m1, n, s, k_start + 1, elem, True,
+                                tuning.sm_count("cuda"))
+    out = (ctypes.c_int * 1)()
+    _build.check("block_gs_pass smem",
+                 _build.library().repro_block_gs_pass_smem(m1, s, out))
+    return {"grid": plan["grid"], "cols": -(-n // plan["grid"]),
+            "smem_bytes": out[0], "route": plan["route"]}
 
 
 # --------------------------------------------------------------------------

@@ -6,9 +6,13 @@ fused single-shard pass, ``csrc/cgs2.cu``), and the pipelined step's
 (``csrc/sr_payload.cu``), and the row-sharded step's split-phase
 projection ``gs_project_partial`` (``csrc/sr_payload.cu``) with
 ``cgs2_split``, the project / all-reduce / update pair run twice.  The
-source notes give the designs and the bounds.  A basis whose column slices do not fit shared memory (the sparse
-solver's n = 2^20) takes ``gs_project``'s streamed variant, chosen from
-the shape on the C side.
+source notes give the designs and the bounds.  A basis whose column
+slices do not fit shared memory (the sparse solver's n = 2^20) streams
+from global memory (``tuning.gs_stream_plan``, ``launch_plan``): then
+``cgs2`` is one launch of three sweeps over V (``cgs2.launches``) and
+``gs_project`` one of two; each counts the route it took in ``.routes``
+("smem", or the streamed kernel's "vec" 16-byte pieces / "scalar" for a
+misaligned V, w or row stride).
 
 The mask is the prefix of valid basis rows, so ``gs_project`` and
 ``gs_project_norm_partial`` take ``j`` (rows 0..j valid) instead of a mask
@@ -34,6 +38,9 @@ On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -66,50 +73,159 @@ def _storage(name: str, *ts) -> None:
                             f"got {t.dtype}")
 
 
+def _card_operands(name: str, v, w):
+    """Check a card launch's operands; w as float32, contiguous."""
+    if v.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {v.device}")
+    _storage(name, v, w)
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: v must be contiguous (row-major)")
+    return w.to(torch.float32).contiguous()
+
+
+def stream_capacity(v: torch.Tensor) -> int:
+    """The co-resident blocks of the streamed kernel for this basis on its
+    card (the cooperative grid's limit)."""
+    return _stream_shape(v.device.index, v.dtype == torch.bfloat16,
+                         v.shape[0])[0]
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_shape(index: int, bf16: bool, m1: int) -> tuple:
+    """(co-resident blocks, dynamic shared memory bytes) of the streamed
+    kernel, asked of the C side once a (card, storage, m1)."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        _build.check("gs_project capacity",
+                     _build.library().repro_gs_stream_capacity(
+                         int(bf16), m1, out))
+    return out[0], out[1]
+
+
+def launch_plan(v: torch.Tensor, w: torch.Tensor, j: int) -> dict:
+    """How ``gs_project`` / ``cgs2`` run on these operands: route "smem"
+    where a block's V slice fits shared memory (``tuning.fused_step_fits``:
+    the shared-memory pass), else ``tuning.gs_stream_plan``'s streamed
+    kernel, on 16-byte pieces where V, w and the row stride are 16-byte
+    aligned (the output is allocated aligned), else on the scalar
+    route.  Cached by shape, storage, card and alignment: callers read the
+    plan and never change it."""
+    m1, n = v.shape
+    aligned = tuning.stream_aligned((v.data_ptr(), w.data_ptr()),
+                                    n * v.element_size(), j + 1)
+    return _plan_of(m1, n, j, v.dtype, v.device, aligned)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_of(m1: int, n: int, j: int, dtype, device, aligned: bool) -> dict:
+    if tuning.fused_step_fits(m1, n, tuning.sm_count(device)):
+        return {"route": "smem"}
+    return tuning.gs_stream_plan(
+        m1, n, j, torch.finfo(dtype).bits // 8, aligned,
+        _stream_shape(device.index, dtype == torch.bfloat16, m1)[0])
+
+
+def _launch_smem(v, wf, j: int):
+    """One shared-memory pass (csrc/cgs2.cu's gs_project_kernel)."""
+    m1, n = v.shape
+    h = torch.empty(m1, dtype=torch.float32, device=v.device)
+    w_out = torch.empty(n, dtype=torch.float32, device=v.device)
+    cap = tuning.partial_blocks(v.device, tuning.GS_BLOCKS_PER_SM)
+    part = torch.empty(cap * m1, dtype=torch.float32, device=v.device)
+    rc = _build.library().repro_gs_project(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        h.data_ptr(), w_out.data_ptr(), part.data_ptr(), cap, m1, n, j,
+        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM, _build.stream_ptr(v))
+    _build.check("gs_project", rc)
+    return h, w_out
+
+
+def _launch_stream(v, wf, j: int, passes: int, plan: dict):
+    """The streamed kernel at launch plan ``plan`` (``launch_plan``'s):
+    ``passes`` = 2 is cgs2 (h = h1 + h2, w''), 1 one pass (h, w')."""
+    m1, n = v.shape
+    h = torch.empty(m1, dtype=torch.float32, device=v.device)
+    w_out = torch.empty(n, dtype=torch.float32, device=v.device)
+    part = torch.empty(passes * m1 * plan["grid"], dtype=torch.float32,
+                       device=v.device)
+    rc = _build.library().repro_gs_stream(
+        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+        h.data_ptr(), w_out.data_ptr(), part.data_ptr(), plan["grid"], m1, n,
+        j, plan["pieces"], passes, _build.stream_ptr(v))
+    _build.check("cgs2" if passes == 2 else "gs_project", rc)
+    return h, w_out
+
+
 def gs_project(v: torch.Tensor, w: torch.Tensor, j: int):
     """One fused GS pass over basis rows 0..j.  v: (m1, n), w: (n,)."""
     j = int(j)
     _check(v, w, j)
     if v.device.type == "cpu":
         return gs_project_plain(v, w, j)
-    if v.device.type != "cuda":
-        raise ValueError(f"gs_project: unsupported device {v.device}")
-    _storage("gs_project", v, w)
-    if not v.is_contiguous():
-        raise ValueError("gs_project: v must be contiguous (row-major)")
-    m1, n = v.shape
-    wf = w.to(torch.float32).contiguous()
-    h = torch.empty(m1, dtype=torch.float32, device=v.device)
-    w_out = torch.empty(n, dtype=torch.float32, device=v.device)
-    cap = tuning.partial_blocks(v.device, max(tuning.GS_BLOCKS_PER_SM,
-                                              tuning.STREAM_BLOCKS_PER_SM))
-    part = torch.empty(cap * m1, dtype=torch.float32, device=v.device)
-    rc = _build.library().repro_gs_project(
-        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
-        h.data_ptr(), w_out.data_ptr(), part.data_ptr(), cap, m1, n, j,
-        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM,
-        tuning.STREAM_BLOCKS_PER_SM, _build.stream_ptr(v))
-    _build.check("gs_project", rc)
+    wf = _card_operands("gs_project", v, w)
+    plan = launch_plan(v, wf, j)
+    if plan["route"] == "smem":
+        h, w_out = _launch_smem(v, wf, j)
+    else:
+        h, w_out = _launch_stream(v, wf, j, 1, plan)
     gs_project.launches += 1
+    gs_project.routes[plan["route"]] += 1
     return h, w_out.to(w.dtype)
 
 
 gs_project.launches = 0
+gs_project.routes = {"smem": 0, "vec": 0, "scalar": 0}
 
 
-def launch_shape(v_dtype, m1: int, n: int) -> dict:
-    """The grid gs_project launches at this shape on the current card."""
-    return _build.shape("repro_gs_project_shape",
-                        int(v_dtype == torch.bfloat16), m1, n,
-                        tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM,
-                        tuning.STREAM_BLOCKS_PER_SM)
+def launch_shape(v_dtype, m1: int, n: int, j: int = 15) -> dict:
+    """The grid gs_project launches at this shape on the current card
+    (aligned operands): the shared-memory pass's cooperative shape, or the
+    streamed kernel's plan at step j (``cols``: columns a block,
+    ``smem_bytes``: its dynamic shared memory)."""
+    if tuning.fused_step_fits(m1, n, tuning.sm_count("cuda")):
+        return _build.shape("repro_gs_project_shape",
+                            int(v_dtype == torch.bfloat16), m1, n,
+                            tuning.SMEM_BUDGET, tuning.GS_BLOCKS_PER_SM)
+    blocks, smem = _stream_shape(torch.cuda.current_device(),
+                                 v_dtype == torch.bfloat16, m1)
+    plan = tuning.gs_stream_plan(m1, n, j, torch.finfo(v_dtype).bits // 8,
+                                 True, blocks)
+    return {"grid": plan["grid"], "cols": -(-n // plan["grid"]),
+            "smem_bytes": smem, "route": plan["route"]}
+
+
+def cgs2_plain(v: torch.Tensor, w: torch.Tensor, j: int):
+    """Both passes' arithmetic: h = h1 + h2 and w''."""
+    h1, w1 = gs_project_plain(v, w, j)
+    h2, w2 = gs_project_plain(v, w1, j)
+    return h1 + h2, w2
 
 
 def cgs2(v: torch.Tensor, w: torch.Tensor, j: int):
-    """Reorthogonalized (two-pass) fused Gram-Schmidt; returns (h, w'')."""
-    h1, w1 = gs_project(v, w, j)
-    h2, w2 = gs_project(v, w1, j)
-    return h1 + h2, w2
+    """Reorthogonalized (two-pass) fused Gram-Schmidt; returns (h, w'').
+    Where the basis streams from global memory, one launch of three sweeps
+    over V (``cgs2.launches``, ``cgs2.routes``); else two shared-memory
+    ``gs_project`` passes."""
+    j = int(j)
+    _check(v, w, j, "cgs2")
+    if v.device.type == "cpu":
+        return cgs2_plain(v, w, j)
+    wf = _card_operands("cgs2", v, w)
+    plan = launch_plan(v, wf, j)
+    if plan["route"] == "smem":   # two shared-memory passes
+        h1, w1 = _launch_smem(v, wf, j)
+        h2, w2 = _launch_smem(v, w1, j)
+        gs_project.launches += 2
+        gs_project.routes["smem"] += 2
+        return h1 + h2, w2.to(w.dtype)
+    h, w2 = _launch_stream(v, wf, j, 2, plan)
+    cgs2.launches += 1
+    cgs2.routes[plan["route"]] += 1
+    return h, w2.to(w.dtype)
+
+
+cgs2.launches = 0
+cgs2.routes = {"vec": 0, "scalar": 0}
 
 
 # --------------------------------------------------------------------------

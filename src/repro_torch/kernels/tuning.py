@@ -24,7 +24,10 @@ no meaning here.  What the kernels need is
   chain of chunks, one block per right-hand side: ``trisweep_plan``; the
   ILU(0) setup is a wavefront of warps over tiles of rows: ``ilu0_plan``;
 - the per-lane CGS2 of the block solver (csrc/batched_cgs2.cu): blocks
-  split over the active lanes by their rows, ``batched_cgs2_split``;
+  split over the active lanes by their rows, ``batched_cgs2_split``; the
+  scalar solver's CGS2 (csrc/cgs2.cu): the shared-memory pass or the
+  streamed one-launch cgs2, ``gs_stream_plan``; the s-step block pass
+  (csrc/block_gs.cu): ``block_gs_plan``;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
   as the JAX solver asks its VMEM check;
@@ -45,6 +48,7 @@ version.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -66,11 +70,10 @@ SMEM_LIMIT = 232_448
 # warps in flight.
 GS_BLOCKS_PER_SM = 1
 FUSED_BLOCKS_PER_SM = 4
-# The streamed GS pass (V read from global memory: gs_project where a
-# block's slice does not fit shared memory) is
-# latency-bound and wants as many warps in flight as the SM holds (the
-# occupancy calculator caps this; see PERF.md for the sweep).
-STREAM_BLOCKS_PER_SM = 8
+# The streamed GS pass (csrc/cgs2.cu, where a block's slice does not fit
+# shared memory: gs_stream_plan) runs csrc/stream_gs.cuh's sweeps as one
+# lane of batched_cgs2's launch rule (BATCHED_THREADS a block, two blocks
+# an SM, fixed in the kernel).
 SPMV_THREADS = 256        # rows per SpMV block, one thread per row
 # The s-step kernels (csrc/matrix_powers.cu, csrc/block_gs.cu) are
 # persistent cooperative launches: these many blocks per SM at most, fewer
@@ -81,8 +84,14 @@ SPMV_THREADS = 256        # rows per SpMV block, one thread per row
 # formats.  Each power ends in a grid sync whose cost grows with the grid;
 # each block-GS pass reduces (k_start + 1) * s partials per block.
 POWERS_BLOCKS_PER_SM = 4
-BLOCK_GS_BLOCKS_PER_SM = 2
+# block_gs_pass (csrc/block_gs.cu): one block of 256 threads an SM (fixed
+# in the kernel), a block a contiguous range of 16-byte pieces, at least
+# BLOCK_GS_MIN_ITEMS a block (two warps' share of a row group); the warps
+# split the valid rows into groups of BLOCK_GS_ROW_GROUP (a thread holds
+# that many rows x s accumulators).
 BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
+BLOCK_GS_ROW_GROUP = 8
+BLOCK_GS_MIN_ITEMS = 64
 # The single-reduce kernels stream V through a plain grid; four blocks per
 # SM keep enough loads in flight, and a slice of at most 2048 columns keeps
 # the (8, 2048) f32 slice of Q within 64 KB of shared memory.
@@ -162,8 +171,16 @@ TRISWEEP_STAGES = 8
 def sm_count(device) -> int:
     dev = torch.device(device)
     if dev.type == "cuda":
-        return torch.cuda.get_device_properties(dev).multi_processor_count
+        return _cuda_sms(torch.cuda.current_device() if dev.index is None
+                         else dev.index)
     return H100_SMS
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index: int) -> int:
+    """The SMs of card ``index``, asked once (the wrappers plan every
+    launch from it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gs_smem_bytes(m1: int, cols: int) -> int:
@@ -400,6 +417,58 @@ def ilu0_plan(offsets) -> dict:
     return {"lower": lower, "wait": wait,
             "wait_mask": sum(1 << j for j, w in enumerate(wait) if w),
             "tile_rows": tile}
+
+
+def _pieces(n: int, elem_size: int, aligned: bool) -> tuple:
+    """(vec, pieces, tail): ``vec`` columns a 16-byte piece of V, the
+    pieces a row (0 where not ``aligned``: the scalar route) and the
+    scalar tail columns."""
+    vec = 16 // elem_size
+    pieces = n // vec if aligned else 0
+    return vec, pieces, n - pieces * vec
+
+
+def gs_stream_plan(m1: int, n: int, j: int, elem_size: int, aligned: bool,
+                   budget: int) -> dict:
+    """The streamed ``gs_project`` / ``cgs2`` kernel (csrc/cgs2.cu, where a
+    block's V slice does not fit shared memory: not ``fused_step_fits``)
+    on a basis V (m1, n) stored in ``elem_size`` bytes at step j (rows
+    0..j): route "vec" (16-byte pieces, where V, w and the row stride are
+    ``aligned``) or "scalar" (pieces = 0).  One lane of
+    ``batched_cgs2_split``'s rule: ``grid`` = min(``budget`` co-resident
+    blocks, what gives each thread one round of U pieces), U from
+    ``batched_unroll``."""
+    vec, pieces, tail = _pieces(n, elem_size, aligned)
+    rows = j + 1
+    t = BATCHED_THREADS
+    bucket, u = batched_unroll(rows, elem_size)
+    grid = max(1, min(budget, max(1, -(-pieces // (t * u)), -(-tail // t))))
+    return {"route": "vec" if pieces else "scalar", "grid": grid,
+            "pieces": pieces, "tail": tail, "vec": vec, "bucket": bucket,
+            "unroll": u, "threads": t}
+
+
+def block_gs_plan(m1: int, n: int, s: int, rows: int, elem_size: int,
+                  aligned: bool, sms: int) -> dict:
+    """The launch of ``block_gs_pass`` over V (m1, n) stored in
+    ``elem_size`` bytes with ``rows`` = k_start + 1 valid rows and s
+    columns of W: ``grid`` blocks (at most one an SM, at least
+    BLOCK_GS_MIN_ITEMS work items a block), block b owning pieces
+    [b pb, (b + 1) pb) and tail columns [pieces vec + b tb, ... + tb);
+    ``groups``: the warps' row groups of the first (only, for m1 <= 64)
+    set of rows and ``shares`` the column shares of each."""
+    vec, pieces, tail = _pieces(n, elem_size, aligned)
+    items = max(pieces, tail)
+    grid = max(1, min(sms, -(-items // BLOCK_GS_MIN_ITEMS)))
+    pb = -(-pieces // grid)
+    tb = -(-tail // grid)
+    warps = GS_WARPS
+    set_rows = min(rows, BLOCK_GS_ROW_GROUP * warps)
+    groups = -(-set_rows // BLOCK_GS_ROW_GROUP)
+    return {"route": "vec" if pieces else "scalar", "grid": grid,
+            "pieces": pieces, "tail": tail, "vec": vec, "pb": pb, "tb": tb,
+            "groups": groups, "shares": warps // groups,
+            "threads": 32 * warps}
 
 
 def batched_unroll(rows: int, elem_size: int) -> tuple:

@@ -222,15 +222,21 @@ def test_batched_cgs2_kernel_matches_plain(dev, k, n, js, dtype):
 @pytest.mark.parametrize("j", [0, 29])
 def test_gs_project_streams_a_large_basis(dev, j, dtype):
     """At n = 2^20 a block's basis slice does not fit shared memory, and
-    gs_project takes its streamed variant."""
+    gs_project takes the streamed kernel (one launch, 16-byte pieces).
+    w is seeded and has a part in the basis's span, as an Arnoldi step's
+    has (``_krylov_w``)."""
     n, m1 = 1 << 20, 31
     shape = cgs2.launch_shape(dtype, m1, n)
     assert shape["smem_bytes"] < 4 * m1 * shape["cols"]
+    assert shape["route"] == "vec"
     v = _basis(n, m1, j, dtype, dev)
-    w = torch.randn(n, device=dev)
+    w = _krylov_w(v, j, j)
+    before = (cgs2.gs_project.launches, dict(cgs2.gs_project.routes))
     h, w1 = cgs2.gs_project(v, w, j)
     hp, wp = cgs2.gs_project_plain(v, w, j)
     torch.cuda.synchronize()
+    assert cgs2.gs_project.launches == before[0] + 1
+    assert cgs2.gs_project.routes["vec"] == before[1]["vec"] + 1
     assert _relerr(h, hp) < TOL[dtype] and _relerr(w1, wp) < TOL[dtype]
 
 
@@ -1271,3 +1277,98 @@ def test_batched_cgs2_misaligned_view_takes_the_scalar_route(dev):
     assert block_gs.batched_cgs2.routes["scalar"] == before + 1
     assert _relerr(h, hp) < TOL[torch.float32]
     assert _relerr(w2, wp) < TOL[torch.float32]
+
+
+# --------------------------------------------------------------------------
+# the streamed cgs2 (one launch, three sweeps) and the block pass at
+# stream rate: kernel against plain at the edge shapes
+# --------------------------------------------------------------------------
+def _krylov_w(v, j, seed, off=0):
+    """w as an Arnoldi step meets it (w = A v_j): a part in the span of
+    basis rows 0..j as large as the part outside it, from a seeded
+    generator, ``off`` elements into a buffer of its own.  (With w
+    random alone, h is ~ 1e-3 of |w| at n = 2^20 and a relative bar on h
+    measures the summation noise of both versions.)"""
+    g = torch.Generator(device=v.device).manual_seed(seed)
+    n = v.shape[1]
+    c = torch.randn(j + 1, device=v.device, generator=g)
+    buf = torch.randn(n + off, device=v.device, generator=g)
+    buf[off:] += n ** 0.5 * (c @ v[:j + 1].float())
+    return buf[off:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m1,j,off", [
+    (1 << 20, 31, 0, 0), (1 << 20, 31, 1, 0), (1 << 20, 31, 15, 0),
+    (1 << 20, 31, 30, 0),                          # j = m1 - 1
+    ((1 << 20) + 3, 31, 15, 0),                    # n not a multiple of 4
+    (1 << 20, 31, 15, 1),                          # w 4 bytes off 16
+    (300_000, 40, 39, 0)])                         # a basis of 40 rows
+def test_streamed_cgs2_is_one_launch_and_matches_plain(dev, n, m1, j, off,
+                                                       dtype):
+    v = _basis(n, m1, j, dtype, dev)
+    w = _krylov_w(v, j, n + j, off)
+    route = "vec" if off == 0 and (n * v.element_size()) % 16 == 0 \
+        else "scalar"
+    for fn, plain in ((cgs2.cgs2, cgs2.cgs2_plain),
+                      (cgs2.gs_project, cgs2.gs_project_plain)):
+        before = (fn.launches, dict(fn.routes),
+                  cgs2.gs_project.launches)
+        h, w2 = fn(v, w, j)
+        hp, wp = plain(v, w, j)
+        torch.cuda.synchronize()
+        assert fn.launches == before[0] + 1
+        assert fn.routes[route] == before[1][route] + 1
+        if fn is cgs2.cgs2:                        # no gs_project launch
+            assert cgs2.gs_project.launches == before[2]
+        assert _relerr(h, hp) < TOL[dtype] and _relerr(w2, wp) < TOL[dtype]
+        assert not h[j + 1:].any()
+        h2, w22 = fn(v, w, j)
+        assert torch.equal(h, h2) and torch.equal(w2, w22)
+
+
+def test_dense_cgs2_keeps_its_two_shared_memory_passes(dev):
+    """At n = 10,000 a block's slice fits shared memory: cgs2 is two
+    gs_project launches on the "smem" route, no streamed launch."""
+    n, m1, j = 10_000, 31, 15
+    v = _basis(n, m1, j, torch.float32, dev)
+    w = _krylov_w(v, j, 0)
+    before = (cgs2.cgs2.launches, cgs2.gs_project.launches,
+              cgs2.gs_project.routes["smem"])
+    h, w2 = cgs2.cgs2(v, w, j)
+    hp, wp = cgs2.cgs2_plain(v, w, j)
+    torch.cuda.synchronize()
+    assert (cgs2.cgs2.launches, cgs2.gs_project.launches,
+            cgs2.gs_project.routes["smem"]) == (before[0], before[1] + 2,
+                                                before[2] + 2)
+    assert _relerr(h, hp) < 1e-4 and _relerr(w2, wp) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k_start,s,off", [
+    (1 << 20, 0, 1, 0), (1 << 20, 30, 8, 0), (1 << 20, 25, 5, 0),
+    (1 << 20, 12, 8, 0), (10_000, 30, 1, 0), (10_000, 0, 8, 0),
+    ((1 << 20) + 3, 25, 5, 0),                     # n not a multiple of 4
+    (1 << 20, 25, 5, 1)])                          # W 4 bytes off 16
+def test_block_gs_pass_at_stream_rate_matches_plain(dev, n, k_start, s, off,
+                                                    dtype):
+    from repro_torch.kernels import block_gs
+
+    m1 = 31
+    v = _basis(n, m1, k_start, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(n + s)
+    w = torch.randn(s * n + off, device=dev, generator=g)[off:].view(s, n)
+    tin = torch.triu(torch.randn(s, s, device=dev, generator=g)) \
+        + 2 * torch.eye(s, device=dev)
+    route = "vec" if off == 0 and n % 8 == 0 else "scalar"
+    before = dict(block_gs.block_gs_pass.routes)
+    got = block_gs.block_gs_pass(v, w, tin, k_start)
+    want = block_gs.block_gs_pass_plain(v, w, tin, k_start)
+    torch.cuda.synchronize()
+    assert block_gs.block_gs_pass.routes[route] == before[route] + 1
+    assert not got[0][k_start + 1:].any()
+    for gt, wt in zip(got, want):
+        assert _relerr(gt, wt) < TOL[dtype]
+    again = block_gs.block_gs_pass(v, w, tin, k_start)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[2], got[2].T)
