@@ -8,8 +8,10 @@
         # (rows 4 and 6), redesign3 (rows 1 and 19), redesign4 (row 13
         # and the ILU(0) setup), redesign5 (rows 2 and 9: the streamed
         # cgs2 / gs_project and block_gs_pass, each wrapper's host cost,
-        # the dense and banded cgs2_fused and banded s-step solves);
-        # default all five;
+        # the dense and banded cgs2_fused and banded s-step solves),
+        # redesign6 (rows 17 and 5: ell_powers beside banded_powers, the
+        # payload beside row 4, rows 15 and 18, the ELL s-step and banded
+        # pipelined solves); default all six;
         # redesign3_sweep (the launch shapes of rows 1 and 19) only when
         # named
 
@@ -19,8 +21,11 @@ Phases, one JSON line each (``"phase": ...``):
               per source, in parallel); nvcc version; card and power limit;
               ``ptxas -v``'s registers, spills and static shared memory of
               the sliced-ELL, bf16 attention, ILU(0) wavefront,
-              batched_cgs2, streamed GS (gs_stream_kernel) and block-GS
-              pass kernels, and the HGMMA
+              batched_cgs2, streamed GS (gs_stream_kernel), block-GS
+              pass, ELL powers (by storage and width bucket) and the
+              projections' column-sweep and block-a-row kernels (by
+              storage, bucket, pieces at once and right-hand columns:
+              row 4 and the payload), and the HGMMA
               (wgmma) instructions in each attention instantiation's SASS
               (``cuobjdump -sass``): none fails the run.
 2. kernels    every kernel of the main path against its plain PyTorch
@@ -120,8 +125,11 @@ The s-step slice (s = 5, 6 blocks: m = 30):
               float32 and bfloat16 storage, same bars as phase 2, at
               s = 2, 5 and 8: banded and ELL powers on the 1024^2
               convection-diffusion stencil, unshifted and with the Newton
-              shifts of its Gershgorin interval (and whether the two formats
-              give the same bits); dense powers at n = 10,000;
+              shifts of its Gershgorin interval, the ELL powers on their
+              "resident" route and with banded_powers' bits (checked);
+              the ELL powers' "stream" route on a table too wide to keep
+              (4,096 x 1,200, ragged), the same bits twice; dense powers
+              at n = 10,000;
               block_gs_pass at m1 = 31, n = 2^20 and n = 10,000, s = 1,
               2, 5 and 8, k_start 0, 10, 25 and 30, and on its scalar route
               (n = 2^20 + 3; W one element off 16 bytes), each call's route
@@ -157,7 +165,10 @@ The pipelined slice (gs = "cgs2_pipelined"):
               gs_update, block_gs_project_gram and block_gs_update against
               their plain versions on the card, float32 and bfloat16
               storage, same bars as phase 2: payload and update at
-              n = 10,000 and 2^20, m1 = 31, j = 0, 15, 29 (the update on
+              n = 10,000 and 2^20, m1 = 31, j = 0, 15, 29 (the payload
+              on its "row" and "vec" routes, and at STREAM_EDGES on the
+              route its plan gives, "scalar" where misaligned, each the
+              same bits twice; the update on
               the row prefix V[:j+1], as the cycle calls it, and bit-equal
               to the full call); the update at odd n and on views one
               element off 16 bytes (STREAM_EDGES), h a row view, with the
@@ -1290,20 +1301,54 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
                                                sp, shifts=shifts),
                         dtype, s=sp, shifted=shifted, n=n,
                         shape=mp.launch_shape("banded", dtype, n))
+                routes = dict(mp.ell_powers.routes)
                 got_e = mp.ell_powers(ell.values, ell.cols, x_n, sp,
                                       shifts=shifts)
+                route = [r for r, c in mp.ell_powers.routes.items()
+                         if c != routes[r]]
+                same = bool(torch.equal(got_b[0], got_e[0])
+                            and torch.equal(got_b[1], got_e[1]))
                 compare("ell_powers", got_e,
                         mp.ell_powers_plain(ell.values, ell.cols, x_n, sp,
                                             shifts=shifts),
-                        dtype, s=sp, shifted=shifted, n=n,
-                        shape=mp.launch_shape("ell", dtype, n),
-                        same_bits_as_banded=bool(
-                            torch.equal(got_b[0], got_e[0])
-                            and torch.equal(got_b[1], got_e[1])))
+                        dtype, s=sp, shifted=shifted, n=n, route=route,
+                        plan=mp.ell_plan(ell.values, ell.cols),
+                        same_bits_as_banded=same)
+                check(route == ["resident"] and same,
+                      f"ell_powers s={sp} shifted={shifted} {dtype}: route "
+                      f"{route}, same bits as banded_powers {same}")
             compare("dense_powers", mp.dense_powers(a, x_d, sp),
                     mp.dense_powers_plain(a, x_d, sp), dtype, s=sp, n=N,
                     shape=mp.launch_shape("dense", dtype, N))
         del a
+        # the ELL powers' streamed route: a table too wide to keep one
+        # chunk of 32 rows in shared memory in either storage type (width
+        # 1,200: 230 KB a chunk with bf16 values), ragged rows
+        wide, width_w = 4096, 1200
+        vals = (torch.randn(wide, width_w, device="cuda", generator=gen)
+                / width_w ** 0.5)
+        cols = torch.randint(0, wide, (wide, width_w), device="cuda",
+                             generator=gen, dtype=torch.int32)
+        vals[:, width_w // 2:] *= (torch.rand(wide, 1, device="cuda",
+                                              generator=gen) < 0.5)
+        cols[vals == 0] = 0
+        vals = vals.to(dtype).contiguous()
+        x_w = torch.randn(wide, device="cuda", generator=gen)
+        for sp in SSTEP_S_CHECK:
+            routes = dict(mp.ell_powers.routes)
+            got_e = mp.ell_powers(vals, cols, x_w, sp)
+            route = [r for r, c in mp.ell_powers.routes.items()
+                     if c != routes[r]]
+            twice = all(torch.equal(a_, b_) for a_, b_ in zip(
+                got_e, mp.ell_powers(vals, cols, x_w, sp)))
+            compare("ell_powers", got_e,
+                    mp.ell_powers_plain(vals, cols, x_w, sp), dtype, s=sp,
+                    n=wide, width=width_w, route=route,
+                    same_bits_twice=twice)
+            check(route == ["stream"] and twice,
+                  f"ell_powers width {width_w} s={sp}: route {route}, the "
+                  f"same bits twice {twice}")
+        del vals, cols
         # block_gs_pass at s = 1 .. 8 and k_start 0 .. m1 - 1, and on its
         # scalar route (n not a multiple of 4; W one element off 16 bytes,
         # k_start 25, s = 5), each call's route counted and the same bits
@@ -1532,7 +1577,7 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
                 if f32 else None,
                 composite=f"{s} x (CSR torch.mv + norm + scale)"
                 if f32 else None,
-                n=n, s=s, shape=mp.launch_shape("ell", dtype, n),
+                n=n, s=s, shape=mp.ell_plan(ell.values, ell.cols),
                 bytes=n * width * (sz + 4) + 4 * n + 4 * s * n,
                 flops=2 * s * width * n),
         }
@@ -1646,17 +1691,31 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
              max_rel_err=rel, max_abs_err=err, **info)
         check(rel < TOLS[dtype], f"{name} {info} {dtype}: {rel}")
 
+    def payload_check(v, z, j, want, dtype, **info):
+        """The payload against plain, on route ``want``, the same bits on a
+        second call, rows j+1 .. m1-1 zero."""
+        zero_routes(cgs2.gs_project_norm_partial)
+        got = cgs2.gs_project_norm_partial(v, z, j)
+        again = cgs2.gs_project_norm_partial(v, z, j)
+        routes = dict(cgs2.gs_project_norm_partial.routes)
+        compare("gs_project_norm_partial", (got,),
+                (cgs2.gs_project_norm_partial_plain(v, z, j),), dtype,
+                n=v.shape[1], m1=v.shape[0], j=j, route=want, routes=routes,
+                **info)
+        check(routes[want] == 2 and sum(routes.values()) == 2,
+              f"gs_project_norm_partial n={v.shape[1]} j={j} {info}: "
+              f"routes {routes}, expected {want}")
+        check(torch.equal(got, again) and not got[j + 1:v.shape[0]].any(),
+              f"gs_project_norm_partial n={v.shape[1]} j={j} {info}: other "
+              f"bits on a second call, or masked rows not zero")
+
     # ---- 13. kernels vs plain -------------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         for nb in (N, n):
             for j in PIPE_J:
                 v = basis(nb, m1, j, dtype, gen)
                 z = torch.randn(nb, device="cuda", generator=gen)
-                compare("gs_project_norm_partial",
-                        (cgs2.gs_project_norm_partial(v, z, j),),
-                        (cgs2.gs_project_norm_partial_plain(v, z, j),),
-                        dtype, n=nb, m1=m1, j=j,
-                        grid=tuning.sr_grid("cuda", nb))
+                payload_check(v, z, j, "row" if nb == N else "vec", dtype)
                 h = torch.randn(j + 1, device="cuda", generator=gen)
                 got = cgs2.gs_update(v[:j + 1], z, h)
                 compare("gs_update", (got,),
@@ -1674,6 +1733,10 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
         for nb, off in STREAM_EDGES:
             v, z = stream_edge(nb, m1, off, dtype, gen)
             for j in PIPE_J:
+                plan = tuning.gemv_partial_shape(
+                    cgs2.stream_plan(v, z, j + 1), j + 1, k=2)
+                payload_check(v, z, j, "row" if plan["by_row"]
+                              else plan["route"], dtype, offset=off)
                 h = torch.randn(2, j + 1, device="cuda", generator=gen)[1]
                 want = cgs2.stream_plan(v, z, j + 1)["route"]
                 zero_routes(cgs2.gs_update)
@@ -1921,7 +1984,8 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                 payload_composite if f32 else None, cold,
                 composite="V[:j+1] @ stack([z, v_j]) + norms"
                 if f32 else None, n=nb, m1=m1, j=j,
-                grid=tuning.sr_grid("cuda", nb),
+                shape=tuning.gemv_partial_shape(
+                    cgs2.stream_plan(v, z, j + 1), j + 1, k=2),
                 bytes=((j + 1) * sz + 4) * nb + (m1 + 1) * 8,
                 flops=(4 * (j + 1) + 4) * nb)
             rows[f"gs_update n = {nb}"] = measure(
@@ -3476,6 +3540,21 @@ def kernel_resources(so, names) -> dict:
     return res
 
 
+def template_name(mangled: str) -> str:
+    """A kernel instantiation's readable name from its mangled one:
+    ``_ZN5repro17ell_powers_kernelIfLi8EE...`` -> ``ell_powers_kernel<float,
+    8>``."""
+    import re
+
+    m = re.search(r"repro\d+(\w+?_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E",
+                  mangled)
+    if m is None:
+        return mangled
+    args = ["float" if m[2] == "f" else "bf16"] + re.findall(r"Li(\d+)E",
+                                                             m[3])
+    return f"{m[1]}<{', '.join(args)}>"
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device is available")
     from repro_torch.core import gmres, operators, strategies
@@ -3501,7 +3580,8 @@ def main() -> None:
                           text=True, check=True).stdout.strip().splitlines()
     res = kernel_resources(so, ("sell_kernel", "attention_wgmma_kernel",
                                 "ilu0_wave_kernel", "batched_cgs2_kernel",
-                                "gs_stream_kernel", "block_gs_kernel"))
+                                "gs_stream_kernel", "block_gs_kernel",
+                                "ell_powers_kernel", "gs_partial_"))
     sell = [r for name, r in res.items() if "sell_kernel" in name]
     attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
             for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
@@ -3512,6 +3592,11 @@ def main() -> None:
     stream = {name: r for name, r in res.items()
               if "gs_stream_kernel" in name}
     bgs = {name: r for name, r in res.items() if "block_gs_kernel" in name}
+    # rows 17 and 5: the ELL powers by storage and width bucket; the
+    # projections' column sweep by storage, bucket, pieces at once and
+    # right-hand columns, and their block-a-row kernel
+    redesign6 = {template_name(name): r for name, r in res.items()
+                 if "ell_powers_kernel" in name or "gs_partial_" in name}
 
     def summary(rs):
         return {"registers_max": max(r["registers"] for r in rs),
@@ -3527,6 +3612,7 @@ def main() -> None:
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          resources=dict(attn, **redesign4, **stream, **bgs_summary,
+                        **redesign6,
                         **{f"sell_kernel ({len(sell)} instantiations)":
                            dict(summary(sell), static_smem_max=max(
                                r["static_smem"] for r in sell))}))
@@ -3535,6 +3621,10 @@ def main() -> None:
     check(len(stream) == 2 and len(bgs) == 16,
           f"gs_stream_kernel / block_gs_kernel: {len(stream)} / {len(bgs)} "
           f"instantiations")
+    check(sum("ell_powers" in k for k in redesign6) == 8
+          and sum("gs_partial_stream" in k for k in redesign6) == 18
+          and sum("gs_partial_rows" in k for k in redesign6) == 4,
+          f"ell_powers_kernel / gs_partial_*: {sorted(redesign6)}")
     check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
           f"attention_wgmma_kernel: HGMMA instructions {attn}")
     check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
@@ -3955,7 +4045,8 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4", "redesign5")
+CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4", "redesign5",
+               "redesign6")
 # a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
 SWEEP_GROUPS = ("redesign3_sweep",)
 
@@ -3990,6 +4081,8 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
         out.update(redesign4_cells(label))
     if "redesign5" in groups:
         out.update(redesign5_cells(label))
+    if "redesign6" in groups:
+        out.update(redesign6_cells(label))
     if "redesign3_sweep" in groups:
         from repro_torch.kernels import trisolve
 
@@ -4667,6 +4760,116 @@ def redesign5_cells(label: str) -> dict:
     return out
 
 
+def redesign6_cells(label: str) -> dict:
+    """Kernel-table rows 17 (``ell_powers``) and 5 (the payload) and the
+    solves they serve, and the rows that share their code or their
+    partition.  Rows 17 and 14 (``banded_powers``) on the 1024^2 stencil
+    at s = 2, 5 and 8, f32 and bf16 storage, cold (L2 rewritten before
+    each call) and warm, with the SHA-256 of (u, sigma); row 5
+    at n = 2^20, j = 0, 15 and 29, and n = 10^4, j = 15; row 4
+    (``gs_project_partial``) at n = 2^20 and 10^4, j = 15; rows 15 (one
+    shard of the stencil, s = 5) and 18 (Chebyshev order 4); the ELL
+    ``gmres_sstep(s=5, blocks=6, gs="cgs2")`` and banded
+    ``gmres(gs="cgs2_pipelined")`` solves: wall (the median of five runs,
+    each listed), device, idle share and kernels' device ms a step,
+    restarts, x (saved for the comparison across the trees)."""
+    import hashlib
+
+    from repro_torch.core import gmres, gmres_sstep, stencils
+    from repro_torch.core import preconditioners as P
+    from repro_torch.kernels import cgs2
+    from repro_torch.kernels import matrix_powers as mp
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def cell(fn, nbytes, cold=True):
+        row = {"warm": timed(fn, iters=20), "sha256": sha(*fn())}
+        if cold:
+            row["cold"] = timed(fn, iters=20, cold=True)
+        if nbytes:
+            row.update(bytes=nbytes, bound_ms=bound(nbytes, 0)[0])
+        return row
+
+    out = {}
+    n = NX * NX
+    band = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    ell = band.to_ell()
+    x = torch.randn(n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    for dtype in (torch.float32, torch.bfloat16):
+        name_t = str(dtype)[6:]
+        sz = torch.empty((), dtype=dtype).element_size()
+        bands = band.bands.to(dtype)
+        vals = ell.values.to(dtype)
+        nb, width = bands.shape[0], vals.shape[1]
+        for sp in (2, 5, 8):
+            out[f"ell_powers {name_t} s={sp}"] = cell(
+                lambda: mp.ell_powers(vals, ell.cols, x, sp),
+                n * width * (sz + 4) + 4 * n + 4 * sp * n)
+            out[f"banded_powers {name_t} s={sp}"] = cell(
+                lambda: mp.banded_powers(bands, x, band.offsets, sp),
+                nb * n * sz + 4 * n + 4 * sp * n)
+        # row 15: one shard holding the whole stencil, s = 5, the band
+        # stack scaled as the s-step solver scales it
+        halo = max(abs(o) for o in band.offsets)
+        pad = torch.nn.functional.pad
+        scaled = band.bands / band.bands.abs().sum(dim=0).max()
+        bands_pad = pad(scaled, (SSTEP_S * halo, SSTEP_S * halo)).to(
+            dtype).contiguous()
+        x_s = pad(x, (SSTEP_S * halo, SSTEP_S * halo))
+        out[f"banded_powers_halo {name_t} s={SSTEP_S}"] = cell(
+            lambda: mp.banded_powers_halo(bands_pad, x_s, band.offsets,
+                                          SSTEP_S),
+            nb * bands_pad.shape[1] * sz + 4 * bands_pad.shape[1]
+            + 4 * SSTEP_S * n)
+        cheb = P.make_preconditioner("chebyshev", band, order=4)
+        out[f"banded_cheb_apply {name_t} order=4"] = cell(
+            lambda: mp.banded_cheb_apply(bands, x, band.offsets,
+                                         theta=cheb.theta, delta=cheb.delta,
+                                         rhos=cheb.rhos),
+            nb * n * sz + 8 * n)
+        del bands_pad, x_s
+        for nn, js in ((n, (0, 15, 29)), (N, (15,))):
+            for j in js:
+                gen = torch.Generator(device="cuda").manual_seed(600 + j)
+                v = basis(nn, M + 1, j, dtype, gen)
+                z = torch.randn(nn, device="cuda", generator=gen)
+                nbytes = ((j + 1) * sz + 4) * nn
+                out[f"payload {name_t} n={nn} j={j}"] = cell(
+                    lambda: (cgs2.gs_project_norm_partial(v, z, j),), nbytes)
+                if j == 15:
+                    out[f"gs_project_partial {name_t} n={nn} j={j}"] = cell(
+                        lambda: (cgs2.gs_project_partial(v, z, j),), nbytes)
+                del v, z
+
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    save = ROOT / "build" / "in_turn"
+    save.mkdir(parents=True, exist_ok=True)
+    ell_op = stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt="ell")
+    for name, run in (
+            ("ell gmres_sstep cgs2",
+             lambda: gmres_sstep(ell_op, b, s=SSTEP_S, blocks=SSTEP_BLOCKS,
+                                 tol=TOL, max_restarts=SPARSE_RESTARTS,
+                                 gs="cgs2")),
+            ("banded gmres cgs2_pipelined",
+             lambda: gmres(band, b, m=M, tol=TOL,
+                           max_restarts=SPARSE_RESTARTS,
+                           gs="cgs2_pipelined"))):
+        res = run()
+        r = solve_timing(run, res.inner_steps, phase="in_turn", walls=5,
+                         solve=name, tree=label, restarts=res.restarts)
+        path = save / f"{label}-{name.replace(' ', '_')}-{os.getpid()}.pt"
+        torch.save(res.x.cpu(), path)
+        out[name] = dict(r, restarts=res.restarts, converged=res.converged,
+                         x_path=str(path), x_sha256=sha(res.x))
+    return out
+
+
 def redesign3_sweep(label: str) -> None:
     """The launch shapes ``tuning.gemv_rows_shape`` and
     ``tuning.trisweep_plan`` choose among, each launched through the
@@ -4868,6 +5071,48 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
         emit(phase="in_turn", **out)
         check(all(out["same_bits_per_tree"].values()),
               "in turn: a tree's rows 2 / 9 gave other bits in its two runs")
+
+    if "redesign6" in groups:
+        # each tree's kernels give the same bits in both its runs; in each
+        # run ell_powers gives banded_powers' bits; row 4 the parent's bits
+        # in all four runs; the solves converge with restarts within 10%
+        # and x within 1e-3 of the parent's
+        keys = [key for key in rows[0] if isinstance(rows[0][key], dict)
+                and "sha256" in rows[0][key]]
+        bits = {t: [{key: r[key]["sha256"] for key in keys}
+                    for r in rows if r["tree"] == t]
+                for t in ("parent", "this")}
+        out = {"same_bits_per_tree": {
+            t: len(b) == 2 and b[0] == b[1] for t, b in bits.items()},
+            "ell_same_bits_as_banded": [all(
+                r[f"ell_powers {t} s={sp}"]["sha256"]
+                == r[f"banded_powers {t} s={sp}"]["sha256"]
+                for t in ("float32", "bfloat16") for sp in (2, 5, 8))
+                for r in rows]}
+        out["row4_same_bits"] = all(
+            len({r[f"gs_project_partial {t} n={nn} j=15"]["sha256"]
+                 for r in rows}) == 1
+            for t in ("float32", "bfloat16") for nn in (NX * NX, N))
+        for name in ("ell gmres_sstep cgs2", "banded gmres cgs2_pipelined"):
+            solves = [r[name] for r in rows]
+            xs = [torch.load(s_["x_path"]) for s_ in solves]
+            ref = xs[0]
+            restarts = [s_["restarts"] for s_ in solves]
+            out[name] = {"restarts": restarts,
+                         "x_rel_to_parent": [float((x - ref).norm()
+                                                   / ref.norm()) for x in xs]}
+            check(all(s_["converged"] for s_ in solves)
+                  and max(restarts) <= 1.1 * min(restarts)
+                  and max(out[name]["x_rel_to_parent"]) <= 1e-3,
+                  f"in turn: {name} differs between the trees: {out[name]}")
+        emit(phase="in_turn", **out)
+        check(all(out["same_bits_per_tree"].values()),
+              "in turn: a tree's rows 17 / 5 / 4 / 14 / 15 / 18 gave other "
+              "bits in its two runs")
+        check(all(out["ell_same_bits_as_banded"]),
+              "in turn: ell_powers and banded_powers gave other bits")
+        check(out["row4_same_bits"],
+              "in turn: gs_project_partial's bits differ between the trees")
 
 
 if __name__ == "__main__":

@@ -301,13 +301,13 @@ cudaError_t coop_shape(Kernel kernel, int m1, int n, int smem_cap,
 }
 
 // Basis rows one projection sweep of the shared-memory-staged kernels
-// handles at once (sr_payload.cu's payload, block_gs.cu's single-reduce
-// pair): eight loads of V in flight a thread.
+// handles at once (block_gs.cu's single-reduce pair): eight loads of V in
+// flight a thread.
 constexpr int kRowChunk = 8;
 
 // ---------------------------------------------------------------------------
 // Partials of a plain (non-cooperative) launch, reduced by a second launch
-// (sr_payload.cu, block_gs.cu's single-reduce pair).  Entry e of block b
+// (sr_payload.cu's projections, block_gs.cu's single-reduce pair).  Entry e of block b
 // is stored at part[e * nb + b], [entry][block] as in gs_pass, so a warp's
 // reads of one entry are contiguous; no float atomics anywhere, so the sums
 // come out in one fixed order and the same bits every run.

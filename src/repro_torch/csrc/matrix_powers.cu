@@ -50,18 +50,15 @@
 //           zero halo).  The TPU keeps the band stack in VMEM; here it
 //           stays in the 50 MB L2 between powers (21 MB at n = 2^20, f32)
 //           with the operand rows (4 MB each).
-//   ELL     the same rows, each thread walking its row's slots in order;
-//           padding slots read x[0] and add 0.  Banded and ELL share the
-//           row partition, the slot order (BandedOperator.to_ell keeps the
-//           offsets' order) and the reduction order, so a stencil gets the
-//           same bits in both formats.
+//   ELL     its own kernel (ell_powers_kernel, below): the table read once
+//           from HBM, kept in shared memory across the s powers.
 //   dense   a warp per row (rows dealt round-robin over the grid's warps),
 //           the row read in 16-byte vectors (common.cuh::row_dot, bf16
 //           widened in registers); each block first divides the whole
 //           operand into shared memory (n floats: 40 KB at n = 10,000) and
 //           the rows read it there.
 // The grid is sized by the occupancy calculator so the cooperative launch
-// is legal; banded and ELL use the same grid.
+// is legal.
 //
 // The fused Chebyshev preconditioner apply, z ~= A^-1 v for a banded A:
 //
@@ -147,14 +144,12 @@ __device__ __forceinline__ void finish_power(float sg, float denom, int p,
     u[(size_t)p * n + i] = __ldcg(out + i) / denom;
 }
 
-// The banded (kEll false: mat = bands) and ELL (mat = values) powers; x is
-// the previous power's raw row divided by denom (x itself at p = 0).
-template <typename T, bool kEll>
+// The banded powers; x is the previous power's raw row divided by denom (x
+// itself at p = 0).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    sparse_powers_kernel(const T* __restrict__ mat,
-                         const int* __restrict__ cols, int width,
-                         BandOffsets offs, int nbands,
-                         const float* __restrict__ x,
+    banded_powers_kernel(const T* __restrict__ mat, BandOffsets offs,
+                         int nbands, const float* __restrict__ x,
                          const float* __restrict__ shifts, float* u,
                          float* __restrict__ sigma, float* raw, float* part,
                          int n, int s, float eps) {
@@ -168,23 +163,14 @@ __global__ void __launch_bounds__(kThreads)
     float* out = raw + (size_t)(p & 1) * n;
     float sq = 0.f;
     for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-      float acc;
-      if constexpr (kEll) {
-        const T* vr = mat + (size_t)i * width;
-        const int* cr = cols + (size_t)i * width;
-        acc = 0.f;
-        for (int t = 0; t < width; ++t)
-          acc = fmaf(to_f(vr[t]), __ldcg(cur + __ldg(cr + t)) / denom, acc);
-      } else {
-        acc = 0.f;
+      float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < kMaxBands; ++d) {   // offsets at constant indices
-          if (d >= nbands) break;
-          const int c = i + offs.off[d];
-          if (c < 0 || c >= n) continue;         // the zero halo
-          acc = fmaf(to_f(mat[(size_t)d * n + i]), __ldcg(cur + c) / denom,
-                     acc);
-        }
+      for (int d = 0; d < kMaxBands; ++d) {   // offsets at constant indices
+        if (d >= nbands) break;
+        const int c = i + offs.off[d];
+        if (c < 0 || c >= n) continue;         // the zero halo
+        acc = fmaf(to_f(mat[(size_t)d * n + i]), __ldcg(cur + c) / denom,
+                   acc);
       }
       if (shifts != nullptr)   // w - shift * u, rounded as the plain version
         acc = __fsub_rn(acc,
@@ -198,6 +184,320 @@ __global__ void __launch_bounds__(kThreads)
     const float sg = grid_norm(part + (size_t)p * gridDim.x, red);
     denom = fmaxf(sg, eps);
     finish_power(sg, denom, p, out, u, sigma, n, r0, r1);
+    cur = out;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The ELL powers (kernel-table row 17).
+//
+// The TPU kernel keeps values and cols in VMEM for all s powers (constant
+// index maps over its (s,) grid), so its bound counts the table once.  The
+// first Hopper design was the banded kernel's thread a row walking
+// its slots in a runtime loop: each slot a load of cols, then the dependent
+// gather, strided 4 * width bytes across the warp, and the whole table
+// (42 MB at the 1024^2 stencil, f32) read again every power; 0.155 ms
+// against a 0.020 bound.  The Hopper form of the TPU's residency:
+//
+// - Segments.  The norm's partials must be the banded kernel's, so that a
+//   stencil gets the same bits in both formats: the rows are cut into the
+//   banded grid's `segs` ranges (row_range's rule), and a segment's partial
+//   is what a block of kThreads would sum: thread t takes rows r0 + t,
+//   r0 + t + kThreads, ... in order, then warp shuffles and the warps in
+//   order.  A block of this kernel owns `seg_per_block` consecutive
+//   segments and runs `blockDim / kThreads` of them at once, one group of
+//   kThreads threads each, writing one partial a segment in the same order.
+//   Each row's sum is the same fmaf chain in slot order over raw / denom,
+//   the same division (the banded kernel's note above), so u and sigma are
+//   the banded kernel's bits.
+// - Residency.  The first `res_seg` rows of each segment stay in shared
+//   memory for all s powers: in power 1 the warp that owns a chunk of 32 rows
+//   (in every power the same warp) copies the chunk's values and cols, which
+//   are contiguous in the row-major table, with 16-byte evict-first loads,
+//   and stores them slot-major ([slot][32 rows]) so that reading them is
+//   conflict-free.  The other rows are read from global memory every power;
+//   the resident part's evict-first loads leave L2 to them.  HBM sees the
+//   table once where it fits on chip: one block of SMEM_BUDGET an SM holds
+//   63% of the 1024^2 stencil's f32 table and 84% with bf16 values.
+// - Every gather in flight.  Slots are unrolled to the width bucket WB (a
+//   template parameter: 4, 5 (the five-point stencil), 8 or 16; wider rows
+//   loop over groups of WB slots), and a thread takes RB rows at once:
+//   their cols first, then all their gathers, then the fmaf chains.  The
+//   norm's partials and the rows of u_p are read back eight loads at once.
+//   The time is set by each thread's chain of dependent round trips, not
+//   by bytes (PERF.md §6): 1,024 threads (four segments at once, two
+//   rows in flight, 48 bytes of spill at WB = 5) beat 512 (two segments,
+//   four rows, no spill); more rows on chip, gathers through L1, a
+//   slot-major copy of the other rows, or gathering the normalized u_p
+//   after a second grid sync (no division) did not help.
+// tuning.ell_powers_plan chooses segs (the banded grid), the segments a
+// block and its resident rows; res_seg = 0 (a table too wide for one chunk
+// of 32 rows) is the streamed route, the same kernel.
+// ---------------------------------------------------------------------------
+constexpr int kEllMaxThreads = 4 * kThreads;   // four segments at once
+
+// Rows [r0, r1) of segment `seg` of `segs`: row_range's rule for a grid of
+// `segs` blocks.
+__device__ __forceinline__ void seg_range(int n, int segs, int seg, int* r0,
+                                          int* r1) {
+  const int per = ((n + segs - 1) / segs + 31) / 32 * 32;
+  *r0 = min(n, seg * per);
+  *r1 = min(n, *r0 + per);
+}
+
+// Shared memory of the ELL kernel: the partials' slots (kWarps a segment and
+// one for the norm), then the resident values and cols, 16-byte aligned.
+__host__ __device__ inline size_t ell_red_bytes(int seg_per_block) {
+  return ((size_t)(seg_per_block * kWarps + 1) * sizeof(float) + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t ell_vals_bytes(int seg_per_block,
+                                                 int res_seg, int width,
+                                                 int elem) {
+  return ((size_t)seg_per_block * res_seg * width * elem + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t ell_smem_bytes(int seg_per_block,
+                                                 int res_seg, int width,
+                                                 int elem) {
+  return ell_red_bytes(seg_per_block) +
+         ell_vals_bytes(seg_per_block, res_seg, width, elem) +
+         (size_t)seg_per_block * res_seg * width * sizeof(int);
+}
+
+// Element k of a 16-byte word holding 16 / sizeof(T) entries of T.
+template <typename T> __device__ __forceinline__ T word_elem(uint4 r, int k);
+template <> __device__ __forceinline__ float word_elem<float>(uint4 r, int k) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  return __uint_as_float(w[k]);
+}
+template <> __device__ __forceinline__ bf16 word_elem<bf16>(uint4 r, int k) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  return __ushort_as_bfloat16(
+      (unsigned short)(k & 1 ? w[k >> 1] >> 16 : w[k >> 1] & 0xffffu));
+}
+template <> __device__ __forceinline__ int word_elem<int>(uint4 r, int k) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  return (int)w[k];
+}
+
+// One chunk's `cnt` consecutive entries of a row-major table (width slots a
+// row, 32 rows at most) into shared memory slot-major: entry e (row
+// e / width, slot e % width) to dst[slot * 32 + row].  16-byte evict-first
+// loads where `vec` (the chunk starts 16-byte aligned), else one entry a
+// lane; the warp's lanes stride the chunk.
+template <typename E>
+__device__ __forceinline__ void chunk_to_smem(const E* __restrict__ src,
+                                              int cnt, int width, E* dst,
+                                              int lane, bool vec) {
+  constexpr int P = 16 / (int)sizeof(E);
+  int done = 0;
+  if (vec) {
+    const int nq = cnt / P;
+    const uint4* q4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll 2
+    for (int q = lane; q < nq; q += 32) {
+      const uint4 r = __ldcs(q4 + q);
+      const int e0 = q * P;
+      int row = e0 / width, slot = e0 - row * width;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        dst[slot * 32 + row] = word_elem<E>(r, k);
+        if (++slot == width) {
+          slot = 0;
+          ++row;
+        }
+      }
+    }
+    done = nq * P;
+  }
+  for (int e = done + lane; e < cnt; e += 32) {
+    const int row = e / width;
+    dst[(e - row * width) * 32 + row] = src[e];
+  }
+}
+
+// Rows a thread has in flight: about ten slots' cols, gathers and values
+// in the 64 registers a thread of 1,024 has.
+__host__ __device__ constexpr int ell_rows_in_flight(int bucket) {
+  return bucket <= 5 ? 2 : 1;
+}
+
+// The block's rows of u_p = raw / denom, kFinishLoads loads of each
+// thread's stride in flight at once (a block of 512 threads owns 8,064 rows
+// at the 1024^2 stencil: two round trips, not sixteen).
+constexpr int kFinishLoads = 8;
+__device__ __forceinline__ void ell_finish(float denom, int p,
+                                           const float* out, float* u, int n,
+                                           int r0, int r1) {
+  for (int i0 = r0 + threadIdx.x; i0 < r1;
+       i0 += kFinishLoads * blockDim.x) {
+    float w[kFinishLoads];
+#pragma unroll
+    for (int k = 0; k < kFinishLoads; ++k) {
+      const int i = i0 + k * blockDim.x;
+      w[k] = i < r1 ? __ldcg(out + i) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kFinishLoads; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i < r1) u[(size_t)p * n + i] = w[k] / denom;
+    }
+  }
+}
+
+// grid_norm's sum over `segs` partials (lane l: partials l, l + 32, ... in
+// order from 0, then the shuffles), the loads kFinishLoads at once.
+__device__ __forceinline__ float ell_norm(const float* part, int segs,
+                                          int lane) {
+  float a = 0.f;
+  for (int b0 = lane; b0 < segs; b0 += 32 * kFinishLoads) {
+    float w[kFinishLoads];
+#pragma unroll
+    for (int k = 0; k < kFinishLoads; ++k) {
+      const int b = b0 + 32 * k;
+      w[k] = b < segs ? __ldcg(part + b) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kFinishLoads; ++k)
+      if (b0 + 32 * k < segs) a += w[k];
+  }
+  return sqrtf(warp_sum(a));
+}
+
+template <typename T, int WB>
+__global__ void __launch_bounds__(kEllMaxThreads, 1)
+    ell_powers_kernel(const T* __restrict__ values,
+                      const int* __restrict__ cols, int width,
+                      const float* __restrict__ x,
+                      const float* __restrict__ shifts, float* u,
+                      float* __restrict__ sigma, float* raw, float* part,
+                      int n, int s, float eps, int segs, int seg_per_block,
+                      int res_seg, int vec) {
+  constexpr int RB = ell_rows_in_flight(WB);
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  float* red = reinterpret_cast<float*>(base);   // [segment][warp], norm
+  T* vals_s = reinterpret_cast<T*>(base + ell_red_bytes(seg_per_block));
+  int* cols_s = reinterpret_cast<int*>(
+      reinterpret_cast<char*>(vals_s) +
+      ell_vals_bytes(seg_per_block, res_seg, width, (int)sizeof(T)));
+  float* norm_s = red + seg_per_block * kWarps;
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int groups = blockDim.x / kThreads;
+  const int t = threadIdx.x % kThreads;   // the thread within its segment
+  const int warp = t >> 5;
+  const int seg0 = blockIdx.x * seg_per_block;
+  const int seg_end = min(segs, seg0 + seg_per_block);
+  int rows0, rows1, unused;
+  seg_range(n, segs, seg0, &rows0, &unused);
+  seg_range(n, segs, seg_end - 1, &unused, &rows1);
+  const size_t res_elems = (size_t)res_seg * width;
+  const float* cur = x;
+  float denom = 1.f;
+  for (int p = 0; p < s; ++p) {
+    float* out = raw + (size_t)(p & 1) * n;
+    const float shift = shifts != nullptr ? __ldg(shifts + p) : 0.f;
+    for (int ls = threadIdx.x / kThreads; ls < seg_per_block; ls += groups) {
+      float sq = 0.f;
+      if (seg0 + ls < segs) {
+        int r0, r1;
+        seg_range(n, segs, seg0 + ls, &r0, &r1);
+        const T* vs = vals_s + ls * res_elems;
+        const int* cs = cols_s + ls * res_elems;
+        for (int k0 = r0; k0 < r1; k0 += RB * kThreads) {
+          int row[RB];
+          bool ok[RB], res[RB];
+#pragma unroll
+          for (int b = 0; b < RB; ++b) {
+            row[b] = k0 + b * kThreads + t;
+            ok[b] = row[b] < r1;
+            res[b] = row[b] - r0 < res_seg;   // uniform in the warp
+          }
+          if (p == 0) {   // the resident chunks into shared memory
+#pragma unroll
+            for (int b = 0; b < RB; ++b) {
+              const int c0 = k0 + b * kThreads + warp * 32;   // chunk start
+              if (res[b] && c0 < r1) {
+                const size_t at = (size_t)(c0 - r0) * width;
+                const int cnt = min(32, r1 - c0) * width;
+                chunk_to_smem<T>(values + (size_t)c0 * width, cnt, width,
+                                 const_cast<T*>(vs) + at, lane, vec);
+                chunk_to_smem<int>(cols + (size_t)c0 * width, cnt, width,
+                                   const_cast<int*>(cs) + at, lane, vec);
+              }
+            }
+            __syncwarp();
+          }
+          float acc[RB];
+#pragma unroll
+          for (int b = 0; b < RB; ++b) acc[b] = 0.f;
+          for (int t0 = 0; t0 < width; t0 += WB) {
+            int col[RB][WB];
+            float val[RB][WB], g[RB][WB];
+#pragma unroll
+            for (int b = 0; b < RB; ++b) {   // cols (and values) first
+              const size_t at = (size_t)(row[b] - r0 - lane) * width;
+#pragma unroll
+              for (int q = 0; q < WB; ++q) {
+                const int tt = t0 + q;
+                col[b][q] = 0;
+                val[b][q] = 0.f;
+                if (ok[b] && tt < width) {
+                  if (res[b]) {
+                    col[b][q] = cs[at + tt * 32 + lane];
+                    val[b][q] = to_f(vs[at + tt * 32 + lane]);
+                  } else {
+                    const size_t e = (size_t)row[b] * width + tt;
+                    col[b][q] = __ldg(cols + e);
+                    val[b][q] = to_f(values[e]);
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int b = 0; b < RB; ++b)   // then every gather
+#pragma unroll
+              for (int q = 0; q < WB; ++q)
+                g[b][q] = ok[b] && t0 + q < width ? __ldcg(cur + col[b][q])
+                                                  : 0.f;
+#pragma unroll
+            for (int b = 0; b < RB; ++b)   // the fmaf chain in slot order
+#pragma unroll
+              for (int q = 0; q < WB; ++q)
+                if (t0 + q < width)
+                  acc[b] = fmaf(val[b][q], g[b][q] / denom, acc[b]);
+          }
+#pragma unroll
+          for (int b = 0; b < RB; ++b) {
+            if (!ok[b]) continue;
+            if (shifts != nullptr)   // w - shift * u, as the banded kernel
+              acc[b] = __fsub_rn(
+                  acc[b], __fmul_rn(shift, __ldcg(cur + row[b]) / denom));
+            __stcg(out + row[b], acc[b]);
+            sq = fmaf(acc[b], acc[b], sq);
+          }
+        }
+      }
+      sq = warp_sum(sq);
+      if (lane == 0) red[ls * kWarps + warp] = sq;
+    }
+    __syncthreads();
+    for (int ls = threadIdx.x; ls < seg_end - seg0; ls += blockDim.x) {
+      float a = 0.f;   // block_sum's order: the warps in order
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) a += red[ls * kWarps + q];
+      part[(size_t)p * segs + seg0 + ls] = a;
+    }
+    grid.sync();
+    if (threadIdx.x < 32) {   // grid_norm's order over the segments
+      const float a = ell_norm(part + (size_t)p * segs, segs, lane);
+      if (lane == 0) *norm_s = a;
+    }
+    __syncthreads();
+    const float sg = *norm_s;
+    denom = fmaxf(sg, eps);
+    if (blockIdx.x == 0 && threadIdx.x == 0) sigma[p] = sg;
+    ell_finish(denom, p, out, u, n, rows0, rows1);
     cur = out;
   }
 }
@@ -387,10 +687,11 @@ static cudaError_t launch_banded_cheb(const void* bands, const int* offsets,
   return cudaGetLastError();
 }
 
-// Grid of the banded / ELL kernels: a thread per row at least.
-template <typename T, bool kEll>
-static cudaError_t sparse_grid(int n, int blocks_per_sm, int* grid) {
-  return persistent_grid(sparse_powers_kernel<T, kEll>, 0, blocks_per_sm,
+// Grid of the banded kernel: a thread per row at least.  Its blocks are
+// the ELL kernel's segments, so both formats share one row partition.
+template <typename T>
+static cudaError_t banded_grid(int n, int blocks_per_sm, int* grid) {
+  return persistent_grid(banded_powers_kernel<T>, 0, blocks_per_sm,
                          (n + kThreads - 1) / kThreads, grid);
 }
 
@@ -435,33 +736,94 @@ static cudaError_t dense_grid(int n, int blocks_per_sm, int* grid) {
                          blocks_per_sm, (n + kWarps - 1) / kWarps, grid);
 }
 
-template <typename T, bool kEll>
-static cudaError_t launch_sparse_powers(const void* mat, const int* cols,
-                                        int width, const int* offsets,
+template <typename T>
+static cudaError_t launch_banded_powers(const void* mat, const int* offsets,
                                         int nbands, const float* x,
                                         const float* shifts, float* u,
                                         float* sigma, float* raw, float* part,
                                         int part_blocks, int n, int s,
                                         float eps, int blocks_per_sm,
                                         cudaStream_t stream) {
-  if (n <= 0 || s <= 0) return cudaErrorInvalidValue;
-  if (kEll ? width <= 0 : (nbands <= 0 || nbands > kMaxBands))
+  if (n <= 0 || s <= 0 || nbands <= 0 || nbands > kMaxBands)
     return cudaErrorInvalidValue;
   BandOffsets offs{};
-  for (int d = 0; !kEll && d < nbands; ++d) offs.off[d] = offsets[d];
+  for (int d = 0; d < nbands; ++d) offs.off[d] = offsets[d];
   int g = 0;
-  cudaError_t e = sparse_grid<T, kEll>(n, blocks_per_sm, &g);
+  cudaError_t e = banded_grid<T>(n, blocks_per_sm, &g);
   if (e != cudaSuccess) return e;
   if (g > part_blocks) return cudaErrorInvalidValue;
   const T* mt = static_cast<const T*>(mat);
-  void* args[] = {(void*)&mt,  (void*)&cols,   (void*)&width, (void*)&offs,
-                  (void*)&nbands, (void*)&x,   (void*)&shifts, (void*)&u,
-                  (void*)&sigma, (void*)&raw,  (void*)&part,  (void*)&n,
-                  (void*)&s,   (void*)&eps};
-  e = cudaLaunchCooperativeKernel((const void*)sparse_powers_kernel<T, kEll>,
-                                  g, kThreads, args, 0, stream);
+  void* args[] = {(void*)&mt,     (void*)&offs, (void*)&nbands,
+                  (void*)&x,      (void*)&shifts, (void*)&u,
+                  (void*)&sigma,  (void*)&raw,  (void*)&part,
+                  (void*)&n,      (void*)&s,    (void*)&eps};
+  e = cudaLaunchCooperativeKernel((const void*)banded_powers_kernel<T>, g,
+                                  kThreads, args, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The ELL kernel at the plan's shape (tuning.ell_powers_plan): `segs` must
+// be the banded kernel's grid at this n (the shared row partition), the
+// blocks cover the segments, and `smem` is ell_smem_bytes of the plan,
+// within smem_cap.  A grid that cannot be co-resident is refused by the
+// cooperative launch.
+template <typename T, int WB>
+static cudaError_t launch_ell_bucket(const T* values, const int* cols,
+                                     int width, const float* x,
+                                     const float* shifts, float* u,
+                                     float* sigma, float* raw, float* part,
+                                     int n, int s, float eps, int segs,
+                                     int seg_per_block, int blocks,
+                                     int threads, int res_seg, int vec,
+                                     int smem, cudaStream_t stream) {
+  auto kernel = ell_powers_kernel<T, WB>;
+  cudaError_t e = allow_smem(kernel, (size_t)smem);
+  if (e != cudaSuccess) return e;
+  void* args[] = {(void*)&values, (void*)&cols,  (void*)&width,
+                  (void*)&x,      (void*)&shifts, (void*)&u,
+                  (void*)&sigma,  (void*)&raw,   (void*)&part,
+                  (void*)&n,      (void*)&s,     (void*)&eps,
+                  (void*)&segs,   (void*)&seg_per_block,
+                  (void*)&res_seg, (void*)&vec};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, blocks, threads, args,
+                                  (size_t)smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_ell_powers(
+    const void* values, const int* cols, int width, const float* x,
+    const float* shifts, float* u, float* sigma, float* raw, float* part,
+    int part_blocks, int n, int s, float eps, int segs, int seg_per_block,
+    int blocks, int threads, int res_seg, int bucket, int vec, int smem,
+    int smem_cap, int blocks_per_sm, cudaStream_t stream) {
+  if (n <= 0 || s <= 0 || width <= 0 || segs < 1 || seg_per_block < 1 ||
+      segs > part_blocks || blocks != (segs + seg_per_block - 1) /
+                                           seg_per_block ||
+      threads % kThreads || threads < kThreads || threads > kEllMaxThreads ||
+      res_seg < 0 || res_seg % 32 || smem > smem_cap ||
+      (size_t)smem != ell_smem_bytes(seg_per_block, res_seg, width,
+                                     (int)sizeof(T)))
+    return cudaErrorInvalidValue;
+  int g = 0;
+  cudaError_t e = banded_grid<T>(n, blocks_per_sm, &g);
+  if (e != cudaSuccess) return e;
+  if (g != segs) return cudaErrorInvalidValue;
+  const T* vt = static_cast<const T*>(values);
+#define REPRO_ELL_BUCKET(WB)                                                 \
+  launch_ell_bucket<T, WB>(vt, cols, width, x, shifts, u, sigma, raw, part, \
+                           n, s, eps, segs, seg_per_block, blocks, threads, \
+                           res_seg, vec, smem, stream)
+  switch (bucket) {
+    case 4: return REPRO_ELL_BUCKET(4);
+    case 5: return REPRO_ELL_BUCKET(5);
+    case 8: return REPRO_ELL_BUCKET(8);
+    case 16: return REPRO_ELL_BUCKET(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_ELL_BUCKET
 }
 
 template <typename T>
@@ -505,27 +867,33 @@ extern "C" int repro_banded_powers(const void* bands, int b_bf16,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_BANDED(T)                                                       \
-  repro::launch_sparse_powers<T, false>(bands, nullptr, 0, offsets, nbands,  \
-                                        x, shifts, u, sigma, raw, part,      \
-                                        part_blocks, n, s, eps,              \
-                                        blocks_per_sm, st)
+  repro::launch_banded_powers<T>(bands, offsets, nbands, x, shifts, u,       \
+                                 sigma, raw, part, part_blocks, n, s, eps,   \
+                                 blocks_per_sm, st)
   return b_bf16 ? REPRO_BANDED(repro::bf16) : REPRO_BANDED(float);
 #undef REPRO_BANDED
 }
 
-// values (n, width) and cols (n, width) int32, row-major.
+// values (n, width) and cols (n, width) int32, row-major; the plan of
+// tuning.ell_powers_plan: segs (the banded grid), seg_per_block, blocks,
+// threads, res_seg (resident rows a segment), bucket (4, 5, 8 or 16 slots
+// unrolled), vec (values and cols 16-byte aligned), smem (its bytes, at
+// most smem_cap); raw holds 2 n floats and part s * part_blocks.
 extern "C" int repro_ell_powers(const void* values, int v_bf16,
                                 const int* cols, int width, const float* x,
                                 const float* shifts, float* u, float* sigma,
                                 float* raw, float* part, int part_blocks,
-                                int n, int s, float eps, int blocks_per_sm,
+                                int n, int s, float eps, int segs,
+                                int seg_per_block, int blocks, int threads,
+                                int res_seg, int bucket, int vec, int smem,
+                                int smem_cap, int blocks_per_sm,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_ELL(T)                                                        \
-  repro::launch_sparse_powers<T, true>(values, cols, width, nullptr, 0, x, \
-                                       shifts, u, sigma, raw, part,        \
-                                       part_blocks, n, s, eps,             \
-                                       blocks_per_sm, st)
+#define REPRO_ELL(T)                                                         \
+  repro::launch_ell_powers<T>(values, cols, width, x, shifts, u, sigma, raw, \
+                              part, part_blocks, n, s, eps, segs,            \
+                              seg_per_block, blocks, threads, res_seg,       \
+                              bucket, vec, smem, smem_cap, blocks_per_sm, st)
   return v_bf16 ? REPRO_ELL(repro::bf16) : REPRO_ELL(float);
 #undef REPRO_ELL
 }
@@ -582,22 +950,22 @@ extern "C" int repro_banded_powers_halo(const void* bands, int b_bf16,
 #undef REPRO_HALO
 }
 
-// The launch shape of kind 0 (banded), 1 (ELL) or 2 (dense):
-// out = {grid, rows per block (banded / ELL) or warps (dense), smem bytes}.
+// The launch shape of kind 0 (banded) or 2 (dense; the ELL kernel's is
+// tuning.ell_powers_plan, on the banded grid): out = {grid, rows per block
+// (banded) or warps (dense), smem bytes}.
 extern "C" int repro_matrix_powers_shape(int kind, int is_bf16, int n,
                                          int blocks_per_sm, int* out) {
   using repro::bf16;
   int g = 0;
   cudaError_t e;
   if (kind == 0)
-    e = is_bf16 ? repro::sparse_grid<bf16, false>(n, blocks_per_sm, &g)
-                : repro::sparse_grid<float, false>(n, blocks_per_sm, &g);
-  else if (kind == 1)
-    e = is_bf16 ? repro::sparse_grid<bf16, true>(n, blocks_per_sm, &g)
-                : repro::sparse_grid<float, true>(n, blocks_per_sm, &g);
-  else
+    e = is_bf16 ? repro::banded_grid<bf16>(n, blocks_per_sm, &g)
+                : repro::banded_grid<float>(n, blocks_per_sm, &g);
+  else if (kind == 2)
     e = is_bf16 ? repro::dense_grid<bf16>(n, blocks_per_sm, &g)
                 : repro::dense_grid<float>(n, blocks_per_sm, &g);
+  else
+    return cudaErrorInvalidValue;
   out[0] = g;
   out[1] = kind == 2 ? g * repro::kWarps
                      : (g ? ((n + g - 1) / g + 31) / 32 * 32 : 0);

@@ -24,14 +24,16 @@
 // partial per block and entry, [entry][block], and a second tiny launch
 // (common.cuh's reduce_partials_kernel) sums each entry over the blocks in
 // one fixed order, one warp per entry.  No float atomics: the payload has
-// the same bits every run.  No cooperative launch and no grid sync are
-// needed either, so the grid is not bound to the co-resident blocks, and
-// the second launch costs about what a grid sync would.  Block b owns the
-// column slice [b * cols, b * cols + len): it stages its slices of z and
-// v_j in shared memory (summing their squares on the way), then walks the
-// valid rows eight at a time, each thread keeping 8 rows x 2 columns of
-// sums with eight loads of V in flight, coalesced across the warp.  Rows
-// past j are never read.
+// the same bits every run.  Its first design staged a block's slices of
+// z and v_j in shared memory with 4-byte loads, then walked the valid
+// rows eight at a time, each chunk a 4-byte column loop and a
+// block_partials with its barriers: 0.0507 ms f32 (0.0364 bf16) cold at
+// n = 2^20, j = 15, against a 0.0213 bound, the design the GEMV pair had
+// before its 16-byte redesign.  Now it is the projection's column sweep
+// below with two right-hand columns (K = 2): z's 16-byte piece loaded
+// once into registers, v_j's piece row j's own load, the two sums of
+// every row 0..j-1 and v_j.z, v_j.v_j, z.z in one sweep; a short basis
+// takes the projection's block a row.  Rows past j are never read.
 //
 // The update replaces repro/kernels/cgs2.py::gs_update (a grid of
 // independent column tiles).  Bound: bytes, ((j + 1) s_V + 8) n: the rows
@@ -91,60 +93,11 @@
 
 namespace repro {
 
-// Dynamic shared memory: zs[cols], vjs[cols], red[kWarps * 2 * kRowChunk].
-template <typename TV>
-__global__ void __launch_bounds__(kThreads)
-    sr_payload_kernel(const TV* __restrict__ v, const float* __restrict__ z,
-                      float* __restrict__ part, int m1, int n, int j,
-                      int cols) {
-  extern __shared__ float smem[];
-  float* zs = smem;
-  float* vjs = zs + cols;
-  float* red = vjs + cols;
-  const int nb = gridDim.x;
-  const int c0 = blockIdx.x * cols;
-  const int len = max(0, min(cols, n - c0));
-  const int rows = j + 1;
-  const TV* vj = v + (size_t)j * n + c0;
-
-  // the slices of z and v_j, and their squared norms (payload row m1)
-  float nrm[2] = {0.f, 0.f};
-  for (int c = threadIdx.x; c < len; c += blockDim.x) {
-    const float zc = z[c0 + c], vc = to_f(vj[c]);
-    zs[c] = zc;
-    vjs[c] = vc;
-    nrm[0] = fmaf(zc, zc, nrm[0]);
-    nrm[1] = fmaf(vc, vc, nrm[1]);
-  }
-  block_partials<2>(nrm, red, part, 2 * m1, 2, nb);
-
-  // rows 0..j against [z, v_j], eight rows at a time
-  for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-    const int nr = rows - r0 < kRowChunk ? rows - r0 : kRowChunk;
-    float acc[2 * kRowChunk];
-#pragma unroll
-    for (int i = 0; i < 2 * kRowChunk; ++i) acc[i] = 0.f;
-    const TV* vr = v + (size_t)r0 * n + c0;
-    for (int c = threadIdx.x; c < len; c += blockDim.x) {
-      float vv[kRowChunk];
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        vv[r] = r < nr ? to_f(vr[(size_t)r * n + c]) : 0.f;
-      const float zc = zs[c], vc = vjs[c];
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r) {
-        acc[2 * r] = fmaf(vv[r], zc, acc[2 * r]);
-        acc[2 * r + 1] = fmaf(vv[r], vc, acc[2 * r + 1]);
-      }
-    }
-    block_partials<2 * kRowChunk>(acc, red, part, 2 * r0, 2 * nr, nb);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The streaming GEMV pair (gs_update, gs_project_partial): 16-byte pieces,
-// every row of a piece in flight, no staging barrier.  The launch shape
-// (threads, blocks, unroll, pieces) is tuning.gemv_stream_shape's.  A
+// The streaming GEMV kernels (gs_update, gs_project_partial, the payload):
+// 16-byte pieces, every row of a piece in flight, no staging barrier.  The
+// launch shape (threads, blocks, unroll, pieces) is
+// tuning.gemv_stream_shape's.  A
 // thread takes the 16-byte pieces p = t, t + G, ... (G the grid's
 // threads; U pieces at once, p and p + G), then the scalar columns
 // [pieces * VEC, n) one by one: the ragged tail of an aligned call, every
@@ -238,43 +191,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The projection's column sweep (V w over rows 0..rows-1).  Block b
-// sums V[r, c] w[c] over its columns for every valid row, in buckets of R
-// rows: one sweep over the columns per bucket, each thread's R sums in
-// registers, w's piece loaded once for the bucket's rows, U pieces at once
+// The projection's column sweep.  K = 1 (gs_project_partial): V w over
+// rows 0..rows-1.  K = 2 (the payload): V [z, v_j] over rows 0..rows-1
+// with v_j = row `rows` of V (rows = j), and v_j.z, v_j.v_j, z.z: all of
+// p in one sweep over rows 0..j.  Block b sums V[r, c] w[c] over its
+// columns for every summed row, in buckets of R rows: one sweep over the
+// columns per bucket, each thread's R x K sums in registers, w's piece
+// (and v_j's: the payload's second column is v_j's own load, z and v_j
+// are never staged) loaded once for the bucket's rows, U pieces at once
 // (the 32-row bucket takes one: its 32 loads in flight fill the
-// registers).  Per row a warp shuffle and the warp's sum to shared memory
-// (red[warp][row], no barrier between buckets); at the end one barrier,
-// the warps summed in order into part[row][block]; reduce_partials_kernel
+// registers); the payload's three extra sums ride the first bucket.  Per
+// sum a warp shuffle and the warp's sum to shared memory (red[warp][entry],
+// no barrier between buckets); at the end one barrier, the warps summed in
+// order into part[entry][block] (the payload's entries 2 r + c, its norms
+// at 2 m1 and 2 m1 + 1, v_j.v_j also at 2 j + 1); reduce_partials_kernel
 // then sums the blocks in one fixed order.  No float atomics: the same
 // bits every run.
-template <typename TV, int R, int U>
+template <typename TV, int R, int U, int K>
 __global__ void __launch_bounds__(kThreads)
     gs_partial_stream_kernel(const TV* __restrict__ v,
                              const float* __restrict__ w,
                              float* __restrict__ part, int rows, int n,
-                             int pieces) {
+                             int pieces, int m1) {
+  static_assert(K == 1 || K == 2, "one or two right-hand columns");
   constexpr int VEC = Vec16<TV>::N;
-  extern __shared__ float red[];   // [warps][rows]
+  constexpr int X = K == 2 ? 3 : 0;   // the payload's v_j.z, v_j.v_j, z.z
+  extern __shared__ float red[];   // [warps][entries]
+  const int entries = K * rows + X;
+  const TV* vj = v + (size_t)rows * n;   // the payload's v_j
   const int nb = gridDim.x;
   const int G = nb * blockDim.x;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  for (int r0 = 0; r0 < rows; r0 += R) {
+  const int sweep_rows = K == 2 && rows == 0 ? 1 : rows;
+  for (int r0 = 0; r0 < sweep_rows; r0 += R) {
     const int nr = min(R, rows - r0);
-    float acc[R];
+    const bool first = r0 == 0;
+    float acc[R][K], ex[X > 0 ? X : 1];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < K; ++c) acc[r][c] = 0.f;
+#pragma unroll
+    for (int e = 0; e < X; ++e) ex[e] = 0.f;
     for (int p0 = t; p0 < pieces; p0 += U * G) {
       bool ok[U];
-      float wv[U][VEC];
+      float wv[U][VEC], jv[U][K == 2 ? VEC : 1];
       uint4 raw[U][R];
 #pragma unroll
       for (int k = 0; k < U; ++k) {
         ok[k] = p0 + k * G < pieces;
-        if (ok[k])
+        if (ok[k]) {
           load_floats<float, VEC>(w + (size_t)(p0 + k * G) * VEC, wv[k]);
+          if constexpr (K == 2)
+            load_floats<TV, VEC>(vj + (size_t)(p0 + k * G) * VEC, jv[k]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -296,35 +268,78 @@ __global__ void __launch_bounds__(kThreads)
             float f[VEC];
             Vec16<TV>::unpack(raw[k][r], f);
 #pragma unroll
-            for (int c = 0; c < VEC; ++c)
-              acc[r] = fmaf(f[c], wv[k][c], acc[r]);
+            for (int c = 0; c < VEC; ++c) {
+              acc[r][0] = fmaf(f[c], wv[k][c], acc[r][0]);
+              if constexpr (K == 2)
+                acc[r][1] = fmaf(f[c], jv[k][c], acc[r][1]);
+            }
+          }
+        }
+        if constexpr (K == 2) {
+          if (first) {
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) {
+              ex[0] = fmaf(jv[k][c], wv[k][c], ex[0]);
+              ex[1] = fmaf(jv[k][c], jv[k][c], ex[1]);
+              ex[2] = fmaf(wv[k][c], wv[k][c], ex[2]);
+            }
           }
         }
       }
     }
     for (int c = pieces * VEC + t; c < n; c += G) {
       const float wc = w[c];
+      const float jc = K == 2 ? to_f(vj[c]) : 0.f;
       float vv[R];
 #pragma unroll
       for (int r = 0; r < R; ++r)
         if (r < nr) vv[r] = to_f(v[(size_t)(r0 + r) * n + c]);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (r < nr) acc[r] = fmaf(vv[r], wc, acc[r]);
+      for (int r = 0; r < R; ++r) {
+        if (r < nr) {
+          acc[r][0] = fmaf(vv[r], wc, acc[r][0]);
+          if constexpr (K == 2) acc[r][1] = fmaf(vv[r], jc, acc[r][1]);
+        }
+      }
+      if constexpr (K == 2) {
+        if (first) {
+          ex[0] = fmaf(jc, wc, ex[0]);
+          ex[1] = fmaf(jc, jc, ex[1]);
+          ex[2] = fmaf(wc, wc, ex[2]);
+        }
+      }
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r < nr) {                  // uniform across the warp
-        const float s = warp_sum(acc[r]);
-        if (lane == 0) red[warp * rows + r0 + r] = s;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          const float s = warp_sum(acc[r][c]);
+          if (lane == 0) red[warp * entries + K * (r0 + r) + c] = s;
+        }
+      }
+    }
+    if constexpr (K == 2) {
+      if (first) {
+#pragma unroll
+        for (int e = 0; e < X; ++e) {
+          const float s = warp_sum(ex[e]);
+          if (lane == 0) red[warp * entries + K * rows + e] = s;
+        }
       }
     }
   }
   __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
     float s = 0.f;
-    for (int q = 0; q < warps; ++q) s += red[q * rows + r];
-    part[(size_t)r * nb + blockIdx.x] = s;
+    for (int q = 0; q < warps; ++q) s += red[q * entries + e];
+    if (K == 2 && e == entries - 1) {   // z.z
+      part[(size_t)(2 * m1) * nb + blockIdx.x] = s;
+    } else {
+      part[(size_t)e * nb + blockIdx.x] = s;
+      if (K == 2 && e == entries - 2)   // v_j.v_j, also the norm row's
+        part[(size_t)(2 * m1 + 1) * nb + blockIdx.x] = s;
+    }
   }
 }
 
@@ -332,68 +347,97 @@ __global__ void __launch_bounds__(kThreads)
 // alone, kRowPieces pieces of each thread's stride in flight at once (a
 // row of 4,096 pieces in one round trip), and writes h[r] after a block
 // sum in a fixed order; block 0 also writes the masked rows' zeros.  One
-// launch and no step across blocks.
+// launch and no step across blocks.  K = 2 (the payload, rows = j + 1
+// blocks): block r < j sums row r against z and v_j, half as many pieces
+// in flight (three loads a piece); block j, whose row is v_j, sums v_j.z,
+// v_j.v_j and z.z and writes the norm row too.
 constexpr int kRowPieces = 16;
 
-template <typename TV>
+template <typename TV, int K>
 __global__ void __launch_bounds__(kThreads)
     gs_partial_rows_kernel(const TV* __restrict__ v,
                            const float* __restrict__ w,
                            float* __restrict__ out, int m1, int rows, int n,
                            int pieces) {
+  static_assert(K == 1 || K == 2, "one or two right-hand columns");
   constexpr int VEC = Vec16<TV>::N;
+  constexpr int RP = kRowPieces / K;
   __shared__ float red[kWarps];
   const TV* row = v + (size_t)blockIdx.x * n;
-  float acc = 0.f;
-  for (int p0 = threadIdx.x; p0 < pieces; p0 += kRowPieces * kThreads) {
-    uint4 raw[kRowPieces];
-    float wv[kRowPieces][VEC];
+  const TV* vj = v + (size_t)(rows - 1) * n;   // the payload's v_j
+  const bool last = K == 2 && (int)blockIdx.x == rows - 1;   // row j = v_j
+  float acc[K + 1] = {};
+  for (int p0 = threadIdx.x; p0 < pieces; p0 += RP * kThreads) {
+    uint4 raw[RP], jraw[K == 2 ? RP : 1];
+    float wv[RP][VEC];
 #pragma unroll
-    for (int k = 0; k < kRowPieces; ++k) {
+    for (int k = 0; k < RP; ++k) {
       const int p = p0 + k * kThreads;
       if (p < pieces) {
         raw[k] = __ldg(reinterpret_cast<const uint4*>(row + (size_t)p * VEC));
         load_floats<float, VEC>(w + (size_t)p * VEC, wv[k]);
+        if constexpr (K == 2)
+          if (!last)
+            jraw[k] = __ldg(
+                reinterpret_cast<const uint4*>(vj + (size_t)p * VEC));
       }
     }
 #pragma unroll
-    for (int k = 0; k < kRowPieces; ++k) {
+    for (int k = 0; k < RP; ++k) {
       if (p0 + k * kThreads < pieces) {
         float f[VEC];
         Vec16<TV>::unpack(raw[k], f);
 #pragma unroll
-        for (int c = 0; c < VEC; ++c) acc = fmaf(f[c], wv[k][c], acc);
+        for (int c = 0; c < VEC; ++c) acc[0] = fmaf(f[c], wv[k][c], acc[0]);
+        if constexpr (K == 2) {
+          if (last) {
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) {
+              acc[1] = fmaf(f[c], f[c], acc[1]);
+              acc[2] = fmaf(wv[k][c], wv[k][c], acc[2]);
+            }
+          } else {
+            float g[VEC];
+            Vec16<TV>::unpack(jraw[k], g);
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) acc[1] = fmaf(f[c], g[c], acc[1]);
+          }
+        }
       }
     }
   }
-  for (int c = pieces * VEC + threadIdx.x; c < n; c += kThreads)
-    acc = fmaf(to_f(row[c]), w[c], acc);
-  const float s = block_sum(acc, red);
-  if (threadIdx.x == 0) out[blockIdx.x] = s;
-  if (blockIdx.x == 0)
-    for (int r = rows + threadIdx.x; r < m1; r += kThreads) out[r] = 0.f;
-}
-
-template <typename TV>
-static cudaError_t launch_sr_payload(const void* v, const float* z,
-                                     float* out, float* part, int grid,
-                                     int m1, int n, int j,
-                                     cudaStream_t stream) {
-  if (m1 <= 0 || n <= 0 || j < 0 || j >= m1 || grid < 1 || grid > n)
-    return cudaErrorInvalidValue;
-  auto kernel = sr_payload_kernel<TV>;
-  const int cols = (n + grid - 1) / grid;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)cols + kWarps * 2 * kRowChunk);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const TV*>(v), z,
-                                           part, m1, n, j, cols);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  // rows j+1..m1-1 of the payload are masked to zero
-  return launch_reduce_partials(part, grid, 2 * (m1 + 1), 2 * (j + 1),
-                                2 * m1, out, stream);
+  for (int c = pieces * VEC + threadIdx.x; c < n; c += kThreads) {
+    const float fc = to_f(row[c]), wc = w[c];
+    acc[0] = fmaf(fc, wc, acc[0]);
+    if constexpr (K == 2) {
+      if (last) {
+        acc[1] = fmaf(fc, fc, acc[1]);
+        acc[2] = fmaf(wc, wc, acc[2]);
+      } else {
+        acc[1] = fmaf(fc, to_f(vj[c]), acc[1]);
+      }
+    }
+  }
+  const float s = block_sum(acc[0], red);
+  if constexpr (K == 1) {
+    if (threadIdx.x == 0) out[blockIdx.x] = s;
+    if (blockIdx.x == 0)
+      for (int r = rows + threadIdx.x; r < m1; r += kThreads) out[r] = 0.f;
+  } else {
+    const float s1 = block_sum(acc[1], red);
+    const float s2 = last ? block_sum(acc[2], red) : 0.f;   // uniform
+    if (threadIdx.x == 0) {
+      out[2 * blockIdx.x] = s;
+      out[2 * blockIdx.x + 1] = s1;
+      if (last) {
+        out[2 * m1] = s2;
+        out[2 * m1 + 1] = s1;
+      }
+    }
+    if (blockIdx.x == 0)
+      for (int e = 2 * rows + threadIdx.x; e < 2 * m1; e += kThreads)
+        out[e] = 0.f;
+  }
 }
 
 // A launch shape the stream kernels take: whole warps, at most kThreads,
@@ -405,63 +449,67 @@ static bool stream_shape_ok(int n, int threads, int blocks, int pieces) {
          (long long)pieces * Vec16<TV>::N <= (long long)n;
 }
 
-// The column sweep, then the fixed-order sum of its partials (rows past
-// rows - 1 written as zeros).
-template <typename TV, int R, int U>
+// The column sweep, then the fixed-order sum of its partials: K = 1, m1
+// entries (rows past rows - 1 written as zeros); K = 2, the payload's
+// 2 (m1 + 1) (rows j + 1 .. m1 - 1 written as zeros).
+template <typename TV, int R, int U, int K>
 static cudaError_t launch_gs_partial_bucket(const TV* v, const float* w,
                                             float* part, float* out, int m1,
                                             int rows, int n, int threads,
                                             int blocks, int pieces,
                                             cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(threads / 32) * rows;
-  auto kernel = gs_partial_stream_kernel<TV, R, U>;
+  const int entries = K * rows + (K == 2 ? 3 : 0);
+  const size_t smem = sizeof(float) * (size_t)(threads / 32) * entries;
+  auto kernel = gs_partial_stream_kernel<TV, R, U, K>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<blocks, threads, smem, stream>>>(v, w, part, rows, n, pieces);
+  kernel<<<blocks, threads, smem, stream>>>(v, w, part, rows, n, pieces, m1);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_reduce_partials(part, blocks, m1, rows, m1, out, stream);
+  return K == 1 ? launch_reduce_partials(part, blocks, m1, rows, m1, out,
+                                         stream)
+                : launch_reduce_partials(part, blocks, 2 * (m1 + 1),
+                                         2 * (rows + 1), 2 * m1, out, stream);
 }
 
-template <typename TV>
+// The projections (K = 1: gs_project_partial over rows 0..j; K = 2: the
+// payload over rows 0..j, v_j = row j): a block a row, or the column sweep
+// over the rows it sums (K = 1: j + 1; K = 2: j, v_j being its second
+// column) in buckets of R rows, U pieces at once as the plan says (one in
+// the 32-row bucket).  K = 1 takes the bucket that holds its rows; K = 2
+// the plan's `bucket`, 8 or 16 (looped where the rows are more).
+template <typename TV, int K>
 static cudaError_t launch_gs_partial(const void* v, const float* w,
                                      float* out, float* part, int m1, int n,
                                      int j, int by_row, int threads,
-                                     int blocks, int unroll, int pieces,
-                                     cudaStream_t stream) {
+                                     int blocks, int unroll, int bucket,
+                                     int pieces, cudaStream_t stream) {
   if (m1 <= 0 || n <= 0 || j < 0 || j >= m1) return cudaErrorInvalidValue;
   const TV* vt = static_cast<const TV*>(v);
-  const int rows = j + 1;
   if (by_row) {                      // a block of kThreads a row
-    if (blocks != rows ||
+    if (blocks != j + 1 ||
         !stream_shape_ok<TV>(n, kThreads, blocks, pieces))
       return cudaErrorInvalidValue;
-    gs_partial_rows_kernel<TV><<<rows, kThreads, 0, stream>>>(
-        vt, w, out, m1, rows, n, pieces);
+    gs_partial_rows_kernel<TV, K><<<j + 1, kThreads, 0, stream>>>(
+        vt, w, out, m1, j + 1, n, pieces);
     return cudaGetLastError();
   }
   if ((unroll != 1 && unroll != 2) ||
       !stream_shape_ok<TV>(n, threads, blocks, pieces))
     return cudaErrorInvalidValue;
-  // the row bucket: the fewest accumulators that hold the valid rows
-  if (rows <= 8)
-    return unroll == 2
-               ? launch_gs_partial_bucket<TV, 8, 2>(vt, w, part, out, m1,
-                                                    rows, n, threads, blocks,
-                                                    pieces, stream)
-               : launch_gs_partial_bucket<TV, 8, 1>(vt, w, part, out, m1,
-                                                    rows, n, threads, blocks,
-                                                    pieces, stream);
-  if (rows <= 16)
-    return unroll == 2
-               ? launch_gs_partial_bucket<TV, 16, 2>(vt, w, part, out, m1,
-                                                     rows, n, threads,
-                                                     blocks, pieces, stream)
-               : launch_gs_partial_bucket<TV, 16, 1>(vt, w, part, out, m1,
-                                                     rows, n, threads,
-                                                     blocks, pieces, stream);
-  return launch_gs_partial_bucket<TV, 32, 1>(vt, w, part, out, m1, rows, n,
-                                             threads, blocks, pieces, stream);
+  const int rows = K == 1 ? j + 1 : j;
+  if (K == 1) bucket = rows <= 8 ? 8 : rows <= 16 ? 16 : 32;
+#define REPRO_BUCKET(R, U)                                                  \
+  launch_gs_partial_bucket<TV, R, U, K>(vt, w, part, out, m1, rows, n,      \
+                                        threads, blocks, pieces, stream)
+  if (bucket == 8)
+    return unroll == 2 ? REPRO_BUCKET(8, 2) : REPRO_BUCKET(8, 1);
+  if (bucket == 16)
+    return unroll == 2 ? REPRO_BUCKET(16, 2) : REPRO_BUCKET(16, 1);
+  if constexpr (K == 1)   // one piece at a time (K = 2 spilled here)
+    if (bucket == 32) return REPRO_BUCKET(32, 1);
+  return cudaErrorInvalidValue;
+#undef REPRO_BUCKET
 }
 
 template <typename TV>
@@ -484,16 +532,26 @@ static cudaError_t launch_gs_update(const void* v, const float* w,
 
 }  // namespace repro
 
-// v (m1, n) f32 or bf16, row-major; z (n,) f32; out (m1 + 1, 2) f32;
-// part holds 2 (m1 + 1) grid floats; rows 0..j valid.
+// The payload: v (m1, n) f32 or bf16, row-major; z (n,) f32; out
+// (m1 + 1, 2) f32; rows 0..j valid; the launch shape of
+// tuning.gemv_partial_shape(k=2) (pieces > 0: v, z and, past one row, the
+// row stride 16-byte aligned): the column sweep in buckets of `bucket`
+// rows (part holds 2 (m1 + 1) blocks floats) or with by_row a block of
+// kThreads a valid row (blocks = j + 1; threads, unroll, bucket and part
+// unused).
 extern "C" int repro_sr_payload(const void* v, int v_bf16, const float* z,
-                                float* out, float* part, int grid, int m1,
-                                int n, int j, void* stream) {
+                                float* out, float* part, int m1, int n,
+                                int j, int by_row, int threads, int blocks,
+                                int unroll, int bucket, int pieces,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return v_bf16 ? repro::launch_sr_payload<repro::bf16>(v, z, out, part, grid,
-                                                        m1, n, j, s)
-                : repro::launch_sr_payload<float>(v, z, out, part, grid, m1,
-                                                  n, j, s);
+  return v_bf16 ? repro::launch_gs_partial<repro::bf16, 2>(
+                      v, z, out, part, m1, n, j, by_row, threads, blocks,
+                      unroll, bucket, pieces, s)
+                : repro::launch_gs_partial<float, 2>(v, z, out, part, m1, n,
+                                                     j, by_row, threads,
+                                                     blocks, unroll, bucket,
+                                                     pieces, s);
 }
 
 // v (m1, n) f32 or bf16, row-major; w (n,), h (m1,) (any 4-byte offset),
@@ -522,10 +580,11 @@ extern "C" int repro_gs_project_partial(const void* v, int v_bf16,
                                         int unroll, int pieces,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return v_bf16 ? repro::launch_gs_partial<repro::bf16>(
+  return v_bf16 ? repro::launch_gs_partial<repro::bf16, 1>(
                       v, w, out, part, m1, n, j, by_row, threads, blocks,
-                      unroll, pieces, s)
-                : repro::launch_gs_partial<float>(v, w, out, part, m1, n, j,
-                                                  by_row, threads, blocks,
-                                                  unroll, pieces, s);
+                      unroll, 0, pieces, s)
+                : repro::launch_gs_partial<float, 1>(v, w, out, part, m1, n,
+                                                     j, by_row, threads,
+                                                     blocks, unroll, 0,
+                                                     pieces, s);
 }

@@ -89,12 +89,15 @@ SIGNATURES = {
     # blocks_per_sm, stream
     "repro_banded_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, P),
     # values, v_bf16, cols, width, x, shifts, u, sigma, raw, partials,
-    # partial_blocks, n, s, eps, blocks_per_sm, stream
-    "repro_ell_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, P),
+    # partial_blocks, n, s, eps, then the plan (tuning.ell_powers_plan):
+    # segments, segments a block, blocks, threads, resident rows a segment,
+    # bucket, vec, smem, smem_cap, blocks_per_sm; stream
+    "repro_ell_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, I, I,
+                         I, I, I, I, I, I, I, P),
     # a, a_bf16, x, u, sigma, raw, partials, partial_blocks, n, s, eps,
     # smem_cap, blocks_per_sm, stream
     "repro_dense_powers": (P, I, P, P, P, P, P, I, I, I, F, I, I, P),
-    # kind (0 banded, 1 ELL, 2 dense), bf16, n, blocks_per_sm, out
+    # kind (0 banded, 2 dense), bf16, n, blocks_per_sm, out
     "repro_matrix_powers_shape": (I, I, I, I, P),
     # The row-sharded banded powers: bands, b_bf16, offsets (host
     # int[nbands]), nbands, x, z, nrm, raw, partials, partial_blocks, width,
@@ -105,10 +108,11 @@ SIGNATURES = {
     "repro_block_gs_pass": (P, I, P, P, P, P, P, P, I, I, I, I, I, I, P),
     # m1, s, out (int[1]: shared memory bytes)
     "repro_block_gs_pass_smem": (I, I, P),
-    # The single-reduce kernels (two launches each: partials, then their
-    # reduction; grid = tuning.sr_grid):
-    # v, v_bf16, z, out (m1 + 1, 2), partials, grid, m1, n, j, stream
-    "repro_sr_payload": (P, I, P, P, P, I, I, I, I, P),
+    # The single-reduce payload (the projection's kernels with two columns:
+    # the column sweep and the partials' reduction, or a block a row): v,
+    # v_bf16, z, out (m1 + 1, 2), partials, m1, n, j, by_row, threads,
+    # blocks, unroll, bucket, pieces, stream (tuning.gemv_partial_shape(k=2))
+    "repro_sr_payload": (P, I, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # The streaming GEMV pair (launch shape: tuning.gemv_stream_shape):
     # v, v_bf16, w, h, out, m1, n, threads, blocks, unroll, pieces, stream
     "repro_gs_update": (P, I, P, P, P, I, I, I, I, I, I, P),
@@ -117,6 +121,8 @@ SIGNATURES = {
     # out (m1,), partials, m1, n, j, by_row, threads, blocks, unroll,
     # pieces, stream
     "repro_gs_project_partial": (P, I, P, P, P, I, I, I, I, I, I, I, I, P),
+    # The single-reduce block pair (two launches each: partials, then their
+    # reduction; grid = tuning.sr_grid):
     # v, v_bf16, w, tin, q, out (m1 + s, s) = [c_hat; m], partials, grid,
     # m1, n, s, stream
     "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, P),

@@ -243,7 +243,10 @@ def gs_project_norm_partial_plain(v: torch.Tensor, z: torch.Tensor, j: int):
 
 def gs_project_norm_partial(v: torch.Tensor, z: torch.Tensor, j: int):
     """Single-reduce payload over basis rows 0..j.  v: (m1, n), z: (n,).
-    Returns the (m1 + 1, 2) block (float32 on the card)."""
+    Returns the (m1 + 1, 2) block (float32 on the card): the projection's
+    kernels with the columns [z, v_j] (``tuning.gemv_partial_shape(k=2)``;
+    the route counted in ``gs_project_norm_partial.routes``: "row" a block
+    a row, else the column sweep's "vec" or "scalar")."""
     j = int(j)
     _check(v, z, j, "gs_project_norm_partial")
     if v.device.type == "cpu":
@@ -256,28 +259,32 @@ def gs_project_norm_partial(v: torch.Tensor, z: torch.Tensor, j: int):
         raise ValueError("gs_project_norm_partial: v must be contiguous")
     m1, n = v.shape
     zf = z.to(torch.float32).contiguous()
-    grid = tuning.sr_grid(v.device, n)
+    plan = tuning.gemv_partial_shape(stream_plan(v, zf, j + 1), j + 1, k=2)
     out = torch.empty((m1 + 1, 2), dtype=torch.float32, device=v.device)
-    part = torch.empty(2 * (m1 + 1) * grid, dtype=torch.float32,
-                       device=v.device)
+    part = out if plan["by_row"] else torch.empty(
+        2 * (m1 + 1) * plan["blocks"], dtype=torch.float32, device=v.device)
     rc = _build.library().repro_sr_payload(
         v.data_ptr(), int(v.dtype == torch.bfloat16), zf.data_ptr(),
-        out.data_ptr(), part.data_ptr(), grid, m1, n, j,
-        _build.stream_ptr(v))
+        out.data_ptr(), part.data_ptr(), m1, n, j, plan["by_row"],
+        plan["threads"], plan["blocks"], plan["unroll"], plan["bucket"],
+        plan["pieces"], _build.stream_ptr(v))
     _build.check("gs_project_norm_partial", rc)
     gs_project_norm_partial.launches += 1
+    gs_project_norm_partial.routes[
+        "row" if plan["by_row"] else plan["route"]] += 1
     return out
 
 
 gs_project_norm_partial.launches = 0
+gs_project_norm_partial.routes = {"vec": 0, "scalar": 0, "row": 0}
 
 
 def stream_plan(v: torch.Tensor, w: torch.Tensor, rows: int) -> dict:
-    """The launch of the streaming GEMV pair (``gs_update``,
-    ``gs_project_partial``) on basis v (m1, n), reading its first ``rows``
-    rows, and the float32 w it is given: 16-byte pieces where v, w and the
-    row stride allow (the output is allocated aligned), else the scalar
-    route (``tuning.gemv_stream_shape``)."""
+    """The launch of the streaming GEMV kernels (``gs_update``,
+    ``gs_project_partial``, the payload) on basis v (m1, n), reading its
+    first ``rows`` rows, and the float32 w it is given: 16-byte pieces
+    where v, w and the row stride allow (the output is allocated aligned),
+    else the scalar route (``tuning.gemv_stream_shape``)."""
     n = v.shape[1]
     aligned = tuning.stream_aligned((v.data_ptr(), w.data_ptr()),
                                     n * v.element_size(), rows)

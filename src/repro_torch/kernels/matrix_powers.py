@@ -44,6 +44,7 @@ The result has the dtype bands and v promote to.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,7 +52,7 @@ from repro_torch.kernels import _build, ref, spmv, tuning
 
 STORAGE = (torch.float32, torch.bfloat16)
 MAX_CHEB_STEPS = 32     # (rho, rho_old) pairs the Chebyshev kernel takes
-_KIND = {"banded": 0, "ell": 1, "dense": 2}
+_KIND = {"banded": 0, "dense": 2}
 
 
 def _acc_dtype(mat_dtype, x_dtype) -> torch.dtype:
@@ -293,7 +294,9 @@ banded_powers_halo.launches = 0
 def ell_powers(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                s: int, *, shifts: torch.Tensor | None = None):
     """All s normalized powers of an ELL operator.  values/cols: (n, width)
-    as in ``spmv.ell_matvec``; x: (n,)."""
+    as in ``spmv.ell_matvec``; x: (n,).  On the card the table's rows that
+    fit stay in shared memory across the powers (``ell_plan``; the route,
+    "resident" or "stream", counted in ``ell_powers.routes``)."""
     if values.ndim != 2 or cols.shape != values.shape:
         raise TypeError(f"ell_powers: cols {tuple(cols.shape)} must match "
                         f"values {tuple(values.shape)}")
@@ -303,21 +306,46 @@ def ell_powers(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
         return ell_powers_plain(values, cols, x, s, shifts=shifts)
     _check_card("ell_powers", values, cols)
     n, width = values.shape
-    grid = tuning.persistent_grid(values.device, tuning.POWERS_BLOCKS_PER_SM,
-                                  -(-n // (32 * tuning.GS_WARPS)))
-    xf, sh, u, sigma, raw, part = _buffers(x, s, grid, shifts)
+    plan = ell_plan(values, cols)
+    xf, sh, u, sigma, raw, part = _buffers(x, s, plan["segments"], shifts)
     rc = _build.library().repro_ell_powers(
         values.data_ptr(), int(values.dtype == torch.bfloat16),
         cols.data_ptr(), width, xf.data_ptr(), _ptr(sh), u.data_ptr(),
-        sigma.data_ptr(), raw.data_ptr(), part.data_ptr(), grid, n, s,
-        guard(torch.float32), tuning.POWERS_BLOCKS_PER_SM,
-        _build.stream_ptr(values))
+        sigma.data_ptr(), raw.data_ptr(), part.data_ptr(), plan["segments"],
+        n, s, guard(torch.float32), plan["segments"], plan["seg_per_block"],
+        plan["blocks"], plan["threads"], plan["res_seg"], plan["bucket"],
+        plan["vec"], plan["smem"], tuning.SMEM_BUDGET,
+        tuning.POWERS_BLOCKS_PER_SM, _build.stream_ptr(values))
     _build.check("ell_powers", rc)
     ell_powers.launches += 1
+    ell_powers.routes[plan["route"]] += 1
     return u, sigma
 
 
+def ell_plan(values: torch.Tensor, cols: torch.Tensor) -> dict:
+    """``tuning.ell_powers_plan`` for this table on its card, on the banded
+    powers' grid at the same n and storage (asked of the card), with
+    ``vec``: values and cols 16-byte aligned (the resident copy's 16-byte
+    loads).  Cached whole by shape, storage, card and alignment."""
+    n, width = values.shape
+    vec = int(values.data_ptr() % 16 == 0 and cols.data_ptr() % 16 == 0)
+    return _ell_plan(n, width, values.dtype, values.device.index
+                     if values.device.index is not None
+                     else torch.cuda.current_device(), vec)
+
+
+@functools.lru_cache(maxsize=64)
+def _ell_plan(n: int, width: int, dtype, index: int, vec: int) -> dict:
+    with torch.cuda.device(index):
+        segs = launch_shape("banded", dtype, n)["grid"]
+    plan = tuning.ell_powers_plan(n, width, torch.finfo(dtype).bits // 8,
+                                  tuning.sm_count(torch.device("cuda", index)),
+                                  segments=segs)
+    return dict(plan, vec=vec)
+
+
 ell_powers.launches = 0
+ell_powers.routes = {"resident": 0, "stream": 0}
 
 
 def dense_powers(a: torch.Tensor, x: torch.Tensor, s: int):
@@ -404,9 +432,9 @@ banded_cheb_apply.launches = 0
 
 
 def launch_shape(kind: str, dtype, n: int) -> dict:
-    """The grid a powers kernel ("banded", "ell", "dense") launches at this
-    size on the current card ("cols": rows per block, or the grid's warps
-    for dense)."""
+    """The grid a powers kernel ("banded", "dense") launches at this size
+    on the current card ("cols": rows per block, or the grid's warps for
+    dense); the ELL kernel's launch is ``ell_plan``'s."""
     return _build.shape("repro_matrix_powers_shape", _KIND[kind],
                         int(dtype == torch.bfloat16), n,
                         tuning.POWERS_BLOCKS_PER_SM)

@@ -11,12 +11,16 @@ no meaning here.  What the kernels need is
   (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu,
   csrc/matrix_powers.cu, csrc/block_gs.cu); the C side picks the grid from
   these with the occupancy calculator;
-- the grid of the single-reduce kernels (csrc/sr_payload.cu's payload and
-  the single-reduce pair in csrc/block_gs.cu), plain launches: ``sr_grid``;
-- the launch of the streaming GEMV pair (csrc/sr_payload.cu's gs_update
-  and gs_project_partial: 16-byte pieces, a scalar route for misaligned
-  operands and the ragged tail; the projection a block a row for short
-  rows): ``stream_aligned``, ``gemv_stream_shape``, ``gemv_partial_shape``;
+- the grid of the single-reduce pair in csrc/block_gs.cu, plain launches:
+  ``sr_grid``;
+- the launch of the streaming GEMV kernels (csrc/sr_payload.cu's
+  gs_update, gs_project_partial and the payload, its two right-hand
+  columns: 16-byte pieces, a scalar route for misaligned operands and the
+  ragged tail; the projections a block a row for short rows):
+  ``stream_aligned``, ``gemv_stream_shape``, ``gemv_partial_shape``;
+- the ELL matrix powers (csrc/matrix_powers.cu): the banded grid's row
+  segments, several a block, and the rows each keeps in shared memory
+  across the powers: ``ell_powers_plan``;
 - the preconditioning kernels' shapes: the fused Chebyshev apply
   (csrc/matrix_powers.cu) is a persistent cooperative launch of
   CHEB_BLOCKS_PER_SM blocks per SM at most; the triangular sweep
@@ -92,9 +96,10 @@ POWERS_BLOCKS_PER_SM = 4
 BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
 BLOCK_GS_ROW_GROUP = 8
 BLOCK_GS_MIN_ITEMS = 64
-# The single-reduce kernels stream V through a plain grid; four blocks per
-# SM keep enough loads in flight, and a slice of at most 2048 columns keeps
-# the (8, 2048) f32 slice of Q within 64 KB of shared memory.
+# The single-reduce block pair (csrc/block_gs.cu) streams V through a plain
+# grid; four blocks per SM keep enough loads in flight, and a slice of at
+# most 2048 columns keeps the (8, 2048) f32 slice of Q within 64 KB of
+# shared memory.
 SR_BLOCKS_PER_SM = 4
 SR_MAX_COLS = 2048
 # The streaming GEMV pair (csrc/sr_payload.cu: gs_update and
@@ -116,6 +121,16 @@ GEMV_BLOCKS_PER_SM = 1
 # kernel's own kThreads): no partials, no second launch (PERF.md §6:
 # faster at 2,500 and 8,192 pieces, slower at 16,384 and 32,768).
 PARTIAL_ROW_MAX_ITEMS = 8192
+# The ELL powers (csrc/matrix_powers.cu's ell_powers_kernel): a block of
+# kThreads x (at most ELL_POWERS_GROUPS) threads owns consecutive segments
+# of the banded grid's row partition, ELL_POWERS_GROUPS of them at once,
+# and keeps the first rows of each in shared memory; the slots of a row
+# are unrolled to the smallest of ELL_BUCKETS that holds them (wider rows
+# loop over the largest), and a thread takes ELL_ROWS_IN_FLIGHT[bucket]
+# rows at once (csrc's ell_rows_in_flight).
+ELL_POWERS_GROUPS = 4
+ELL_BUCKETS = (4, 5, 8, 16)
+ELL_ROWS_IN_FLIGHT = {4: 2, 5: 2, 8: 1, 16: 1}
 # The fused Chebyshev apply takes the banded powers' row partition (a
 # thread per row), so the same value.
 CHEB_BLOCKS_PER_SM = POWERS_BLOCKS_PER_SM
@@ -210,12 +225,12 @@ def persistent_grid(device, blocks_per_sm: int, max_grid: int) -> int:
 
 
 def sr_grid(device, n: int) -> int:
-    """Grid of the single-reduce kernels (csrc/sr_payload.cu's payload and
-    csrc/block_gs.cu's project-gram / update pair): plain launches whose
-    partials a second launch reduces, so any grid is valid.  SR_BLOCKS_PER_SM
-    blocks per SM, at least a thread's worth of columns each, and at most
-    SR_MAX_COLS columns per block (the project-gram kernel keeps an
-    (s, cols) slice of Q in shared memory)."""
+    """Grid of the single-reduce block pair (csrc/block_gs.cu's
+    project-gram / update kernels): plain launches whose partials a second
+    launch reduces, so any grid is valid.  SR_BLOCKS_PER_SM blocks per SM,
+    at least a thread's worth of columns each, and at most SR_MAX_COLS
+    columns per block (the project-gram kernel keeps an (s, cols) slice of
+    Q in shared memory)."""
     g = min(SR_BLOCKS_PER_SM * sm_count(device), -(-n // (32 * GS_WARPS)))
     return max(g, -(-n // SR_MAX_COLS), 1)
 
@@ -255,14 +270,75 @@ def gemv_stream_shape(n: int, elem_size: int, aligned: bool,
             "route": "vec" if pieces else "scalar"}
 
 
-def gemv_partial_shape(shape: dict, rows: int) -> dict:
-    """The projection's launch from ``gemv_stream_shape``'s: a block for
+def gemv_partial_shape(shape: dict, rows: int, k: int = 1) -> dict:
+    """The projections' launch from ``gemv_stream_shape``'s: a block for
     each of the ``rows`` valid rows (``by_row``; the kernel takes its own
     block size, so ``threads`` is 0) where a row has at most
-    PARTIAL_ROW_MAX_ITEMS work items, else the shape as given."""
-    if max(shape["pieces"], shape["tail"]) > PARTIAL_ROW_MAX_ITEMS:
-        return dict(shape, by_row=0)
-    return dict(shape, by_row=1, threads=0, blocks=rows, unroll=1)
+    PARTIAL_ROW_MAX_ITEMS work items, else the column sweep.  ``k`` right-
+    hand columns: 1 (``gs_project_partial``: the shape as given), or 2 (the
+    payload: V [z, v_j] with v_j = row rows - 1, and the two squared norms;
+    the sweep sums rows 0..rows-2 in buckets of ``bucket`` rows: 8 where
+    they fit, else 16, looped past 16 rows; in the 16-row bucket two
+    pieces at once only for float32 V: bfloat16's spills and was slower,
+    and a 32-row bucket spilled in both, PERF.md §6)."""
+    if max(shape["pieces"], shape["tail"]) <= PARTIAL_ROW_MAX_ITEMS:
+        out = dict(shape, by_row=1, threads=0, blocks=rows, unroll=1)
+    else:
+        out = dict(shape, by_row=0)
+    if k == 2:
+        bucket = 8 if rows - 1 <= 8 else 16
+        out["bucket"] = 0 if out["by_row"] else bucket
+        if bucket == 16 and shape["vec"] != 4:
+            out["unroll"] = 1
+    return out
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def ell_smem_bytes(seg_per_block: int, res_seg: int, width: int,
+                   elem_size: int) -> int:
+    """Dynamic shared memory of the ELL powers kernel
+    (csrc/matrix_powers.cu's ell_smem_bytes): kWarps partials a segment and
+    the norm, then the resident values and cols of each segment."""
+    k = seg_per_block
+    return (_round16(4 * (k * GS_WARPS + 1))
+            + _round16(k * res_seg * width * elem_size)
+            + 4 * k * res_seg * width)
+
+
+def ell_powers_plan(n: int, width: int, elem_size: int, sms: int,
+                    segments: Optional[int] = None) -> dict:
+    """The launch of ``ell_powers`` over an (n, width) table with values
+    stored in ``elem_size`` bytes, on ``sms`` SMs.
+
+    ``segments``: the banded powers' grid at this n (its row partition,
+    row_range's rule, ``per`` rows a segment, a multiple of 32; default
+    what POWERS_BLOCKS_PER_SM gives where occupancy allows it), so a
+    stencil gets the same bits in both formats.  ``seg_per_block``
+    consecutive segments a block, as few as one block an SM allows;
+    ``blocks`` of ``threads`` (kThreads a segment run at once, at most
+    ELL_POWERS_GROUPS).  ``res_seg``: the first rows of each segment kept
+    in shared memory (whole chunks of 32 rows, within SMEM_BUDGET);
+    ``resident`` = ``seg_per_block`` x that, of at most ``rows`` a block.
+    ``route`` "resident", or "stream" where not one chunk of 32 rows fits
+    (the table then read every power).  ``bucket``: the slots unrolled,
+    ``rows_in_flight`` the rows a thread takes at once."""
+    segs = segments or max(1, min(POWERS_BLOCKS_PER_SM * sms,
+                                  -(-n // (32 * GS_WARPS))))
+    per = (-(-n // segs) + 31) // 32 * 32
+    k = -(-segs // sms)
+    avail = SMEM_BUDGET - ell_smem_bytes(k, 0, width, elem_size)
+    res = min(per, avail // (k * width * (elem_size + 4)) // 32 * 32)
+    bucket = next((b for b in ELL_BUCKETS if b >= width), ELL_BUCKETS[-1])
+    return {"segments": segs, "per": per, "seg_per_block": k,
+            "blocks": -(-segs // k),
+            "threads": 32 * GS_WARPS * min(k, ELL_POWERS_GROUPS),
+            "rows": k * per, "res_seg": res, "resident": k * res,
+            "smem": ell_smem_bytes(k, res, width, elem_size),
+            "bucket": bucket, "rows_in_flight": ELL_ROWS_IN_FLIGHT[bucket],
+            "route": "resident" if res else "stream"}
 
 
 def gemv_rows_shape(m: int, n: int, k: int, elem_size: int, sms: int,

@@ -1372,3 +1372,167 @@ def test_block_gs_pass_at_stream_rate_matches_plain(dev, n, k_start, s, off,
     again = block_gs.block_gs_pass(v, w, tin, k_start)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.equal(got[2], got[2].T)
+
+
+# --------------------------------------------------------------------------
+# the sixth redesigns: the ELL powers with the table kept on chip (row 17)
+# and the payload on the projection's column sweep (row 5)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 5, 8])
+def test_ell_powers_resident_route_gives_the_banded_bits(dev, s, dtype):
+    """The 1024^2 stencil: the table kept on chip (most of it) and the
+    banded kernel's row partition, so the banded kernel's bits, shifted or
+    not; against plain."""
+    from repro_torch.core import stencils
+    from repro_torch.kernels import matrix_powers as mp
+
+    op = operators.with_dtype(
+        stencils.convection_diffusion_2d(1024, 1024, device=dev), dtype)
+    ell = op.to_ell()
+    n = op.shape[0]
+    g = torch.Generator(device=dev).manual_seed(s)
+    x = torch.randn(n, device=dev, generator=g)
+    for shifts in (None, torch.linspace(0.5, 7.5, s, device=dev)):
+        routes = dict(mp.ell_powers.routes)
+        u, sig = mp.ell_powers(ell.values, ell.cols, x, s, shifts=shifts)
+        assert {r: c - routes[r] for r, c in mp.ell_powers.routes.items()} \
+            == {"resident": 1, "stream": 0}
+        ub, sigb = mp.banded_powers(op.bands, x, op.offsets, s,
+                                    shifts=shifts)
+        up, sigp = mp.ell_powers_plain(ell.values, ell.cols, x, s,
+                                       shifts=shifts)
+        torch.cuda.synchronize()
+        assert torch.equal(u, ub) and torch.equal(sig, sigb)
+        assert _relerr(u, up) < TOL[dtype] and _relerr(sig, sigp) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_powers_stream_route_on_a_wide_table(dev, dtype):
+    """A table too wide for one chunk of 32 rows in shared memory (width
+    1,200, ragged rows) streams every power; against plain, the same bits
+    twice."""
+    from repro_torch.kernels import matrix_powers as mp
+
+    vals, cols = _ell(3001, 1200, torch.float32, dev, seed=23)
+    vals = (vals / 1200 ** 0.5).to(dtype).contiguous()
+    x = torch.randn(3001, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    assert mp.ell_plan(vals, cols)["route"] == "stream"
+    before = mp.ell_powers.routes["stream"]
+    got = mp.ell_powers(vals, cols, x, 5)
+    again = mp.ell_powers(vals, cols, x, 5)
+    want = mp.ell_powers_plain(vals, cols, x, 5)
+    torch.cuda.synchronize()
+    assert mp.ell_powers.routes["stream"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(_relerr(a, b) < TOL[dtype] for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,off,j,route", [
+    (1 << 20, 0, 0, "vec"), (1 << 20, 0, 15, "vec"), (1 << 20, 0, 29, "vec"),
+    (10_000, 0, 15, "row"), (10_000, 0, 30, "row"),
+    (1 << 20, 1, 15, "scalar"), (100_003, 0, 9, "scalar")])
+def test_payload_routes_match_plain(dev, n, off, j, route, dtype):
+    """The payload on the column sweep (16-byte pieces, or the scalar route
+    for a z one float off 16 bytes or an odd row stride) and a block a row
+    (n = 10^4): against plain, its route, the same bits twice."""
+    m1 = 31
+    v = _basis(n, m1, j, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(n + j)
+    z = torch.randn(n + off, device=dev, generator=g)[off:]
+    routes = dict(cgs2.gs_project_norm_partial.routes)
+    p = cgs2.gs_project_norm_partial(v, z, j)
+    again = cgs2.gs_project_norm_partial(v, z, j)
+    want = cgs2.gs_project_norm_partial_plain(v, z, j)
+    torch.cuda.synchronize()
+    assert {r: c - routes[r] for r, c in
+            cgs2.gs_project_norm_partial.routes.items() if c != routes[r]} \
+        == {route: 2}
+    assert torch.equal(p, again) and not p[j + 1:m1].any()
+    assert torch.equal(p[j, 1], p[m1, 1])          # v_j.v_j, one sum
+    assert _relerr(p, want) < TOL[dtype]
+
+
+def _fma32(a, b, c):
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _warp_sums(x):
+    """common.cuh's warp_sum on axis -1 split into warps of 32 lanes."""
+    x = np.asarray(x, np.float32).reshape(*np.shape(x)[:-1], -1, 32)
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        x = (x + x[..., lanes ^ o]).astype(np.float32)
+    return x[..., 0]
+
+
+def _in_order(x):
+    """Sum along axis -1 one term at a time from 0."""
+    s = np.zeros(np.shape(x)[:-1], np.float32)
+    for k in range(np.shape(x)[-1]):
+        s = (s + np.asarray(x, np.float32)[..., k]).astype(np.float32)
+    return s
+
+
+def _row4_replay(v, w, plan):
+    """gs_project_partial's order (row 4, as it was before the payload
+    shared its kernels): each thread's
+    fmaf chain over its columns (rounds of U pieces, then the scalar
+    columns), the warps' shuffles, the warps in order; on the column sweep
+    the blocks' partials summed as reduce_partials_kernel sums them."""
+    rows, n = v.shape
+    vec, pieces = plan["vec"], plan["pieces"]
+    if plan["by_row"]:
+        threads, g, u = 256, 256, 1
+    else:
+        threads, u = plan["threads"], plan["unroll"]
+        g = threads * plan["blocks"]
+    cols = []
+    for t in range(g):
+        mine = []
+        for p0 in range(t, pieces, u * g):
+            for k in range(u):
+                if p0 + k * g < pieces:
+                    p = p0 + k * g
+                    mine.extend(range(p * vec, p * vec + vec))
+        mine.extend(range(pieces * vec + t, n, g))
+        cols.append(mine)
+    width = max(len(c) for c in cols)
+    idx = np.array([c + [-1] * (width - len(c)) for c in cols])
+    acc = np.zeros((rows, g), np.float32)
+    for k in range(width):
+        c = idx[:, k]
+        live = c >= 0
+        cc = np.where(live, c, 0)
+        acc = np.where(live, _fma32(v[:, cc], w[cc], acc), acc)
+    warps = _warp_sums(acc)                        # (rows, g / 32)
+    blocks = _in_order(warps.reshape(rows, -1, threads // 32))
+    if plan["by_row"]:
+        return blocks[:, 0]
+    lanes = np.zeros((rows, 32), np.float32)
+    for lane in range(min(32, blocks.shape[1])):
+        lanes[:, lane] = _in_order(blocks[:, lane::32])
+    return _warp_sums(lanes)[:, 0]
+
+
+@pytest.mark.parametrize("n", [1 << 16, 10_000])
+def test_gs_project_partial_keeps_row4s_summation_order(dev, n):
+    """Row 4's kernels, now generic in the right-hand columns, at K = 1:
+    the bits of its fixed order (a numpy replay of it), on the column
+    sweep (n = 2^16) and a block a row (n = 10^4)."""
+    from repro_torch.kernels import tuning
+
+    j, m1 = 15, 31
+    rng = np.random.default_rng(n)
+    v = np.zeros((m1, n), np.float32)
+    v[:j + 1] = np.linalg.qr(rng.standard_normal((n, j + 1)))[0].T
+    w = rng.standard_normal(n).astype(np.float32)
+    vt, wt = torch.from_numpy(v).to(dev), torch.from_numpy(w).to(dev)
+    plan = tuning.gemv_partial_shape(cgs2.stream_plan(vt, wt, j + 1), j + 1)
+    assert plan["by_row"] == (n == 10_000)
+    got = cgs2.gs_project_partial(vt, wt, j).cpu().numpy()
+    want = _row4_replay(v[:j + 1], w, plan)
+    assert np.array_equal(got[:j + 1], want) and not got[j + 1:].any()
