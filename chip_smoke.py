@@ -11,7 +11,10 @@
         # the dense and banded cgs2_fused and banded s-step solves),
         # redesign6 (rows 17 and 5: ell_powers beside banded_powers, the
         # payload beside row 4, rows 15 and 18, the ELL s-step and banded
-        # pipelined solves); default all six;
+        # pipelined solves), redesign7 (rows 14 and 18: banded_powers and
+        # ell_powers at s = 2 / 5 / 8, the Chebyshev apply at orders 2 / 4
+        # / 8, SHA-256 held to the parent's, row 15, the banded s-step and
+        # Chebyshev(4) solves); default all seven;
         # redesign3_sweep (the launch shapes of rows 1 and 19) only when
         # named
 
@@ -19,10 +22,12 @@ Phases, one JSON line each (``"phase": ...``):
 
 1. build      compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
               per source, in parallel); nvcc version; card and power limit;
-              ``ptxas -v``'s registers, spills and static shared memory of
+              ``ptxas -v``'s registers, stack frame, spills and static
+              shared memory of
               the sliced-ELL, bf16 attention, ILU(0) wavefront,
               batched_cgs2, streamed GS (gs_stream_kernel), block-GS
-              pass, ELL powers (by storage and width bucket) and the
+              pass, ELL powers (by storage and width bucket), banded
+              powers and Chebyshev apply (by storage and band count) and the
               projections' column-sweep and block-a-row kernels (by
               storage, bucket, pieces at once and right-hand columns:
               row 4 and the payload), and the HGMMA
@@ -127,6 +132,11 @@ The s-step slice (s = 5, 6 blocks: m = 30):
               convection-diffusion stencil, unshifted and with the Newton
               shifts of its Gershgorin interval, the ELL powers on their
               "resident" route and with banded_powers' bits (checked);
+              banded_powers on each route of its plan, shifted, the same
+              bits twice (nine bands at 1024^2: the stack partly resident
+              in float32; a halo past any tile at n = 2^20: "far"; the
+              1023 x 1021 stencil: the scalar copies; 8M rows: "l2"; one
+              band at n = 1,000);
               the ELL powers' "stream" route on a table too wide to keep
               (4,096 x 1,200, ragged), the same bits twice; dense powers
               at n = 10,000;
@@ -209,7 +219,9 @@ The preconditioning slice (the 1024^2 stencil of phase 7):
               of the same inputs), bars 1e-4 (float32) and 2e-2 (bfloat16
               bands) relative to the largest entry of the plain result:
               banded_cheb_apply at 1024^2 and 32^2, order 2, 4 and 8, the
-              interval of estimate_interval, float32 and bfloat16 bands;
+              interval of estimate_interval, float32 and bfloat16 bands,
+              and on each route of its plan (phase 10's band stacks, the
+              same bits twice);
               banded_trisweep lower/unit, lower/non-unit and upper/non-unit
               on the ILU(0) and line-Jacobi factors of the 1024^2 stencil
               (float32 and bfloat16 bands) and of the 1023 x 1021 one (n
@@ -594,6 +606,51 @@ def basis(n, m1, j, dtype, gen):
     v = torch.zeros(m1, n, device="cuda")
     v[: j + 1] = q.T
     return v.to(dtype).contiguous()
+
+
+def banded_route_cases(gen):
+    """Band stacks that take each route of the banded powers and the
+    Chebyshev apply (``matrix_powers.banded_plan``), float32, each with the
+    route, the residency and the 16-byte flag its plan must have: the
+    1024^2 stencil with nine bands (the stack partly resident in float32),
+    a halo past any tile at n = 2^20 (route "far", the near bands in the
+    tile), the 1023 x 1021 stencil (n odd: the scalar copies), 8M rows (route
+    "l2": not even a block's rows fit), one band at n = 1,000."""
+    from repro_torch.core import stencils
+
+    big = 1 << 20
+    odd = stencils.convection_diffusion_2d(1023, 1021, beta=BETA)
+    both = {torch.float32: "all", torch.bfloat16: "all"}
+    yield ("nine bands 1024^2", torch.randn(9, big, device="cuda",
+                                            generator=gen) / 3,
+           tuple(range(-4, 5)), "tile",
+           {torch.float32: "partly", torch.bfloat16: "all"}, 1)
+    yield ("far bands n = 2^20", torch.randn(5, big, device="cuda",
+                                             generator=gen) / 3,
+           (-300_000, -1, 0, 1, 300_000), "far", both, 1)
+    yield "1023 x 1021", odd.bands, odd.offsets, "tile", both, 0
+    yield ("8M rows", torch.randn(3, 8_000_000, device="cuda",
+                                  generator=gen) / 2,
+           (-1, 0, 1), "l2", {torch.float32: "partly",
+                              torch.bfloat16: "partly"}, 1)
+    yield ("one band n = 1,000", torch.randn(1, 1000, device="cuda",
+                                             generator=gen), (0,), "tile",
+           both, 1)
+
+
+def banded_route_check(name, bands, offsets, route, resident, vec, x):
+    """The plan of a route case against what it must be (``resident``: by
+    storage type); returns it."""
+    from repro_torch.kernels import matrix_powers as mp
+
+    plan = mp.banded_plan(bands, offsets, x)
+    got = ("all" if plan["res_seg"] == plan["per"] else "partly",
+           plan["route"], plan["vec"])
+    resident = resident[bands.dtype]
+    check(got == (resident, route, vec),
+          f"banded route case {name} {bands.dtype}: (resident, route, vec) "
+          f"{got}, wanted {(resident, route, vec)}")
+    return plan
 
 
 def stream_edge(nb, m1, off, dtype, gen):
@@ -1294,13 +1351,19 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
         for sp in SSTEP_S_CHECK:
             for shifts in (None, _newton_shifts(ops["banded"], sp)):
                 shifted = shifts is not None
+                b_routes = dict(mp.banded_powers.routes)
                 got_b = mp.banded_powers(band.bands, x_n, band.offsets, sp,
                                          shifts=shifts)
+                b_route = [r for r, c in mp.banded_powers.routes.items()
+                           if c != b_routes[r]]
                 compare("banded_powers", got_b,
                         mp.banded_powers_plain(band.bands, x_n, band.offsets,
                                                sp, shifts=shifts),
-                        dtype, s=sp, shifted=shifted, n=n,
-                        shape=mp.launch_shape("banded", dtype, n))
+                        dtype, s=sp, shifted=shifted, n=n, route=b_route,
+                        shape=mp.launch_shape("banded", dtype, n,
+                                              band.offsets))
+                check(b_route == ["tile"], f"banded_powers s={sp} {dtype}: "
+                                           f"route {b_route}")
                 routes = dict(mp.ell_powers.routes)
                 got_e = mp.ell_powers(ell.values, ell.cols, x_n, sp,
                                       shifts=shifts)
@@ -1349,6 +1412,31 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
                   f"ell_powers width {width_w} s={sp}: route {route}, the "
                   f"same bits twice {twice}")
         del vals, cols
+        # banded_powers on each of its routes, shifted, the same bits twice
+        for name, bnd, offs, route, resident, vec in banded_route_cases(gen):
+            bnd = bnd.to(dtype).contiguous()
+            x_r = torch.randn(bnd.shape[1], device="cuda", generator=gen)
+            sh = torch.linspace(0.5, 1.5, SSTEP_S, device="cuda")
+            plan = banded_route_check(name, bnd, offs, route, resident, vec,
+                                      x_r)
+            routes = dict(mp.banded_powers.routes)
+            got_b = mp.banded_powers(bnd, x_r, offs, SSTEP_S, shifts=sh)
+            got_route = [r for r, c in mp.banded_powers.routes.items()
+                         if c != routes[r]]
+            twice = all(torch.equal(a_, b_) for a_, b_ in zip(
+                got_b, mp.banded_powers(bnd, x_r, offs, SSTEP_S,
+                                        shifts=sh)))
+            compare("banded_powers", got_b,
+                    mp.banded_powers_plain(bnd, x_r, offs, SSTEP_S,
+                                           shifts=sh), dtype, s=SSTEP_S,
+                    n=bnd.shape[1], case=name, route=got_route,
+                    plan={k_: plan[k_] for k_ in ("route", "vec", "res_seg",
+                                                  "per", "tile_halo", "far")},
+                    same_bits_twice=twice)
+            check(got_route == [route] and twice,
+                  f"banded_powers {name}: route {got_route}, the same bits "
+                  f"twice {twice}")
+            del bnd
         # block_gs_pass at s = 1 .. 8 and k_start 0 .. m1 - 1, and on its
         # scalar route (n not a multiple of 4; W one element off 16 bytes,
         # k_start 25, s = 5), each call's route counted and the same bits
@@ -1567,7 +1655,8 @@ def sstep_phases(smi, gen, dense_restarts, sparse_restarts, baseline):
                 if f32 else None,
                 composite=f"{s} x (CSR torch.mv + norm + scale)"
                 if f32 else None,
-                n=n, s=s, shape=mp.launch_shape("banded", dtype, n),
+                n=n, s=s, shape=mp.launch_shape("banded", dtype, n,
+                                                band.offsets),
                 bytes=nbands * n * sz + 4 * n + 4 * s * n,
                 flops=2 * s * nbands * n),
             "ell_powers": measure(
@@ -2116,6 +2205,29 @@ def precond_phases(smi, gen, sparse_solves):
                         mp.banded_cheb_apply(bands, v, o.offsets, **kw),
                         mp.banded_cheb_apply_plain(bands, v, o.offsets, **kw),
                         dtype, n=nn, order=order, interval=[lo, hi])
+    # each route of the Chebyshev apply (order 4 of an interval for these
+    # diagonally shifted random stacks), the same bits twice
+    kw = dict(theta=3.0, delta=2.0, rhos=((0.5, 0.0), (0.6, 0.5),
+                                          (0.7, 0.6)))
+    for name, bnd, offs, route, resident, vec in banded_route_cases(gen):
+        for dtype in (f32, torch.bfloat16):
+            bt = bnd.to(dtype).contiguous()
+            v_r = torch.randn(bt.shape[1], device="cuda", generator=gen)
+            banded_route_check(name, bt, offs, route, resident, vec, v_r)
+            routes = dict(mp.banded_cheb_apply.routes)
+            z = mp.banded_cheb_apply(bt, v_r, offs, **kw)
+            got_route = [r for r, c in mp.banded_cheb_apply.routes.items()
+                         if c != routes[r]]
+            twice = torch.equal(z, mp.banded_cheb_apply(bt, v_r, offs, **kw))
+            compare("banded_cheb_apply", z,
+                    mp.banded_cheb_apply_plain(bt, v_r, offs, **kw), dtype,
+                    n=bt.shape[1], case=name, route=got_route,
+                    same_bits_twice=twice)
+            check(got_route == [route] and twice,
+                  f"banded_cheb_apply {name} {dtype}: route {got_route}, the "
+                  f"same bits twice {twice}")
+            del bt
+        del bnd
 
     ilu, lj = P.banded_ilu0(op), P.line_jacobi(op)
     # 1023 x 1021: n = 1,044,483, not a multiple of the scan's 2,048-row
@@ -3520,6 +3632,8 @@ def kernel_resources(so, names) -> dict:
             continue
         if cur is None:
             continue
+        if m := re.search(r"(\d+) bytes stack frame", line):
+            res[cur]["stack_frame"] = int(m[1])
         if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line):
             res[cur]["spill_stores"] = int(m[1])
@@ -3581,7 +3695,8 @@ def main() -> None:
     res = kernel_resources(so, ("sell_kernel", "attention_wgmma_kernel",
                                 "ilu0_wave_kernel", "batched_cgs2_kernel",
                                 "gs_stream_kernel", "block_gs_kernel",
-                                "ell_powers_kernel", "gs_partial_"))
+                                "ell_powers_kernel", "gs_partial_",
+                                "banded_powers_kernel", "banded_cheb_kernel"))
     sell = [r for name, r in res.items() if "sell_kernel" in name]
     attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
             for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
@@ -3597,6 +3712,11 @@ def main() -> None:
     # right-hand columns, and their block-a-row kernel
     redesign6 = {template_name(name): r for name, r in res.items()
                  if "ell_powers_kernel" in name or "gs_partial_" in name}
+    # rows 14 and 18: the banded powers and the Chebyshev apply by storage
+    # and band count (0: the offsets from shared memory)
+    redesign7 = {template_name(name): r for name, r in res.items()
+                 if "banded_powers_kernel" in name
+                 or "banded_cheb_kernel" in name}
 
     def summary(rs):
         return {"registers_max": max(r["registers"] for r in rs),
@@ -3612,7 +3732,7 @@ def main() -> None:
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          resources=dict(attn, **redesign4, **stream, **bgs_summary,
-                        **redesign6,
+                        **redesign6, **redesign7,
                         **{f"sell_kernel ({len(sell)} instantiations)":
                            dict(summary(sell), static_smem_max=max(
                                r["static_smem"] for r in sell))}))
@@ -3625,6 +3745,9 @@ def main() -> None:
           and sum("gs_partial_stream" in k for k in redesign6) == 18
           and sum("gs_partial_rows" in k for k in redesign6) == 4,
           f"ell_powers_kernel / gs_partial_*: {sorted(redesign6)}")
+    check(sum("banded_powers" in k for k in redesign7) == 10
+          and sum("banded_cheb" in k for k in redesign7) == 10,
+          f"banded_powers_kernel / banded_cheb_kernel: {sorted(redesign7)}")
     check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
           f"attention_wgmma_kernel: HGMMA instructions {attn}")
     check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
@@ -4046,7 +4169,7 @@ def main() -> None:
 
 
 CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4", "redesign5",
-               "redesign6")
+               "redesign6", "redesign7")
 # a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
 SWEEP_GROUPS = ("redesign3_sweep",)
 
@@ -4055,8 +4178,9 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
     """The redesigned kernels' rows and the cells they serve, on whichever
     ``repro_torch`` this process imported (``in_turn``), by group:
     ``redesign1`` (kernel-table rows 7 and 20, ``redesign1_cells``),
-    ``gemv`` (rows 4 and 6, ``gemv_cells``) and ``redesign3`` (rows 1 and
-    19, ``redesign3_cells``); the ``redesign3_sweep`` group, on a tree
+    ``gemv`` (rows 4 and 6, ``gemv_cells``), ``redesign3`` (rows 1 and
+    19, ``redesign3_cells``) and so on to ``redesign7`` (rows 14 and 18,
+    ``redesign7_cells``); the ``redesign3_sweep`` group, on a tree
     that has the launch helpers it times, emits ``tuning`` lines of its
     own.  One JSON line."""
     from repro_torch.kernels import _build
@@ -4083,6 +4207,8 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
         out.update(redesign5_cells(label))
     if "redesign6" in groups:
         out.update(redesign6_cells(label))
+    if "redesign7" in groups:
+        out.update(redesign7_cells(label))
     if "redesign3_sweep" in groups:
         from repro_torch.kernels import trisolve
 
@@ -4870,6 +4996,111 @@ def redesign6_cells(label: str) -> dict:
     return out
 
 
+def redesign7_cells(label: str) -> dict:
+    """Kernel-table rows 14 (``banded_powers``) and 18
+    (``banded_cheb_apply``), the rows that share their code or partition,
+    and the solves they serve.  Row 14 on the 1024^2 stencil at s = 2, 5
+    and 8, float32 and bfloat16 storage, cold (L2 rewritten before each
+    call) and warm, the SHA-256 of (u, sigma) unshifted and with the Newton
+    shifts; row 17 (``ell_powers``) the same, whose bits must be row 14's;
+    row 18 at orders 2, 4 and 8 (the stencil's interval), cold and warm, the
+    SHA-256 of its output; row 15 (one shard of the stencil, s = 5); the
+    banded ``gmres_sstep(s=5, blocks=6, gs="cgs2")`` and the Chebyshev(4)
+    ``gmres(gs="cgs2_fused")`` solves: wall (the median of five runs, each
+    listed), device, idle share and kernels' device ms a step, restarts, x
+    (saved for the comparison across the trees)."""
+    import hashlib
+
+    from repro_torch.core import gmres, gmres_sstep, stencils
+    from repro_torch.core import preconditioners as P
+    from repro_torch.core.sstep import _newton_shifts
+    from repro_torch.kernels import matrix_powers as mp
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def cell(fn, nbytes):
+        return {"warm": timed(fn, iters=20), "sha256": sha(*fn()),
+                "cold": timed(fn, iters=20, cold=True), "bytes": nbytes,
+                "bound_ms": bound(nbytes, 0)[0]}
+
+    out = {}
+    n = NX * NX
+    band = stencils.convection_diffusion_2d(NX, NX, beta=BETA)
+    ell = band.to_ell()
+    x = torch.randn(n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    lo, hi = P.estimate_interval(band)
+    for dtype in (torch.float32, torch.bfloat16):
+        name_t = str(dtype)[6:]
+        sz = torch.empty((), dtype=dtype).element_size()
+        bands = band.bands.to(dtype)
+        vals = ell.values.to(dtype)
+        nb, width = bands.shape[0], vals.shape[1]
+        if hasattr(mp, "banded_plan"):
+            out[f"banded plan {name_t}"] = mp.banded_plan(bands, band.offsets,
+                                                          x)
+        for sp in (2, 5, 8):
+            out[f"banded_powers {name_t} s={sp}"] = cell(
+                lambda: mp.banded_powers(bands, x, band.offsets, sp),
+                nb * n * sz + 4 * n + 4 * sp * n)
+            out[f"ell_powers {name_t} s={sp}"] = cell(
+                lambda: mp.ell_powers(vals, ell.cols, x, sp),
+                n * width * (sz + 4) + 4 * n + 4 * sp * n)
+            sh = _newton_shifts(band, sp)
+            out[f"banded_powers {name_t} s={sp} shifted sha256"] = sha(
+                *mp.banded_powers(bands, x, band.offsets, sp, shifts=sh))
+            out[f"ell_powers {name_t} s={sp} shifted sha256"] = sha(
+                *mp.ell_powers(vals, ell.cols, x, sp, shifts=sh))
+        for order in (2, 4, 8):
+            theta, delta, rhos = P.cheb_coeffs(order, lo, hi)
+            out[f"banded_cheb_apply {name_t} order={order}"] = cell(
+                lambda: (mp.banded_cheb_apply(bands, x, band.offsets,
+                                              theta=theta, delta=delta,
+                                              rhos=rhos),),
+                nb * n * sz + 8 * n)
+        # row 15: one shard holding the whole stencil, s = 5, the band
+        # stack scaled as the s-step solver scales it
+        halo = max(abs(o) for o in band.offsets)
+        pad = torch.nn.functional.pad
+        scaled = band.bands / band.bands.abs().sum(dim=0).max()
+        bands_pad = pad(scaled, (SSTEP_S * halo, SSTEP_S * halo)).to(
+            dtype).contiguous()
+        x_s = pad(x, (SSTEP_S * halo, SSTEP_S * halo))
+        out[f"banded_powers_halo {name_t} s={SSTEP_S}"] = cell(
+            lambda: mp.banded_powers_halo(bands_pad, x_s, band.offsets,
+                                          SSTEP_S),
+            nb * bands_pad.shape[1] * sz + 4 * bands_pad.shape[1]
+            + 4 * SSTEP_S * n)
+        del bands_pad, x_s
+
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    save = ROOT / "build" / "in_turn"
+    save.mkdir(parents=True, exist_ok=True)
+    cheb = P.make_preconditioner("chebyshev", band, order=4)
+    for name, run in (
+            ("banded gmres_sstep cgs2",
+             lambda: gmres_sstep(band, b, s=SSTEP_S, blocks=SSTEP_BLOCKS,
+                                 tol=TOL, max_restarts=SPARSE_RESTARTS,
+                                 gs="cgs2")),
+            ("chebyshev(4) gmres cgs2_fused",
+             lambda: gmres(band, b, m=M, tol=TOL,
+                           max_restarts=SPARSE_RESTARTS, gs="cgs2_fused",
+                           precond=cheb))):
+        res = run()
+        r = solve_timing(run, res.inner_steps, phase="in_turn", walls=5,
+                         solve=name, tree=label, restarts=res.restarts)
+        path = save / f"{label}-{name.replace(' ', '_')}-{os.getpid()}.pt"
+        torch.save(res.x.cpu(), path)
+        out[name] = dict(r, restarts=res.restarts, converged=res.converged,
+                         x_path=str(path), x_sha256=sha(res.x))
+    return out
+
+
 def redesign3_sweep(label: str) -> None:
     """The launch shapes ``tuning.gemv_rows_shape`` and
     ``tuning.trisweep_plan`` choose among, each launched through the
@@ -5113,6 +5344,52 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
               "in turn: ell_powers and banded_powers gave other bits")
         check(out["row4_same_bits"],
               "in turn: gs_project_partial's bits differ between the trees")
+
+    if "redesign7" in groups:
+        # row 14's (u, sigma) and row 18's output: the parent's bits in all
+        # four runs; row 17 row 14's bits in every run; row 15 the same bits
+        # in each tree's two runs; the solves converge with restarts within
+        # 10% and x within 1e-3 of the parent's
+        dts = ("float32", "bfloat16")
+        row14 = [f"banded_powers {t} s={sp}{sh}" for t in dts
+                 for sp in (2, 5, 8) for sh in ("", " shifted sha256")]
+        row18 = [f"banded_cheb_apply {t} order={o}" for t in dts
+                 for o in (2, 4, 8)]
+
+        def bits(r, key):
+            return r[key]["sha256"] if isinstance(r[key], dict) else r[key]
+        out = {"row14_parent_bits": all(
+            len({bits(r, k) for r in rows}) == 1 for k in row14),
+            "row18_parent_bits": all(
+                len({bits(r, k) for r in rows}) == 1 for k in row18),
+            "row17_is_row14": [all(
+                bits(r, k.replace("banded_powers", "ell_powers"))
+                == bits(r, k) for k in row14) for r in rows],
+            "row15_same_bits_per_tree": {
+                f"{t} {d}": len({r[f"banded_powers_halo {d} s={SSTEP_S}"]
+                                 ["sha256"] for r in rows
+                                 if r["tree"] == t}) == 1
+                for t in ("parent", "this") for d in dts}}
+        for name in ("banded gmres_sstep cgs2",
+                     "chebyshev(4) gmres cgs2_fused"):
+            solves = [r[name] for r in rows]
+            xs = [torch.load(s_["x_path"]) for s_ in solves]
+            ref = xs[0]
+            restarts = [s_["restarts"] for s_ in solves]
+            out[name] = {"restarts": restarts,
+                         "x_rel_to_parent": [float((x - ref).norm()
+                                                   / ref.norm()) for x in xs]}
+            check(all(s_["converged"] for s_ in solves)
+                  and max(restarts) <= 1.1 * min(restarts)
+                  and max(out[name]["x_rel_to_parent"]) <= 1e-3,
+                  f"in turn: {name} differs between the trees: {out[name]}")
+        emit(phase="in_turn", **out)
+        check(out["row14_parent_bits"] and out["row18_parent_bits"],
+              "in turn: rows 14 / 18 gave other bits than the parent's")
+        check(all(out["row17_is_row14"]),
+              "in turn: ell_powers and banded_powers gave other bits")
+        check(all(out["row15_same_bits_per_tree"].values()),
+              "in turn: a tree's row 15 gave other bits in its two runs")
 
 
 if __name__ == "__main__":

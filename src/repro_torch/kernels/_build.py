@@ -86,19 +86,22 @@ SIGNATURES = {
     "repro_batched_cgs2_unroll": (I, I, P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, x, shifts (device
     # float[s] or null), u, sigma, raw, partials, partial_blocks, n, s, eps,
-    # blocks_per_sm, stream
-    "repro_banded_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, P),
+    # then the plan (tuning.banded_plan): segments, segments a block,
+    # blocks, threads, resident rows a segment, tile halo, tile rows, vec,
+    # smem, smem_cap; stream
+    "repro_banded_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, I,
+                            I, I, I, I, I, I, I, I, P),
     # values, v_bf16, cols, width, x, shifts, u, sigma, raw, partials,
     # partial_blocks, n, s, eps, then the plan (tuning.ell_powers_plan):
     # segments, segments a block, blocks, threads, resident rows a segment,
-    # bucket, vec, smem, smem_cap, blocks_per_sm; stream
+    # bucket, vec, smem, smem_cap; stream
     "repro_ell_powers": (P, I, P, I, P, P, P, P, P, P, I, I, I, F, I, I, I,
-                         I, I, I, I, I, I, I, P),
+                         I, I, I, I, I, I, P),
     # a, a_bf16, x, u, sigma, raw, partials, partial_blocks, n, s, eps,
     # smem_cap, blocks_per_sm, stream
     "repro_dense_powers": (P, I, P, P, P, P, P, I, I, I, F, I, I, P),
     # kind (0 banded, 2 dense), bf16, n, blocks_per_sm, out
-    "repro_matrix_powers_shape": (I, I, I, I, P),
+    "repro_matrix_powers_shape": (I, I, I, I, I, I, I, I, I, P),
     # The row-sharded banded powers: bands, b_bf16, offsets (host
     # int[nbands]), nbands, x, z, nrm, raw, partials, partial_blocks, width,
     # s, blocks_per_sm, stream
@@ -135,9 +138,9 @@ SIGNATURES = {
     # The preconditioning kernels:
     # bands, b_bf16, offsets (host int[nbands]), nbands, v, zbuf (2 n),
     # out, n, theta, 2 / delta, rho, rho_old (host float[steps]), steps,
-    # blocks_per_sm, stream
+    # then the plan as repro_banded_powers'; stream
     "repro_banded_cheb_apply": (P, I, P, I, P, P, P, I, F, F, P, P, I, I,
-                                P),
+                                I, I, I, I, I, I, I, I, I, P),
     # bands, b_bf16, offsets (host int[nbands]), nbands, v (k, n), z (k, n),
     # agg (route "scan": scratch, else null), n, k, chunk (0: route
     # "scan"), threads, ring, far_l2, stages, vec, unit, reverse,

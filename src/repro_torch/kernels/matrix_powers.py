@@ -52,7 +52,7 @@ from repro_torch.kernels import _build, ref, spmv, tuning
 
 STORAGE = (torch.float32, torch.bfloat16)
 MAX_CHEB_STEPS = 32     # (rho, rho_old) pairs the Chebyshev kernel takes
-_KIND = {"banded": 0, "dense": 2}
+_KIND = {"banded": 0, "cheb": 1, "dense": 2}
 
 
 def _acc_dtype(mat_dtype, x_dtype) -> torch.dtype:
@@ -206,7 +206,10 @@ def _ptr(t) -> int | None:
 def banded_powers(bands: torch.Tensor, x: torch.Tensor, offsets, s: int, *,
                   shifts: torch.Tensor | None = None):
     """All s normalized powers of a banded operator.  bands: (nbands, n);
-    offsets: one diagonal shift per band; x: (n,)."""
+    offsets: one diagonal shift per band; x: (n,).  On the card the band
+    stack stays in shared memory across the powers and each power's operand
+    is divided once into a shared tile (``banded_plan``; the route, "tile",
+    "far" or "l2", counted in ``banded_powers.routes``)."""
     offsets = tuple(int(o) for o in offsets)
     if bands.ndim != 2 or len(offsets) != bands.shape[0]:
         raise TypeError(f"banded_powers: bands {tuple(bands.shape)} but "
@@ -220,22 +223,52 @@ def banded_powers(bands: torch.Tensor, x: torch.Tensor, offsets, s: int, *,
     if nbands > spmv.MAX_BANDS:
         raise ValueError(f"banded_powers: {nbands} bands; the kernel takes at "
                          f"most {spmv.MAX_BANDS}")
-    grid = tuning.persistent_grid(bands.device, tuning.POWERS_BLOCKS_PER_SM,
-                                  -(-n // (32 * tuning.GS_WARPS)))
-    xf, sh, u, sigma, raw, part = _buffers(x, s, grid, shifts)
+    segs = tuning.powers_segments(n, tuning.sm_count(bands.device))
+    xf, sh, u, sigma, raw, part = _buffers(x, s, segs, shifts)
+    plan = banded_plan(bands, offsets, xf)
     offs = (ctypes.c_int * nbands)(*offsets)
     rc = _build.library().repro_banded_powers(
         bands.data_ptr(), int(bands.dtype == torch.bfloat16),
         ctypes.addressof(offs), nbands, xf.data_ptr(), _ptr(sh),
         u.data_ptr(), sigma.data_ptr(), raw.data_ptr(), part.data_ptr(),
-        grid, n, s, guard(torch.float32), tuning.POWERS_BLOCKS_PER_SM,
+        plan["segments"], n, s, guard(torch.float32),
+        *_plan_args(plan),
         _build.stream_ptr(bands))
     _build.check("banded_powers", rc)
     banded_powers.launches += 1
+    banded_powers.routes[plan["route"]] += 1
     return u, sigma
 
 
 banded_powers.launches = 0
+banded_powers.routes = {"tile": 0, "far": 0, "l2": 0}
+
+
+def banded_plan(bands: torch.Tensor, offsets, operand: torch.Tensor) -> dict:
+    """``tuning.banded_plan`` for this band stack on its card, with ``vec``:
+    the bands and the float32 operand (x, or v) 16-byte aligned and n a
+    whole number of 16-byte pieces of both (the 16-byte copies of the
+    stack and the tile).  Cached by shape, offsets, storage, card and
+    alignment."""
+    nbands, n = bands.shape
+    elem = bands.element_size()
+    vec = int(bands.data_ptr() % 16 == 0 and operand.data_ptr() % 16 == 0
+              and n % (16 // elem) == 0)
+    return _banded_plan(n, tuple(int(o) for o in offsets), elem,
+                        tuning.sm_count(bands.device), vec)
+
+
+@functools.lru_cache(maxsize=64)
+def _banded_plan(n: int, offsets: tuple, elem: int, sms: int,
+                 vec: int) -> dict:
+    return dict(tuning.banded_plan(n, offsets, elem, sms), vec=vec)
+
+
+def _plan_args(plan: dict) -> tuple:
+    """The plan's launch arguments, in the C entry points' order."""
+    return (plan["segments"], plan["seg_per_block"], plan["blocks"],
+            plan["threads"], plan["res_seg"], plan["tile_halo"],
+            plan["tile_rows"], plan["vec"], plan["smem"], tuning.SMEM_BUDGET)
 
 
 def banded_powers_halo(bands_pad: torch.Tensor, x_halo: torch.Tensor,
@@ -315,7 +348,7 @@ def ell_powers(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
         n, s, guard(torch.float32), plan["segments"], plan["seg_per_block"],
         plan["blocks"], plan["threads"], plan["res_seg"], plan["bucket"],
         plan["vec"], plan["smem"], tuning.SMEM_BUDGET,
-        tuning.POWERS_BLOCKS_PER_SM, _build.stream_ptr(values))
+        _build.stream_ptr(values))
     _build.check("ell_powers", rc)
     ell_powers.launches += 1
     ell_powers.routes[plan["route"]] += 1
@@ -324,24 +357,18 @@ def ell_powers(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
 
 def ell_plan(values: torch.Tensor, cols: torch.Tensor) -> dict:
     """``tuning.ell_powers_plan`` for this table on its card, on the banded
-    powers' grid at the same n and storage (asked of the card), with
-    ``vec``: values and cols 16-byte aligned (the resident copy's 16-byte
-    loads).  Cached whole by shape, storage, card and alignment."""
+    powers' segments (``tuning.powers_segments``), with ``vec``: values and
+    cols 16-byte aligned (the resident copy's 16-byte loads).  Cached whole
+    by shape, storage, card and alignment."""
     n, width = values.shape
     vec = int(values.data_ptr() % 16 == 0 and cols.data_ptr() % 16 == 0)
-    return _ell_plan(n, width, values.dtype, values.device.index
-                     if values.device.index is not None
-                     else torch.cuda.current_device(), vec)
+    return _ell_plan(n, width, values.element_size(),
+                     tuning.sm_count(values.device), vec)
 
 
 @functools.lru_cache(maxsize=64)
-def _ell_plan(n: int, width: int, dtype, index: int, vec: int) -> dict:
-    with torch.cuda.device(index):
-        segs = launch_shape("banded", dtype, n)["grid"]
-    plan = tuning.ell_powers_plan(n, width, torch.finfo(dtype).bits // 8,
-                                  tuning.sm_count(torch.device("cuda", index)),
-                                  segments=segs)
-    return dict(plan, vec=vec)
+def _ell_plan(n: int, width: int, elem: int, sms: int, vec: int) -> dict:
+    return dict(tuning.ell_powers_plan(n, width, elem, sms), vec=vec)
 
 
 ell_powers.launches = 0
@@ -387,7 +414,9 @@ def banded_cheb_apply(bands: torch.Tensor, v: torch.Tensor, offsets, *,
     """z ~= A^{-1} v by the fused Chebyshev recurrence (one launch).
 
     bands: (nbands, n) as in ``spmv.banded_matvec``; v: (n,); theta, delta
-    and rhos ((rho, rho_old) pairs) from ``cheb_coeffs``.
+    and rhos ((rho, rho_old) pairs) from ``cheb_coeffs``.  On the card the
+    banded powers' plan (``banded_plan``; routes counted in
+    ``banded_cheb_apply.routes``).
     """
     offsets = tuple(int(o) for o in offsets)
     rhos = tuple((float(r), float(ro)) for r, ro in rhos)
@@ -411,6 +440,7 @@ def banded_cheb_apply(bands: torch.Tensor, v: torch.Tensor, offsets, *,
         raise TypeError(f"banded_cheb_apply: v must be float32 or bfloat16 "
                         f"on the card, got {v.dtype}")
     vf = v.to(torch.float32).contiguous()
+    plan = banded_plan(bands, offsets, vf)
     zbuf = torch.empty((2, n), dtype=torch.float32, device=v.device)
     out = torch.empty_like(vf)
     offs = (ctypes.c_int * nbands)(*offsets)
@@ -422,19 +452,48 @@ def banded_cheb_apply(bands: torch.Tensor, v: torch.Tensor, offsets, *,
         ctypes.addressof(offs), nbands, vf.data_ptr(), zbuf.data_ptr(),
         out.data_ptr(), n, float(theta), 2.0 / float(delta),
         ctypes.addressof(rho), ctypes.addressof(rho_old), steps,
-        tuning.CHEB_BLOCKS_PER_SM, _build.stream_ptr(bands))
+        *_plan_args(plan), _build.stream_ptr(bands))
     _build.check("banded_cheb_apply", rc)
     banded_cheb_apply.launches += 1
+    banded_cheb_apply.routes[plan["route"]] += 1
     return out.to(torch.promote_types(bands.dtype, v.dtype))
 
 
 banded_cheb_apply.launches = 0
+banded_cheb_apply.routes = {"tile": 0, "far": 0, "l2": 0}
 
 
-def launch_shape(kind: str, dtype, n: int) -> dict:
-    """The grid a powers kernel ("banded", "dense") launches at this size
-    on the current card ("cols": rows per block, or the grid's warps for
-    dense); the ELL kernel's launch is ``ell_plan``'s."""
-    return _build.shape("repro_matrix_powers_shape", _KIND[kind],
-                        int(dtype == torch.bfloat16), n,
-                        tuning.POWERS_BLOCKS_PER_SM)
+def launch_shape(kind: str, dtype, n: int, offsets=None) -> dict:
+    """The launch a powers kernel makes at this size on the current card.
+
+    "banded" (``banded_powers``) and "cheb" (``banded_cheb_apply``), with
+    the band ``offsets``: ``tuning.banded_plan`` (blocks, threads, smem,
+    resident rows, tile and route; ``vec`` as for an aligned operand) and
+    the kernel's own account of it: ``co_resident`` blocks an SM at that
+    shared memory, ``kernel_smem`` its layout's bytes (the plan's
+    ``smem``), ``kernel_reg_rows`` rows of a segment a thread keeps in
+    registers (the Chebyshev apply; 0 for the powers).
+    "dense": {"grid", "cols" (the grid's warps), "smem_bytes"}.  The ELL
+    kernel's launch is ``ell_plan``."""
+    index = torch.cuda.current_device()
+    if kind == "dense":
+        out = (ctypes.c_int * 3)()
+        _build.check("repro_matrix_powers_shape",
+                     _build.library().repro_matrix_powers_shape(
+                         _KIND[kind], int(dtype == torch.bfloat16), n, 0, 0,
+                         0, 0, 0, tuning.POWERS_BLOCKS_PER_SM, out))
+        return {"grid": out[0], "cols": out[1], "smem_bytes": out[2]}
+    offsets = tuple(int(o) for o in offsets)
+    elem = torch.finfo(dtype).bits // 8
+    plan = _banded_plan(n, offsets, elem,
+                        tuning.sm_count(torch.device("cuda", index)),
+                        int(n % (16 // elem) == 0))
+    out = (ctypes.c_int * 3)()
+    _build.check("repro_matrix_powers_shape",
+                 _build.library().repro_matrix_powers_shape(
+                     _KIND[kind], int(dtype == torch.bfloat16), n,
+                     len(offsets), plan["segments"], plan["seg_per_block"],
+                     plan["res_seg"], plan["tile_rows"],
+                     tuning.POWERS_BLOCKS_PER_SM, out))
+    return dict(plan, co_resident=out[0], kernel_smem=out[1],
+                kernel_reg_rows=out[2])

@@ -18,12 +18,13 @@ no meaning here.  What the kernels need is
   columns: 16-byte pieces, a scalar route for misaligned operands and the
   ragged tail; the projections a block a row for short rows):
   ``stream_aligned``, ``gemv_stream_shape``, ``gemv_partial_shape``;
-- the ELL matrix powers (csrc/matrix_powers.cu): the banded grid's row
-  segments, several a block, and the rows each keeps in shared memory
-  across the powers: ``ell_powers_plan``;
-- the preconditioning kernels' shapes: the fused Chebyshev apply
-  (csrc/matrix_powers.cu) is a persistent cooperative launch of
-  CHEB_BLOCKS_PER_SM blocks per SM at most; the triangular sweep
+- the banded and ELL matrix powers and the fused Chebyshev apply
+  (csrc/matrix_powers.cu): one row partition into segments
+  (``powers_segments``), several a block, the band stack or table rows
+  each keeps in shared memory across the powers, and the banded kernels'
+  operand tile: ``banded_plan``, ``ell_powers_plan``;
+- the preconditioning kernels' shapes: the fused Chebyshev apply takes
+  ``banded_plan``; the triangular sweep
   (csrc/trisolve.cu) takes a device-wide scan without a far band, else a
   chain of chunks, one block per right-hand side: ``trisweep_plan``; the
   ILU(0) setup is a wavefront of warps over tiles of rows: ``ilu0_plan``;
@@ -83,8 +84,9 @@ SPMV_THREADS = 256        # rows per SpMV block, one thread per row
 # persistent cooperative launches: these many blocks per SM at most, fewer
 # where the occupancy calculator says fewer are co-resident, and never more
 # blocks than the rows (a thread per row; dense: a warp per row) or columns
-# (a thread per column) need.  The banded and ELL powers share one value,
-# so a stencil gets the same row partition, and the same bits, in both
+# (a thread per column) need.  The banded and ELL powers cut their rows
+# into this many segments an SM (``powers_segments``, several a block), so
+# a stencil gets the same row partition, and the same bits, in both
 # formats.  Each power ends in a grid sync whose cost grows with the grid;
 # each block-GS pass reduces (k_start + 1) * s partials per block.
 POWERS_BLOCKS_PER_SM = 4
@@ -131,9 +133,16 @@ PARTIAL_ROW_MAX_ITEMS = 8192
 ELL_POWERS_GROUPS = 4
 ELL_BUCKETS = (4, 5, 8, 16)
 ELL_ROWS_IN_FLIGHT = {4: 2, 5: 2, 8: 1, 16: 1}
-# The fused Chebyshev apply takes the banded powers' row partition (a
-# thread per row), so the same value.
-CHEB_BLOCKS_PER_SM = POWERS_BLOCKS_PER_SM
+# The banded powers and the fused Chebyshev apply (csrc/matrix_powers.cu's
+# banded_powers_kernel, banded_cheb_kernel): the ELL powers' segments, up
+# to ELL_POWERS_GROUPS a block, one group of kThreads threads each; in
+# shared memory the grid's partials, a tile of the block's rows and a halo
+# each side, its ends moved to 16-byte boundaries (BANDED_TILE_SLACK
+# rows), then the first rows of each segment's band stack.  The Chebyshev
+# kernel keeps KEEP_ROWS rows of a thread's segment in registers between
+# steps (kKeepRows).
+BANDED_TILE_SLACK = 8
+KEEP_ROWS = 8
 # block_matvec (csrc/matvec.cu): a warp takes R rows at once (each x
 # piece loaded once for them, all their 16-byte A pieces in flight), on a
 # persistent grid of a few blocks an SM whose warps split the rows evenly,
@@ -308,15 +317,90 @@ def ell_smem_bytes(seg_per_block: int, res_seg: int, width: int,
             + 4 * k * res_seg * width)
 
 
+def powers_segments(n: int, sms: int) -> int:
+    """The row segments of the banded and ELL powers at this n on ``sms``
+    SMs: POWERS_BLOCKS_PER_SM a SM, at most a segment per kThreads rows.
+    One partition for both formats, so a stencil gets the same bits in
+    both (and the first banded design's grid, whose bits they keep)."""
+    return max(1, min(POWERS_BLOCKS_PER_SM * sms, -(-n // (32 * GS_WARPS))))
+
+
+def banded_smem_bytes(seg_per_block: int, segments: int, res_seg: int,
+                      nbands: int, elem_size: int, tile_rows: int) -> int:
+    """Dynamic shared memory of the banded kernels
+    (csrc/matrix_powers.cu's banded_smem_bytes): kWarps partials a segment,
+    the norm and the grid's ``segments`` partials, the tile (``tile_rows``
+    floats), then the resident band stack of each segment."""
+    k = seg_per_block
+    return (_round16(4 * (k * GS_WARPS + 1 + segments))
+            + _round16(4 * tile_rows)
+            + _round16(k * res_seg * nbands * elem_size))
+
+
+def banded_plan(n: int, offsets, elem_size: int, sms: int) -> dict:
+    """The launch of ``banded_powers`` and ``banded_cheb_apply`` over an
+    (nbands, n) band stack stored in ``elem_size`` bytes with these
+    offsets, on ``sms`` SMs.
+
+    ``segments`` (``powers_segments``), ``per`` rows each (a multiple of
+    32), ``seg_per_block`` consecutive ones a block (as few as one block
+    an SM allows: at most ELL_POWERS_GROUPS), ``blocks`` of
+    ``threads`` (a group of kThreads a segment), ``rows`` a block at
+    most.  The tile: the block's rows
+    and ``tile_halo`` rows each side, ``tile_rows`` floats.  ``route``
+    "tile" where the whole halo (max |offset|) fits SMEM_BUDGET; "far"
+    where only a nearer one does (the bands farther than ``tile_halo``,
+    ``far`` of them, are read from L2); "l2" where not even the block's
+    rows fit (no tile: tile_halo -1, tile_rows 0).  Then ``res_seg``: the
+    first rows of each segment whose band entries stay in shared memory
+    (whole chunks of 32, within SMEM_BUDGET); ``resident`` =
+    ``seg_per_block`` x that.  ``reg_rows``: the most rows of a segment a
+    thread owns (the Chebyshev kernel keeps KEEP_ROWS of them in registers
+    between steps)."""
+    offsets = tuple(int(o) for o in offsets)
+    nbands = len(offsets)
+    segs = powers_segments(n, sms)
+    per = (-(-n // segs) + 31) // 32 * 32
+    k = -(-segs // sms)
+    rows = k * per
+    halo = max(abs(o) for o in offsets)
+
+    def fits(h):
+        return banded_smem_bytes(k, segs, 0, nbands, elem_size,
+                                 rows + 2 * h + BANDED_TILE_SLACK) \
+            <= SMEM_BUDGET
+    if fits(halo):
+        route, tile_halo = "tile", halo
+    elif fits(0):
+        route = "far"
+        tile_halo = max(abs(o) for o in offsets if fits(abs(o))) \
+            if any(fits(abs(o)) for o in offsets) else 0
+    else:
+        route, tile_halo = "l2", -1
+    tile_rows = rows + 2 * tile_halo + BANDED_TILE_SLACK \
+        if tile_halo >= 0 else 0
+    avail = SMEM_BUDGET - banded_smem_bytes(k, segs, 0, nbands, elem_size,
+                                            tile_rows)
+    res = min(per, avail // (k * nbands * elem_size) // 32 * 32)
+    return {"segments": segs, "per": per, "seg_per_block": k,
+            "blocks": -(-segs // k), "threads": 32 * GS_WARPS * k,
+            "rows": rows, "halo": halo, "tile_halo": tile_halo,
+            "tile_rows": tile_rows,
+            "far": sum(abs(o) > tile_halo for o in offsets),
+            "res_seg": res, "resident": k * res,
+            "smem": banded_smem_bytes(k, segs, res, nbands, elem_size,
+                                      tile_rows),
+            "reg_rows": -(-per // (32 * GS_WARPS)), "route": route}
+
+
 def ell_powers_plan(n: int, width: int, elem_size: int, sms: int,
                     segments: Optional[int] = None) -> dict:
     """The launch of ``ell_powers`` over an (n, width) table with values
     stored in ``elem_size`` bytes, on ``sms`` SMs.
 
-    ``segments``: the banded powers' grid at this n (its row partition,
-    row_range's rule, ``per`` rows a segment, a multiple of 32; default
-    what POWERS_BLOCKS_PER_SM gives where occupancy allows it), so a
-    stencil gets the same bits in both formats.  ``seg_per_block``
+    ``segments``: the banded powers' segments at this n (default
+    ``powers_segments``; row_range's rule, ``per`` rows a segment, a
+    multiple of 32), so a stencil gets the same bits in both formats.  ``seg_per_block``
     consecutive segments a block, as few as one block an SM allows;
     ``blocks`` of ``threads`` (kThreads a segment run at once, at most
     ELL_POWERS_GROUPS).  ``res_seg``: the first rows of each segment kept
@@ -325,8 +409,7 @@ def ell_powers_plan(n: int, width: int, elem_size: int, sms: int,
     ``route`` "resident", or "stream" where not one chunk of 32 rows fits
     (the table then read every power).  ``bucket``: the slots unrolled,
     ``rows_in_flight`` the rows a thread takes at once."""
-    segs = segments or max(1, min(POWERS_BLOCKS_PER_SM * sms,
-                                  -(-n // (32 * GS_WARPS))))
+    segs = segments or powers_segments(n, sms)
     per = (-(-n // segs) + 31) // 32 * 32
     k = -(-segs // sms)
     avail = SMEM_BUDGET - ell_smem_bytes(k, 0, width, elem_size)

@@ -1536,3 +1536,114 @@ def test_gs_project_partial_keeps_row4s_summation_order(dev, n):
     got = cgs2.gs_project_partial(vt, wt, j).cpu().numpy()
     want = _row4_replay(v[:j + 1], w, plan)
     assert np.array_equal(got[:j + 1], want) and not got[j + 1:].any()
+
+
+# --------------------------------------------------------------------------
+# the seventh redesigns: the banded powers (row 14) and the Chebyshev apply
+# (row 18) with the band stack on chip and the operand divided once into a
+# shared tile
+# --------------------------------------------------------------------------
+def _route_case(name, dev):
+    """A band stack on each route of ``matrix_powers.banded_plan``, with the
+    plan's route, residency (by storage) and 16-byte flag."""
+    from repro_torch.core import stencils
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    big = 1 << 20
+    if name == "resident":
+        op = stencils.convection_diffusion_2d(1024, 1024, device=dev)
+        return op.bands, op.offsets, "tile", ("all", "all"), 1
+    if name == "partly resident":
+        return (torch.randn(9, big, device=dev, generator=g) / 3,
+                tuple(range(-4, 5)), "tile", ("partly", "all"), 1)
+    if name == "far":
+        return (torch.randn(5, big, device=dev, generator=g) / 3,
+                (-300_000, -1, 0, 1, 300_000), "far", ("all", "all"), 1)
+    if name == "scalar":
+        op = stencils.convection_diffusion_2d(1023, 1021, device=dev)
+        return op.bands, op.offsets, "tile", ("all", "all"), 0
+    return (torch.randn(3, 8_000_000, device=dev, generator=g) / 2,
+            (-1, 0, 1), "l2", ("partly", "partly"), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["resident", "partly resident", "far",
+                                  "scalar", "l2"])
+def test_banded_kernels_each_route_match_plain(dev, case, dtype):
+    """banded_powers (shifted) and banded_cheb_apply on each route of their
+    plan against the plain versions, the route counted, the same bits
+    twice."""
+    from repro_torch.kernels import matrix_powers as mp
+
+    bands, offsets, route, resident, vec = _route_case(case, dev)
+    bands = bands.to(dtype).contiguous()
+    n = bands.shape[1]
+    x = torch.randn(n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    plan = mp.banded_plan(bands, offsets, x)
+    assert plan["route"] == route and plan["vec"] == vec
+    assert (plan["res_seg"] == plan["per"]) == \
+        (resident[dtype == torch.bfloat16] == "all")
+    sh = torch.linspace(0.5, 1.5, 5, device=dev)
+    before = dict(mp.banded_powers.routes)
+    got = mp.banded_powers(bands, x, offsets, 5, shifts=sh)
+    again = mp.banded_powers(bands, x, offsets, 5, shifts=sh)
+    want = mp.banded_powers_plain(bands, x, offsets, 5, shifts=sh)
+    kw = dict(theta=3.0, delta=2.0, rhos=((0.5, 0.0), (0.6, 0.5),
+                                          (0.7, 0.6)))
+    cb = dict(mp.banded_cheb_apply.routes)
+    z = mp.banded_cheb_apply(bands, x, offsets, **kw)
+    z2 = mp.banded_cheb_apply(bands, x, offsets, **kw)
+    zp = mp.banded_cheb_apply_plain(bands, x, offsets, **kw)
+    torch.cuda.synchronize()
+    assert {r: c - before[r] for r, c in mp.banded_powers.routes.items()
+            if c != before[r]} == {route: 2}
+    assert {r: c - cb[r] for r, c in mp.banded_cheb_apply.routes.items()
+            if c != cb[r]} == {route: 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(z, z2)
+    assert _relerr(got[0], want[0]) < TOL[dtype]
+    assert _relerr(got[1], want[1]) < TOL[dtype]
+    assert _relerr(z, zp) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_launch_shape_is_the_kernels_layout(dev, dtype):
+    """launch_shape reports the plan and the kernels' own account of it:
+    one block an SM co-resident at the plan's shared memory, the layout's
+    bytes equal to the plan's, the Chebyshev's kKeepRows rows in
+    registers."""
+    from repro_torch.kernels import matrix_powers as mp
+    from repro_torch.kernels import tuning
+
+    offs = (-1024, -1, 0, 1, 1024)
+    for kind in ("banded", "cheb"):
+        shape = mp.launch_shape(kind, dtype, 1 << 20, offs)
+        assert shape["kernel_smem"] == shape["smem"] <= tuning.SMEM_BUDGET
+        assert shape["co_resident"] >= 1
+        assert shape["kernel_reg_rows"] == (tuning.KEEP_ROWS
+                                            if kind == "cheb" else 0)
+        assert (shape["segments"], shape["blocks"], shape["threads"],
+                shape["route"]) == (4 * tuning.sm_count(dev), tuning.sm_count(
+                    dev), 1024, "tile")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", [1, 2, 4, 8, 32])
+def test_banded_cheb_apply_on_the_1024_squared_stencil(dev, order, dtype):
+    """The main path's shape: 8 rows a thread, all kept in registers, the
+    whole stack on chip; against plain, the same bits twice."""
+    from repro_torch.core import preconditioners, stencils
+    from repro_torch.kernels import matrix_powers as mp
+
+    op = stencils.convection_diffusion_2d(1024, 1024, device=dev)
+    pc = preconditioners.chebyshev(op, order=order)
+    bands = op.bands.to(dtype)
+    v = torch.randn(op.shape[0], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(order))
+    kw = dict(theta=pc.theta, delta=pc.delta, rhos=pc.rhos)
+    z = mp.banded_cheb_apply(bands, v, op.offsets, **kw)
+    zp = mp.banded_cheb_apply_plain(bands, v, op.offsets, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(z, mp.banded_cheb_apply(bands, v, op.offsets, **kw))
+    assert _relerr(z, zp) < TOL[dtype]
