@@ -14,7 +14,10 @@
         # pipelined solves), redesign7 (rows 14 and 18: banded_powers and
         # ell_powers at s = 2 / 5 / 8, the Chebyshev apply at orders 2 / 4
         # / 8, SHA-256 held to the parent's, row 15, the banded s-step and
-        # Chebyshev(4) solves); default all seven;
+        # Chebyshev(4) solves), redesign8 (row 21: ssd_scan with zamba2's
+        # decays at S = 512 and 2,048, f32 and bf16, within the kernel's
+        # bar of the parent's output; a 12-layer full-width zamba2-7b
+        # prefill); default all eight;
         # redesign3_sweep (the launch shapes of rows 1 and 19) only when
         # named
 
@@ -30,9 +33,12 @@ Phases, one JSON line each (``"phase": ...``):
               powers and Chebyshev apply (by storage and band count) and the
               projections' column-sweep and block-a-row kernels (by
               storage, bucket, pieces at once and right-hand columns:
-              row 4 and the payload), and the HGMMA
-              (wgmma) instructions in each attention instantiation's SASS
-              (``cuobjdump -sass``): none fails the run.
+              row 4 and the payload), the SSD scan's kernels (state and
+              output by storage and column tiles, and the pass), and the
+              HGMMA (wgmma) instructions in each attention
+              instantiation's SASS and the HMMA (mma.sync) ones in each
+              SSD product kernel's (``cuobjdump -sass``); a missing
+              instantiation or tensor-core instruction fails the run.
 2. kernels    every kernel of the main path against its plain PyTorch
               version on the card, at the main path's shapes (n = 10,000,
               m1 = 31), float32 and bfloat16 storage.  Bars: max relative
@@ -334,10 +340,15 @@ drawn from torch.Generator("cuda") seed 0, bfloat16 compute):
               own bar: it takes exps of cumulative sums), at the JAX
               package's sweep shapes and at zamba2's prefill shapes
               (attention (2, 32, 512, 112); ssd_scan (224, 512, 64),
-              N = 64, Q = 256; gated_rmsnorm (1024, 7168)).
+              N = 64, Q = 256; gated_rmsnorm (1024, 7168)); ssd_scan
+              also with zamba2's decays (lg = dt A, A from -1 to -16:
+              cum down to -10^3 in a chunk) at SSD_STRONG_SHAPES (the
+              prefill, eight chunks, off the 16-byte route, G by
+              windows, P > 64), with each call's route.
 23. model_serve  make_prefill_step at b = 2, S = 512 (numpy seed 0
               tokens): counters zeroed before and read after, exactly 13
-              attention (all 13 on the wgmma kernel), 81 ssd_scan and 81
+              attention (all 13 on the wgmma kernel), 81 ssd_scan (81
+              launches of each of its two kernels) and 81
               gated_rmsnorm launches; logits
               finite; the same prefill at compute_dtype float32 through
               the kernels against their plain versions (patched in here
@@ -356,7 +367,11 @@ drawn from torch.Generator("cuda") seed 0, bfloat16 compute):
               bound, its plain version and a library call (attention: the
               wgmma kernel, and the float32 kernel at the same shape)
               (scaled_dot_product_attention(is_causal=True); the composite
-              F.rms_norm(y * F.silu(z)); none for the SSD scan); per
+              F.rms_norm(y * F.silu(z)); none for the SSD scan, whose
+              bound counts the flops it needs (C B^T once per batch row
+              and chunk, no C H in the first chunk, no state update in
+              the last) in three TF32 passes, and whose kernels are also
+              timed apart, from the same profile); per
               prefill wall ms, device ms by kernel class (the three
               kernels, GEMMs, other), idle share and prompt tokens/s; per
               decode token wall and device ms and idle share.
@@ -386,6 +401,7 @@ from repro_torch.configs.gmres_paper import CONFIG  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bfloat16, tensor cores, dense
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32, tensor cores, dense
 # The paper's experiment: its largest system, m = 30, 50 restarts.  tol is
 # 1e-5, not the config's 1e-6, as in benchmarks/gmres_strategies.py: the
 # solves run in float32.
@@ -451,10 +467,20 @@ ATTN_SHAPES = ((2, 4, 2, 256, 256, None, True, 64),
 SSD_SHAPES = ((2, 3, 64, 16, 8, 16), (1, 2, 96, 32, 16, 32),
               (1, 1, 48, 8, 8, 48), (ZAMBA_BATCH, 112, ZAMBA_PROMPT, 64, 64,
                                      256))
+# zamba2's decays (cum down to -10^3 in a chunk) at its prefill, eight
+# chunks, a sweep shape, and off the 16-byte route and tiles (N = 6, P = 5,
+# Q = 20: scalar; Q = 512: G by windows; P = 100: the wide instantiation)
+SSD_STRONG_SHAPES = ((ZAMBA_BATCH, 112, ZAMBA_PROMPT, 64, 64, 256),
+                     (1, 4, 2048, 64, 64, 256), (2, 3, 64, 16, 8, 16),
+                     (1, 2, 40, 5, 6, 20), (1, 2, 1024, 64, 64, 512),
+                     (1, 2, 128, 100, 64, 64))
 NORM_SHAPES = ((4, 64, 256), (100, 512), (2, 33, 384),
                (ZAMBA_BATCH * ZAMBA_PROMPT, 7168),
                (5, 7, 99))                # element loads: 99 % 4 != 0
 SSD_TOLS = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+# zamba2-7b cut to this depth (full width) for the in-turn prefill of
+# row 21: two shared-attention sites, twelve Mamba2 layers
+REDESIGN8_LAYERS = 12
 
 
 T0 = time.perf_counter()
@@ -498,7 +524,10 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
     Where the profile does not show one flush kernel per call (none to
     leave out, or records lost), ``ms`` is "not measured" (None) and only
     ``event_ms`` stands.  A profile that shows
-    neither is taken again, up to PROFILE_TRIES times.
+    neither is taken again, up to PROFILE_TRIES times.  Cold, a profile
+    counts only if every kernel in it was recorded a whole number of times
+    a call, and ``by_kernel`` is that profile's device ms a call by kernel
+    name (the flush left out; summing to ``ms``), else None.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -539,7 +568,7 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
         stop.record()
         torch.cuda.synchronize()
         event_ms = start.elapsed_time(stop) / iters
-    dev_ms = 0.0
+    dev_ms, by_kernel = 0.0, None
     for _ in range(PROFILE_TRIES):       # a profile may record no kernels
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -548,20 +577,28 @@ def timed(fn, iters=50, warmup=5, cold=False) -> dict:
             torch.cuda.synchronize()
         if cold:
             # a profile that lost kernel records (fewer flushes than
-            # calls) would undercount the calls' time: take it again
-            names = kernel_ms(prof)
-            flushes = sum(e.count for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and is_flush(e.key))
-            dev_ms = sum(ms for key, ms in names.items()
-                         if not is_flush(key)) / iters \
-                if flushes == iters else 0.0
+            # calls, or a kernel recorded a fraction of times a call)
+            # would undercount the calls' time: take it again
+            counts = {e.key: e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA}
+            whole = all(n % iters == 0 for n in counts.values()) and sum(
+                n for key, n in counts.items() if is_flush(key)) == iters
+            names = {key: ms / iters for key, ms in kernel_ms(prof).items()
+                     if not is_flush(key)}
+            dev_ms = sum(names.values()) if whole else 0.0
+            if whole:
+                by_kernel = {}
+                for key, ms in names.items():
+                    by_kernel[key[:80]] = by_kernel.get(key[:80], 0.0) + ms
         else:
             dev_ms = device_ms(prof) / iters
         if dev_ms > 0:
             break
-    return {"ms": dev_ms if dev_ms > 0 else None, "event_ms": event_ms,
-            "host_ms": host_ms}
+    out = {"ms": dev_ms if dev_ms > 0 else None, "event_ms": event_ms,
+           "host_ms": host_ms}
+    if cold:
+        out["by_kernel"] = by_kernel if dev_ms > 0 else None
+    return out
 
 
 def cold_ms(fn, iters=50) -> float:
@@ -3265,8 +3302,9 @@ def kernel_class(key: str) -> str:
     k = key.lower()
     if "attention_wgmma_kernel" in k:
         return "attention"
-    for name in ("attention_kernel", "ssd_scan_kernel",
-                 "gated_rmsnorm_kernel"):
+    if any(f"ssd_{part}_kernel" in k for part in ("state", "pass", "scan")):
+        return "ssd_scan"
+    for name in ("attention_kernel", "gated_rmsnorm_kernel"):
         if name in k:
             return name.removesuffix("_kernel")
     if any(t in k for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
@@ -3344,6 +3382,18 @@ def model_phases(smi):
                    ssd.ssd_scan_plain(*args, heads=heads, chunk=chunk),
                    SSD_TOLS[dtype], shape=[batch * heads, s, p, n],
                    chunk=chunk, dtype=str(dtype))
+        for batch, heads, s, p, n, chunk in SSD_STRONG_SHAPES:
+            args = ssd_strong_inputs(batch, heads, s, p, n, dtype, seed=s)
+            routes = dict(ssd.ssd_scan.routes)
+            record("ssd_scan", ssd.ssd_scan(*args, heads=heads, chunk=chunk),
+                   ssd.ssd_scan_plain(*args, heads=heads, chunk=chunk),
+                   SSD_TOLS[dtype], shape=[batch * heads, s, p, n],
+                   chunk=chunk, dtype=str(dtype), decays="zamba2",
+                   route=[k for k, v in ssd.ssd_scan.routes.items()
+                          if v != routes[k]],
+                   plan={k: v for k, v in ssd.launch_plan(
+                       args[0], args[3], heads=heads, chunk=chunk).items()
+                         if k in ("head_group", "window", "route")})
         for shape in NORM_SHAPES:
             y, z, w = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype), \
                 randn(shape[-1], dtype=dtype)
@@ -3369,6 +3419,8 @@ def model_phases(smi):
     def zero_routes():
         for route in by_kernel:
             by_kernel[route] = 0
+        for name in ssd.ssd_scan.kernel_launches:
+            ssd.ssd_scan.kernel_launches[name] = 0
 
     ctr.zero()
     zero_routes()
@@ -3376,6 +3428,13 @@ def model_phases(smi):
     torch.cuda.synchronize()
     launches = ctr.read()
     routes = dict(by_kernel)
+    ssd_kernels = dict(ssd.ssd_scan.kernel_launches)
+    # two chunks: no pass between the two kernels
+    check(ssd_kernels == {"ssd_state_kernel": cfg.num_layers,
+                          "ssd_pass_kernel": 0,
+                          "ssd_scan_kernel": cfg.num_layers},
+          f"zamba2-7b prefill: SSD kernel launches {ssd_kernels}, expected "
+          f"{cfg.num_layers} of the state and scan kernels")
     ctr.expect(launches, {"attention": sites, "ssd_scan": cfg.num_layers,
                           "gated_rmsnorm": cfg.num_layers},
                "zamba2-7b prefill")
@@ -3411,6 +3470,7 @@ def model_phases(smi):
          batch=ZAMBA_BATCH, prompt=ZAMBA_PROMPT, launches=launches,
          attention_launches_by_kernel={"bf16 prefill": routes,
                                        "f32 prefill": routes32},
+         ssd_kernel_launches=ssd_kernels,
          f32_kernels_vs_plain_rel=rel32, bf16_kernels_vs_plain_rel=rel16,
          logits_max_abs=float(logits.abs().max()), card=smi)
     check(rel32 < 1e-3, f"f32 prefill, kernels vs plain: {rel32}")
@@ -3507,9 +3567,10 @@ def model_phases(smi):
             library=None, library_name=None,
             shape=[b * nh, S, P, N, Q], dtype="float32",
             bytes=4 * (2 * b * nh * S * P + 2 * b * nh * S + 2 * b * S * N),
-            flops=b * nh * (S // Q) * (Q * (Q + 1) // 2 * (2 * N + 2 * P)
-                                       + 4 * Q * N * P),
-            rate=F32_FLOPS_PER_S),
+            # C B^T once per (batch row, chunk); three TF32 passes a
+            # product (split TF32) on the tensor cores
+            flops=ssd_flops(b, nh, S, P, N, Q)[0],
+            ops=ssd_flops(b, nh, S, P, N, Q)[1], rate=TF32_FLOPS_PER_S),
         "gated_rmsnorm": dict(
             fn=lambda: gated_norm.gated_rmsnorm(y, z, w),
             plain=lambda: gated_norm.gated_rmsnorm_plain(y, z, w),
@@ -3532,13 +3593,23 @@ def model_phases(smi):
             library=c["library_name"], shape=c["shape"], dtype=c["dtype"],
             bytes=c["bytes"], flops=c["flops"],
             launches_per_prefill=launches[name])
-        row["bound_ms"], row["bound_by"] = bound(c["bytes"], c["flops"],
-                                                 c["rate"])
+        row["bound_ms"], row["bound_by"] = bound(
+            c["bytes"], c.get("ops", c["flops"]), c["rate"])
         if "simt" in c:       # the float32 kernel at the same shape
             simt = timed(c["simt"], iters=20, cold=True)
             row["ms_by_kernel"] = {
                 "wgmma (bf16)": row["ms"] or row["event_ms"],
                 "simt (float32)": simt["ms"] or simt["event_ms"]}
+        if name == "ssd_scan":
+            # its kernels' launches and cold ms, from the profile that gave
+            # the row's ms (None where that profile lost records), and
+            # their shared memory
+            by = cold["by_kernel"]
+            row["kernels"] = {k: {"launches": ssd_kernels[k], "ms": sum(
+                ms for key, ms in by.items() if k in key) if by else None}
+                for k in ssd.KERNELS}
+            row["smem_bytes"] = ssd.kernel_smem(sargs[0], sargs[3],
+                                                heads=nh, chunk=Q)
         emit(phase="model_timing", kernel=name, card=smi, **row)
         timing[name] = row
     del q, k, v, q32, k32, v32, sargs, y, z, w
@@ -3614,8 +3685,8 @@ def model_phases(smi):
 def kernel_resources(so, names) -> dict:
     """Every instantiation of the named kernels (mangled name): ``ptxas
     -v``'s registers, spills and static shared memory (the build's log),
-    and the HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass`` of
-    the built library)."""
+    and the HGMMA (wgmma) and HMMA (mma.sync) instructions in its SASS
+    (``cuobjdump -sass`` of the built library)."""
     import os
     import re
 
@@ -3628,7 +3699,8 @@ def kernel_resources(so, names) -> dict:
             cur = m[1] if any(n in m[1] for n in names) else None
             if cur:
                 res[cur] = {"registers": 0, "spill_stores": 0,
-                            "spill_loads": 0, "static_smem": 0, "hgmma": 0}
+                            "spill_loads": 0, "static_smem": 0, "hgmma": 0,
+                            "hmma": 0}
             continue
         if cur is None:
             continue
@@ -3651,6 +3723,8 @@ def kernel_resources(so, names) -> dict:
             fn = m[1]
         elif fn in res and "HGMMA" in line:
             res[fn]["hgmma"] += 1
+        elif fn in res and "HMMA" in line:
+            res[fn]["hmma"] += 1
     return res
 
 
@@ -3696,7 +3770,9 @@ def main() -> None:
                                 "ilu0_wave_kernel", "batched_cgs2_kernel",
                                 "gs_stream_kernel", "block_gs_kernel",
                                 "ell_powers_kernel", "gs_partial_",
-                                "banded_powers_kernel", "banded_cheb_kernel"))
+                                "banded_powers_kernel", "banded_cheb_kernel",
+                                "ssd_state_kernel", "ssd_scan_kernel",
+                                "ssd_pass_kernel"))
     sell = [r for name, r in res.items() if "sell_kernel" in name]
     attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
             for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
@@ -3718,6 +3794,12 @@ def main() -> None:
                  if "banded_powers_kernel" in name
                  or "banded_cheb_kernel" in name}
 
+    # row 21: the SSD scan's state and output kernels by storage and
+    # column tiles, and the pass between them
+    redesign8 = {template_name(name): r for name, r in res.items()
+                 if "ssd_state_kernel" in name or "ssd_scan_kernel" in name
+                 or "ssd_pass_kernel" in name}
+
     def summary(rs):
         return {"registers_max": max(r["registers"] for r in rs),
                 "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
@@ -3732,7 +3814,7 @@ def main() -> None:
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          resources=dict(attn, **redesign4, **stream, **bgs_summary,
-                        **redesign6, **redesign7,
+                        **redesign6, **redesign7, **redesign8,
                         **{f"sell_kernel ({len(sell)} instantiations)":
                            dict(summary(sell), static_smem_max=max(
                                r["static_smem"] for r in sell))}))
@@ -3748,6 +3830,11 @@ def main() -> None:
     check(sum("banded_powers" in k for k in redesign7) == 10
           and sum("banded_cheb" in k for k in redesign7) == 10,
           f"banded_powers_kernel / banded_cheb_kernel: {sorted(redesign7)}")
+    check(len(redesign8) == 9 and all(r["hmma"] > 0
+                                      for k, r in redesign8.items()
+                                      if "pass" not in k),
+          f"ssd_state_kernel / ssd_scan_kernel / ssd_pass_kernel: "
+          f"instantiations and HMMA instructions {redesign8}")
     check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
           f"attention_wgmma_kernel: HGMMA instructions {attn}")
     check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
@@ -4161,7 +4248,10 @@ def main() -> None:
         **({"ms_by_kernel": timing[name]["ms_by_kernel"],
             "sources": ["src/repro_torch/csrc/attention_sm90.cu",
                         "src/repro_torch/csrc/attention.cu"]}
-           if "ms_by_kernel" in timing[name] else {})} for name in sources])
+           if "ms_by_kernel" in timing[name] else {}),
+        **({"kernels": timing[name]["kernels"]}
+           if "kernels" in timing[name] else {})}
+        for name in sources])
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4169,7 +4259,7 @@ def main() -> None:
 
 
 CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4", "redesign5",
-               "redesign6", "redesign7")
+               "redesign6", "redesign7", "redesign8")
 # a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
 SWEEP_GROUPS = ("redesign3_sweep",)
 
@@ -4179,8 +4269,8 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
     ``repro_torch`` this process imported (``in_turn``), by group:
     ``redesign1`` (kernel-table rows 7 and 20, ``redesign1_cells``),
     ``gemv`` (rows 4 and 6, ``gemv_cells``), ``redesign3`` (rows 1 and
-    19, ``redesign3_cells``) and so on to ``redesign7`` (rows 14 and 18,
-    ``redesign7_cells``); the ``redesign3_sweep`` group, on a tree
+    19, ``redesign3_cells``) and so on to ``redesign8`` (row 21 and the
+    prefill, ``redesign8_cells``); the ``redesign3_sweep`` group, on a tree
     that has the launch helpers it times, emits ``tuning`` lines of its
     own.  One JSON line."""
     from repro_torch.kernels import _build
@@ -4209,6 +4299,8 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
         out.update(redesign6_cells(label))
     if "redesign7" in groups:
         out.update(redesign7_cells(label))
+    if "redesign8" in groups:
+        out.update(redesign8_cells(label))
     if "redesign3_sweep" in groups:
         from repro_torch.kernels import trisolve
 
@@ -4298,23 +4390,6 @@ def redesign1_cells(label: str) -> dict:
     return out
 
 
-def cold_by_kernel(fn, iters=20) -> dict:
-    """Device ms of one cold call by kernel name (the L2 flush rewritten
-    before each call and left out)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    return {key[:80]: ms / iters for key, ms in kernel_ms(prof).items()
-            if not is_flush(key)}
-
-
 def clean_cold_ms(fn, iters=50):
     """Device ms of one call after a read-only pass over FLUSH_BYTES (an
     ``amax``): the L2 then holds clean lines of another buffer, where
@@ -4396,8 +4471,8 @@ def gemv_cells(label: str) -> dict:
             for name, (fn, lib, lib_name, nbytes) in cells.items():
                 row = {"cold": timed(fn, cold=True), "warm": timed(fn),
                        "clean_cold_ms": clean_cold_ms(fn),
-                       "cold_by_kernel": cold_by_kernel(fn),
                        "bytes": nbytes, "flops": 2 * (j + 1) * nb}
+                row["cold_by_kernel"] = row["cold"]["by_kernel"]
                 row.update(library=lib_name + ("" if f32 else " (bf16)"),
                            library_cold=timed(lib, cold=True),
                            library_clean_cold_ms=clean_cold_ms(lib),
@@ -5101,6 +5176,122 @@ def redesign7_cells(label: str) -> dict:
     return out
 
 
+def ssd_flops(batch, heads, s, p, n, q, bf16=False) -> tuple[int, int]:
+    """The SSD scan's products, as (flops, tensor-core operations).
+
+    The flops the function needs with C B^T formed once per (batch row,
+    chunk): the triangle of C B^T a batch row and chunk; a row's triangle
+    of W x every chunk; its (e^cum C) H every chunk but the first (whose
+    entering state is 0) and its state update every chunk but the last
+    (whose state is never read).  The operations are each product's flops
+    times the TF32 passes it takes in split TF32: three, less one for each
+    operand read from bf16 storage (exact in TF32: C and B, x)."""
+    tri = q * (q + 1) // 2
+    nc = s // q
+    cb = batch * nc * tri * 2 * n                    # C, B
+    wx = batch * heads * nc * tri * 2 * p            # W, x
+    ch = batch * heads * (nc - 1) * 2 * q * n * p    # e^cum C, H
+    su = batch * heads * (nc - 1) * 2 * q * n * p    # B, w x
+    passes = (1, 2, 3, 2) if bf16 else (3, 3, 3, 3)
+    return (cb + wx + ch + su,
+            sum(f * k for f, k in zip((cb, wx, ch, su), passes)))
+
+
+def ssd_strong_inputs(batch, heads, s, p, n, dtype, seed=0):
+    """SSD operands with zamba2's decays: lg = dt A, A = -linspace(1, 16,
+    heads) per head (its ``a_log``), so cum reaches -10^3 within a chunk."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bh = batch * heads
+    x = torch.randn(bh, s, p, device="cuda", generator=gen).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(bh, s, device="cuda",
+                                                  generator=gen))
+    a = -torch.linspace(1.0, 16.0, heads, device="cuda")
+    lg = (dt.view(batch, heads, s) * a[None, :, None]).reshape(bh, s)
+    b = torch.randn(batch, s, n, device="cuda", generator=gen).to(dtype)
+    c = torch.randn(batch, s, n, device="cuda", generator=gen).to(dtype)
+    return x, dt, lg, b, c
+
+
+def redesign8_cells(label: str) -> dict:
+    """Kernel-table row 21 (``ssd_scan``) and the prefill it serves.  The
+    scan with zamba2's decays at its prefill shape (224 rows, S = 512, P =
+    N = 64, Q = 256) and at S = 2,048 (eight chunks), float32 and bfloat16
+    storage: cold (L2 rewritten before each call) and warm, device ms by
+    kernel, the SHA-256 of the output, the output saved for the comparison
+    across the trees; then zamba2-7b at full width cut to REDESIGN8_LAYERS
+    layers, prefill b = 2, S = 512: wall ms (three runs), device ms, the
+    SSD scan's device ms and launches."""
+    import dataclasses
+    import hashlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import build
+
+    out = {}
+    save = ROOT / "build" / "in_turn"
+    save.mkdir(parents=True, exist_ok=True)
+    for s_len in (ZAMBA_PROMPT, 4 * ZAMBA_PROMPT):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_strong_inputs(ZAMBA_BATCH, 112, s_len, 64, 64, dtype)
+
+            def fn(args=args):
+                return ssd.ssd_scan(*args, heads=112, chunk=256)
+            y = fn()
+            torch.cuda.synchronize()
+            key = f"ssd_scan {str(dtype)[6:]} S={s_len}"
+            path = save / f"{label}-{key.replace(' ', '_')}-{os.getpid()}.pt"
+            torch.save(y.cpu(), path)
+            nbytes = (y.element_size() * (2 * y.numel() + 2 * ZAMBA_BATCH
+                                          * s_len * 64) + 8 * y.shape[0]
+                      * s_len)
+            cold = timed(fn, iters=20, cold=True)
+            flops, ops = ssd_flops(ZAMBA_BATCH, 112, s_len, 64, 64, 256,
+                                   bf16=dtype == torch.bfloat16)
+            out[key] = {"cold": cold, "warm": timed(fn, iters=20),
+                        # from the profile that gave cold's ms
+                        "by_kernel": cold["by_kernel"],
+                        "sha256": hashlib.sha256(
+                            y.cpu().view(torch.int16 if dtype
+                                         == torch.bfloat16 else torch.int32)
+                            .numpy().tobytes()).hexdigest(),
+                        "y_path": str(path), "bytes": nbytes,
+                        "flops": flops, "tf32_ops": ops}
+            out[key]["bound_ms"], out[key]["bound_by"] = bound(
+                nbytes, ops, TF32_FLOPS_PER_S)
+            del args, y
+    cfg = dataclasses.replace(configs.get("zamba2-7b"),
+                              num_layers=REDESIGN8_LAYERS)
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {"tokens": np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (ZAMBA_BATCH, ZAMBA_PROMPT)).astype(np.int32)}
+    prefill = make_prefill_step(cfg)
+    prefill(params, batch)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    calls = ssd.ssd_scan.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    by = kernel_ms(prof)
+    out["prefill"] = {
+        "layers": cfg.num_layers, "walls_ms": walls,
+        "device_ms": sum(by.values()),
+        "ssd_scan_ms": sum(ms for key, ms in by.items()
+                           if kernel_class(key) == "ssd_scan"),
+        "ssd_scan_calls": ssd.ssd_scan.launches - calls,
+        "logits_finite": bool(torch.isfinite(logits).all())}
+    return out
+
+
 def redesign3_sweep(label: str) -> None:
     """The launch shapes ``tuning.gemv_rows_shape`` and
     ``tuning.trisweep_plan`` choose among, each launched through the
@@ -5390,6 +5581,36 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
               "in turn: ell_powers and banded_powers gave other bits")
         check(all(out["row15_same_bits_per_tree"].values()),
               "in turn: a tree's row 15 gave other bits in its two runs")
+
+    if "redesign8" in groups:
+        # row 21: each tree's two runs give the same bits; this tree's
+        # output within the kernel's bar (3e-4 float32, 2e-2 bfloat16) of
+        # the parent's; the cut prefill runs the scan once a layer
+        keys = [k for k in rows[0] if k.startswith("ssd_scan ")]
+        out = {"same_bits_per_tree": {
+            f"{t} {k}": len({r[k]["sha256"] for r in rows
+                             if r["tree"] == t}) == 1
+            for t in ("parent", "this") for k in keys}}
+        for k in keys:
+            ys = [torch.load(r[k]["y_path"]).float() for r in rows]
+            ref = ys[0]
+            out[f"{k} rel_to_parent"] = [
+                float((y - ref).abs().max() / ref.abs().max()) for y in ys]
+        out["prefill_ssd_calls"] = [r["prefill"]["ssd_scan_calls"]
+                                    for r in rows]
+        emit(phase="in_turn", **out)
+        check(all(out["same_bits_per_tree"].values()),
+              "in turn: a tree's row 21 gave other bits in its two runs")
+        for k in keys:
+            bar = SSD_TOLS[torch.bfloat16 if "bfloat16" in k
+                           else torch.float32]
+            check(max(out[f"{k} rel_to_parent"]) < bar,
+                  f"in turn: {k} differs from the parent's output: "
+                  f"{out[f'{k} rel_to_parent']}")
+        check(all(c == REDESIGN8_LAYERS for c in out["prefill_ssd_calls"])
+              and all(r["prefill"]["logits_finite"] for r in rows),
+              f"in turn: the cut prefill's scan calls "
+              f"{out['prefill_ssd_calls']} or its logits")
 
 
 if __name__ == "__main__":

@@ -162,8 +162,13 @@ SIGNATURES = {
     # bf16 attention (TMA + wgmma): the same arguments; q, k, v 16-byte
     # aligned, their strides multiples of 8 elements
     "repro_attention_wgmma": (P, P, P, P, I, I, I, I, I, I, P, F, I, I, P),
-    # x, bf16, dt, lg, b, c, y, bh, s, p, n, heads, chunk, stream
-    "repro_ssd_scan": (P, I, P, P, P, P, P, I, I, I, I, I, I, P),
+    # x, bf16, dt, lg, b, c, y, then the scratch cum, dtp, tot, states;
+    # bh, s, p, n, heads, chunk, the scratch's padded pc and qp, heads a
+    # block, vec, stream (the plan: tuning.ssd_plan)
+    "repro_ssd_scan": (P, I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                       I, I, I, P),
+    # pc, qp, out (int[2]: the state and output kernels' shared memory)
+    "repro_ssd_smem": (I, I, P),
     # y, z, bf16, w, out, rows, d, eps, stream
     "repro_gated_rmsnorm": (P, P, I, P, P, I, I, F, P),
 }

@@ -1,10 +1,16 @@
 """Mamba2 SSD chunked scan (the zamba2 backbone's sequence mixer).
 
 Counterpart of ``repro/kernels/ssd.py`` (``ssd_scan``, ``ssd_scan_ref``).
-The kernel is ``csrc/ssd.cu``; its source note gives the design and the
-bound.  x, b and c share one storage type, float32 or bfloat16; dt and lg
-are read as float32; every sum is float32 but the chunk's cumulative sum
-of lg (float64, see ``ssd_scan_plain``); y has x's dtype.
+The kernels are ``csrc/ssd.cu``; its source note gives the design and the
+bound: two launches a call (``ssd_state_kernel``: each chunk's cumulative
+sums and state contribution, all chunks in parallel; ``ssd_scan_kernel``:
+the outputs, with C B^T formed once per batch row, chunk and t tile and
+shared by a group of heads), and between them, with three chunks or more,
+``ssd_pass_kernel`` (the states entering the chunks); every product in
+split TF32 on the tensor cores, planned by ``tuning.ssd_plan``.  x, b and
+c share one storage type, float32 or bfloat16; dt and lg are read as
+float32; every sum is float32 but the chunk's cumulative sum of lg
+(float64, see ``ssd_scan_plain``); y has x's dtype.
 
 Layout: x (BH, S, P) with BH = batch * heads, head-major within a batch row;
 dt and lg (BH, S), lg the log-decay dt * A (negative); b and c (B, S, N),
@@ -16,14 +22,15 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build, tuning
 
 STORAGE = (torch.float32, torch.bfloat16)
-MAX_N = 64                    # state width the kernel's register tiles hold
+MAX_N = 64                    # state width the kernel's tiles hold
 MAX_P = 128                   # head width
-TILE = 64                     # rows of the kernel's t and u tiles
 
 
 def _check(x, dt, lg, b, c, heads, chunk) -> int:
@@ -81,6 +88,20 @@ def ssd_scan_plain(x, dt, lg, b, c, *, heads: int, chunk: int = 256):
     return torch.cat(ys, dim=1).to(x.dtype)
 
 
+def launch_plan(x, b, *, heads: int, chunk: int = 256) -> dict:
+    """The kernels' plan for these operands (``tuning.ssd_plan`` on x's
+    device), with ``route``: "vec" where x, b and c may be read in 16-byte
+    pieces (N and P whole pieces of the storage type), else "scalar"."""
+    bh, s, p_dim = x.shape
+    n = b.shape[-1]
+    plan = tuning.ssd_plan(bh // heads, heads, s, p_dim, n, min(chunk, s),
+                           tuning.sm_count(x.device))
+    piece = 16 // x.element_size()
+    plan["route"] = ("vec" if p_dim % piece == 0 and n % piece == 0
+                     else "scalar")
+    return plan
+
+
 def ssd_scan(x, dt, lg, b, c, *, heads: int, chunk: int = 256):
     """Chunked SSD.  x: (BH, S, P); dt/lg: (BH, S); b/c: (B, S, N).
 
@@ -100,23 +121,53 @@ def ssd_scan(x, dt, lg, b, c, *, heads: int, chunk: int = 256):
     if n > MAX_N or p_dim > MAX_P:
         raise ValueError(f"ssd_scan: N = {n}, P = {p_dim}; the kernel takes "
                          f"N <= {MAX_N}, P <= {MAX_P}")
-    smem = 8 * q + 4 * (n * p_dim + q + 2 * TILE * (n + 1) + TILE * p_dim
-                        + TILE * (TILE + 1))
-    if smem > tuning.SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk {q} needs {smem} bytes of shared "
-                         f"memory, more than a block has")
+    plan = launch_plan(x, b, heads=heads, chunk=chunk)
+    grid = max(plan["grid_states"], plan["grid_pass"], plan["grid_scan"])
+    if grid > tuning.MAX_GRID:
+        raise ValueError(f"ssd_scan: {bh} rows of {s // q} chunks need "
+                         f"{grid} blocks on one grid, more than "
+                         f"{tuning.MAX_GRID}")
     xc, bc, cc = x.contiguous(), b.contiguous(), c.contiguous()
     dtf, lgf = dt.float().contiguous(), lg.float().contiguous()
     y = torch.empty_like(xc)
     if y.numel() == 0:
         return y
+    vec = plan["route"] == "vec" and all(
+        t.data_ptr() % 16 == 0 for t in (xc, bc, cc))
+    nc, qp = plan["chunks"], plan["qp"]
+    dev = x.device
+    cum = torch.empty(bh, nc, qp, dtype=torch.float64, device=dev)
+    dtp = torch.empty(bh, nc, qp, device=dev)
+    tot = torch.empty(bh, nc, device=dev)
+    states = torch.empty(bh, nc - 1, tuning.SSD_N, plan["pc"], device=dev)
     rc = _build.library().repro_ssd_scan(
         xc.data_ptr(), int(x.dtype == torch.bfloat16), dtf.data_ptr(),
-        lgf.data_ptr(), bc.data_ptr(), cc.data_ptr(), y.data_ptr(), bh, s,
-        p_dim, n, heads, q, _build.stream_ptr(x))
+        lgf.data_ptr(), bc.data_ptr(), cc.data_ptr(), y.data_ptr(),
+        cum.data_ptr(), dtp.data_ptr(), tot.data_ptr(), states.data_ptr(),
+        bh, s, p_dim, n, heads, q, plan["pc"], qp, plan["head_group"],
+        int(vec), _build.stream_ptr(x))
     _build.check("ssd_scan", rc)
     ssd_scan.launches += 1
+    for name in KERNELS:
+        if name != "ssd_pass_kernel" or nc > 2:
+            ssd_scan.kernel_launches[name] += 1
+    ssd_scan.routes["vec" if vec else "scalar"] += 1
     return y
 
 
-ssd_scan.launches = 0
+def kernel_smem(x, b, *, heads: int, chunk: int = 256) -> dict:
+    """The shared memory (bytes) of the state and output kernels for these
+    operands, as csrc/ssd.cu lays it out (``repro_ssd_smem``)."""
+    plan = launch_plan(x, b, heads=heads, chunk=chunk)
+    out = (ctypes.c_int * 2)()
+    _build.check("ssd_scan smem", _build.library().repro_ssd_smem(
+        plan["pc"], plan["qp"], out))
+    return {"ssd_state_kernel": out[0], "ssd_scan_kernel": out[1]}
+
+
+# the kernels of a call (csrc/ssd.cu); the pass only with three chunks or
+# more
+KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel")
+ssd_scan.launches = 0             # calls that launched the kernels
+ssd_scan.kernel_launches = dict.fromkeys(KERNELS, 0)
+ssd_scan.routes = {"vec": 0, "scalar": 0}

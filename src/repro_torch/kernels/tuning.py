@@ -66,9 +66,10 @@ GS_WARPS = 8              # warps per cooperative block (csrc/common.cuh)
 # leaving room for the runtime's reserved shared memory.
 SMEM_BUDGET = 200 * 1024
 # The most dynamic shared memory one block may have on an H100 (227 KB):
-# the model kernels' shapes are refused above it (kernels/ssd.py,
-# kernels/gated_norm.py).
+# the gated RMSNorm's shapes are refused above it (kernels/gated_norm.py).
 SMEM_LIMIT = 232_448
+# The most blocks on a grid's x axis (its y and z take 65,535).
+MAX_GRID = 2 ** 31 - 1
 # Upper bound on co-resident blocks per SM for the cooperative kernels.
 # The GS pass alone is latency-bound (fewer blocks: cheaper grid sync and
 # fewer partials to reduce); the fused step also streams A and wants more
@@ -190,6 +191,15 @@ TRISWEEP_MAX_CHUNK = 1024
 TRISWEEP_ROWS = 4
 TRISWEEP_MAX_THREADS = 256
 TRISWEEP_STAGES = 8
+# The SSD scan (csrc/ssd.cu): t tiles of 64 rows, stages of 32 rows,
+# G = C B^T kept for a window of 256 u, and enough head groups for two
+# blocks an SM.  The kernels' shared memory is the C side's
+# (``repro_ssd_smem``).
+SSD_TILE = 64
+SSD_STAGE = 32
+SSD_WINDOW = 256
+SSD_BLOCKS_PER_SM = 2
+SSD_N = 64               # N, padded to the state's rows
 
 
 def sm_count(device) -> int:
@@ -729,6 +739,51 @@ _SHARD_CTX: list = []
 # the kernels' ``.launches`` counters (a halo exchange counts once, however
 # many neighbours it talks to).
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "halo": 0}
+
+
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def ssd_plan(batch: int, heads: int, s: int, p: int, n: int, q: int,
+             sms: int = H100_SMS) -> dict:
+    """Launch plan of the SSD scan (csrc/ssd.cu) for x (batch * heads, s, p),
+    b and c (batch, s, n), chunk q dividing s, on ``sms`` SMs.
+
+    Launch 1 (``ssd_state_kernel``): a block per (row, chunk).  Launch 2
+    (``ssd_scan_kernel``): a block per (pair of t tiles, head group) of each
+    chunk and batch row; a pair is tiles i and nt - 1 - i of the chunk's
+    ``tiles`` (the middle tile alone when nt is odd), so every pair reaches
+    the same u rows.  ``head_group`` heads share a block's G: as many heads
+    as leave SSD_BLOCKS_PER_SM blocks an SM, one where G's ``window`` does
+    not span the chunk.  With three chunks or more ``ssd_pass_kernel``
+    runs between the two (``launches`` 3).  Each grid is one axis
+    (``grid_states``, ``grid_pass``, ``grid_scan``: blocks), at most
+    MAX_GRID.  The scratch's layout, which the wrapper allocates and the
+    kernels take: N padded to SSD_N, ``pc`` (P padded to the kernels' 64
+    or 128 columns), ``qp`` (Q padded to SSD_TILE), and its bytes."""
+    nc = s // q
+    nt = -(-q // SSD_TILE)
+    pairs = -(-nt // 2)
+    pc, qp = 64 if p <= 64 else 128, _up(q, SSD_TILE)
+    if q > SSD_WINDOW:
+        hg = 1
+    else:
+        target = max(1, SSD_BLOCKS_PER_SM * sms // (batch * nc * pairs))
+        hg = -(-heads // min(target, heads))
+    groups = -(-heads // hg)
+    bh = batch * heads
+    scratch = {"cum": 8 * bh * nc * qp, "dt": 4 * bh * nc * qp,
+               "totals": 4 * bh * nc,
+               "states": 4 * bh * (nc - 1) * SSD_N * pc}
+    return {"chunks": nc, "tiles": nt, "pairs": pairs, "window": SSD_WINDOW,
+            "windows": -(-q // SSD_WINDOW), "head_group": hg,
+            "groups": groups,
+            "pc": pc, "qp": qp,
+            "grid_states": bh * nc, "grid_pass": bh * pc // 16,
+            "grid_scan": groups * pairs * nc * batch,
+            "scratch": scratch, "scratch_bytes": sum(scratch.values()),
+            "launches": 2 if nc <= 2 else 3}
 
 
 def check_group(group) -> None:

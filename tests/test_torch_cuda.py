@@ -1086,6 +1086,153 @@ def test_ssd_scan_kernel_matches_plain(dev, shape, dtype):
     assert _relerr(got, want) < SSD_TOL[dtype]
 
 
+# zamba2's decays: lg = dt A, A = -linspace(1, 16, heads) (its a_log), so
+# cum reaches -10^3 within a chunk; zamba2's prefill, a two-chunk cut of it,
+# eight chunks (the pass over several earlier states), a small sweep shape
+SSD_STRONG_SHAPES = [(2, 112, 512, 64, 64, 256), (2, 8, 512, 64, 64, 256),
+                     (1, 4, 2048, 64, 64, 256), (2, 3, 64, 16, 8, 16)]
+# shapes off the kernels' 16-byte route and tiles: N, P, Q not multiples of
+# 8 (scalar route), P > 64 (the wide instantiation), Q > 256 (G by windows
+# of 256, a head a block), three tiles (a middle tile alone)
+SSD_EDGE_SHAPES = [(1, 2, 40, 5, 6, 20), (1, 3, 96, 12, 10, 48),
+                   (1, 2, 128, 100, 64, 64), (1, 2, 1024, 64, 64, 512),
+                   (2, 5, 384, 64, 64, 192)]
+
+
+def _ssd_strong_inputs(batch, heads, s, p, n, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(s + heads)
+    bh = batch * heads
+    x = torch.randn(bh, s, p, device=dev, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(bh, s, device=dev,
+                                                  generator=g))
+    a = -torch.linspace(1.0, 16.0, heads, device=dev)
+    lg = (dt.view(batch, heads, s) * a[None, :, None]).reshape(bh, s)
+    b = torch.randn(batch, s, n, device=dev, generator=g).to(dtype)
+    c = torch.randn(batch, s, n, device=dev, generator=g).to(dtype)
+    return x, dt, lg, b, c
+
+
+def _ssd_call(x, dt, lg, b, c, heads, chunk):
+    """One call, with the wrapper's and each kernel's launch counts (the
+    pass only with three chunks or more)."""
+    from repro_torch.kernels import ssd
+    before = (ssd.ssd_scan.launches, dict(ssd.ssd_scan.kernel_launches))
+    got = ssd.ssd_scan(x, dt, lg, b, c, heads=heads, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before[0] + 1
+    passes = x.shape[1] // min(chunk, x.shape[1]) > 2
+    assert ssd.ssd_scan.kernel_launches == {
+        k: v + (passes or k != "ssd_pass_kernel")
+        for k, v in before[1].items()}
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_STRONG_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_scan_strong_decays_match_plain(dev, shape, dtype):
+    from repro_torch.kernels import ssd
+    batch, heads, s, p, n, chunk = shape
+    args = _ssd_strong_inputs(batch, heads, s, p, n, dtype, dev)
+    got = _ssd_call(*args, heads, chunk)
+    want = ssd.ssd_scan_plain(*args, heads=heads, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
+    assert _relerr(got, want) < SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_scan_edge_shapes_match_plain(dev, shape, dtype):
+    from repro_torch.kernels import ssd
+    batch, heads, s, p, n, chunk = shape
+    args = _ssd_strong_inputs(batch, heads, s, p, n, dtype, dev)
+    route = ssd.launch_plan(args[0], args[3], heads=heads,
+                            chunk=chunk)["route"]
+    routes = dict(ssd.ssd_scan.routes)
+    got = _ssd_call(*args, heads, chunk)
+    routes[route] += 1
+    assert ssd.ssd_scan.routes == routes
+    want = ssd.ssd_scan_plain(*args, heads=heads, chunk=chunk)
+    assert _relerr(got, want) < SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_gives_the_same_bits_twice(dev, dtype):
+    args = _ssd_strong_inputs(2, 112, 512, 64, 64, dtype, dev)
+    first = _ssd_call(*args, 112, 256)
+    assert torch.equal(first, _ssd_call(*args, 112, 256))
+
+
+@pytest.mark.parametrize("s,kernels", [
+    (512, ("ssd_state_kernel", "ssd_scan_kernel")),
+    (2048, ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel"))])
+def test_ssd_scan_runs_only_its_own_kernels(dev, s, kernels):
+    """One call's profile: the hand-written kernels, once each (the pass
+    with three chunks or more), and no library kernel (no GEMM, no
+    copy)."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _ssd_strong_inputs(2, 112, s, 64, 64, torch.float32, dev)
+    _ssd_call(*args, 112, 256)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _ssd_call(*args, 112, 256)
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(names) == len(kernels) and set(names.values()) == {1}
+    assert all(any(k in key for key in names) for k in kernels)
+
+
+def test_ssd_scan_takes_more_chunks_than_a_grid_axis(dev):
+    """65,536 chunks of 4 (more than gridDim.y's 65,535), against the plain
+    version at chunks of 1,024: the same function."""
+    from repro_torch.kernels import ssd
+    s = 4 * 65_536
+    args = _ssd_strong_inputs(1, 2, s, 8, 8, torch.float32, dev)
+    got = _ssd_call(*args, 2, 4)
+    want = ssd.ssd_scan_plain(*args, heads=2, chunk=1024)
+    assert _relerr(got, want) < SSD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("shape", [(2, 112, 512, 64, 64, 256),
+                                   (1, 2, 128, 100, 64, 64),
+                                   (1, 2, 1024, 64, 64, 512),
+                                   (1, 2, 1024, 128, 64, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_kernels_shared_memory(dev, shape):
+    """The kernels' shared memory (csrc/ssd.cu's layout) fits a block at
+    every width and chunk, and at zamba2's prefill leaves two output
+    blocks an SM (the head groups' premise)."""
+    from repro_torch.kernels import ssd, tuning
+    batch, heads, s, p, n, chunk = shape
+    x = torch.empty(batch * heads, s, p, device=dev)
+    b = torch.empty(batch, s, n, device=dev)
+    smem = ssd.kernel_smem(x, b, heads=heads, chunk=chunk)
+    assert max(smem.values()) <= tuning.SMEM_LIMIT
+    if shape == SSD_STRONG_SHAPES[0]:
+        assert 2 * (smem["ssd_scan_kernel"] + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("nx", [256])
+def test_pipelined_schemes_match_their_split_schemes_on_a_stencil(dev, nx):
+    """The 256^2 case of tests/test_torch_pipelined.py's test of this name,
+    on the card: the pipelined solve against cgs2_fused and the
+    single-reduce s-step against the split one on the convection-diffusion
+    stencil: restarts within +-1, x within 1e-4 (norm-wise)."""
+    from repro_torch.core import gmres_sstep, stencils
+    op = stencils.convection_diffusion_2d(nx, nx, beta=(0.5, 0.25),
+                                          device=dev)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(nx * nx)
+                         .astype(np.float32)).to(dev)
+    kw = dict(tol=1e-5, max_restarts=300)
+    for solve, args in ((gmres, dict(m=30, gs="cgs2_fused")),
+                        (gmres_sstep, dict(s=5, blocks=6, gs="cgs2"))):
+        ref = solve(op, b, **kw, **args)
+        got = solve(op, b, **kw, **dict(args, gs="cgs2_pipelined"))
+        assert ref.converged and got.converged
+        assert abs(got.restarts - ref.restarts) <= 1
+        assert float((got.x - ref.x).norm() / ref.x.norm()) < 1e-4
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", NORM_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
