@@ -17,7 +17,11 @@
         # Chebyshev(4) solves), redesign8 (row 21: ssd_scan with zamba2's
         # decays at S = 512 and 2,048, f32 and bf16, within the kernel's
         # bar of the parent's output; a 12-layer full-width zamba2-7b
-        # prefill); default all eight;
+        # prefill), redesign9 (rows 12 and 10: block_gs_project_gram and
+        # block_gs_project at n = 2^20, k_start 0 / 12 / 25, f32 and bf16,
+        # Q the parent's bits, rows 9 and 11 the parent's SHA-256, one and
+        # two blocks an SM, the banded pipelined s-step and one-rank
+        # sharded s-step solves); default all nine;
         # redesign3_sweep (the launch shapes of rows 1 and 19) only when
         # named
 
@@ -34,7 +38,9 @@ Phases, one JSON line each (``"phase": ...``):
               projections' column-sweep and block-a-row kernels (by
               storage, bucket, pieces at once and right-hand columns:
               row 4 and the payload), the SSD scan's kernels (state and
-              output by storage and column tiles, and the pass), and the
+              output by storage and column tiles, and the pass), the
+              s-step projections (block_gs_project_gram_kernel by
+              storage, s and M: rows 12 and 10), and the
               HGMMA (wgmma) instructions in each attention
               instantiation's SASS and the HMMA (mma.sync) ones in each
               SSD product kernel's (``cuobjdump -sass``); a missing
@@ -1893,7 +1899,7 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                 compare("block_gs_project_gram", got,
                         block_gs.block_gs_project_gram_plain(vp, w, tin),
                         dtype, n=nb, rows=k + 1, s=s,
-                        grid=tuning.sr_grid("cuda", nb))
+                        grid=block_gs.block_gs_plan(vp, w, k)["grid"])
                 check(torch.equal(got[2], got[2].T),
                       "block_gs_project_gram: M is not symmetric")
                 c = torch.randn(k + 1, s, device="cuda", generator=gen)
@@ -2148,7 +2154,8 @@ def pipelined_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                 lambda: block_gs.block_gs_project_gram_plain(vp, w, tin),
                 gram_composite if f32 else None, cold,
                 composite="3 cuBLAS products" if f32 else None, n=nb,
-                rows=k + 1, s=s, grid=tuning.sr_grid("cuda", nb),
+                rows=k + 1, s=s,
+                grid=block_gs.block_gs_plan(vp, w, k)["grid"],
                 bytes=((k + 1) * sz + 8 * s) * nb + (m1 + s) * s * 4,
                 flops=(2 * s * s + 2 * (k + 1) * s + s * (s + 1)) * nb)
             rows[f"block_gs_update n = {nb}"] = measure(
@@ -3147,6 +3154,7 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                         torch.matmul(tin, wb)),
                     composite_name="2 torch.matmul (T W, V[:k+1] Q^T) + pad",
                     library=None,
+                    grid=block_gs.block_gs_plan(vb, wb, k_start)["grid"],
                     bytes=((k_start + 1) * sz + 8 * s) * n,
                     flops=2 * s * s * n + 2 * (k_start + 1) * s * n),
                 "banded_powers_halo": dict(
@@ -3191,7 +3199,7 @@ def sharded_phases(smi, gen, dense_fused, sparse_solves, sstep_solves):
                            if spec["library"] and dtype == f32 else None,
                            library=spec.get("library_name"),
                            bytes=spec["bytes"], flops=spec["flops"], n=n,
-                           j=j, k_start=k_start, s=s,
+                           j=j, k_start=k_start, s=s, grid=spec.get("grid"),
                            launches_per_path=launches_total[per_path[name]])
                 row["bound_ms"], row["bound_by"] = bound(row["bytes"],
                                                          row["flops"])
@@ -3731,15 +3739,16 @@ def kernel_resources(so, names) -> dict:
 def template_name(mangled: str) -> str:
     """A kernel instantiation's readable name from its mangled one:
     ``_ZN5repro17ell_powers_kernelIfLi8EE...`` -> ``ell_powers_kernel<float,
-    8>``."""
+    8>`` (a bool argument ``Lb1E`` -> ``true``)."""
     import re
 
-    m = re.search(r"repro\d+(\w+?_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E",
-                  mangled)
+    m = re.search(r"repro\d+(\w+?_kernel)I(f|13__nv_bfloat16)"
+                  r"((?:L[ib]\d+E)*)E", mangled)
     if m is None:
         return mangled
-    args = ["float" if m[2] == "f" else "bf16"] + re.findall(r"Li(\d+)E",
-                                                             m[3])
+    args = ["float" if m[2] == "f" else "bf16"] + [
+        x if kind == "i" else ("true" if x == "1" else "false")
+        for kind, x in re.findall(r"L([ib])(\d+)E", m[3])]
     return f"{m[1]}<{', '.join(args)}>"
 
 
@@ -3772,7 +3781,8 @@ def main() -> None:
                                 "ell_powers_kernel", "gs_partial_",
                                 "banded_powers_kernel", "banded_cheb_kernel",
                                 "ssd_state_kernel", "ssd_scan_kernel",
-                                "ssd_pass_kernel"))
+                                "ssd_pass_kernel",
+                                "block_gs_project_gram_kernel"))
     sell = [r for name, r in res.items() if "sell_kernel" in name]
     attn = {f"attention_wgmma_kernel<NB={nb}>": r for name, r in res.items()
             for nb in (1, 2) if f"attention_wgmma_kernelILi{nb}E" in name}
@@ -3800,6 +3810,10 @@ def main() -> None:
                  if "ssd_state_kernel" in name or "ssd_scan_kernel" in name
                  or "ssd_pass_kernel" in name}
 
+    # rows 12 and 10: the projections by storage, s and M (true: row 12)
+    redesign9 = {template_name(name): r for name, r in res.items()
+                 if "block_gs_project_gram_kernel" in name}
+
     def summary(rs):
         return {"registers_max": max(r["registers"] for r in rs),
                 "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
@@ -3814,7 +3828,7 @@ def main() -> None:
     emit(phase="build", seconds=build_s, library=so.name, nvcc=nvcc[-1],
          card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          resources=dict(attn, **redesign4, **stream, **bgs_summary,
-                        **redesign6, **redesign7, **redesign8,
+                        **redesign6, **redesign7, **redesign8, **redesign9,
                         **{f"sell_kernel ({len(sell)} instantiations)":
                            dict(summary(sell), static_smem_max=max(
                                r["static_smem"] for r in sell))}))
@@ -3835,6 +3849,8 @@ def main() -> None:
                                       if "pass" not in k),
           f"ssd_state_kernel / ssd_scan_kernel / ssd_pass_kernel: "
           f"instantiations and HMMA instructions {redesign8}")
+    check(len(redesign9) == 32, f"block_gs_project_gram_kernel: "
+                                f"{len(redesign9)} instantiations")
     check(len(attn) == 2 and all(r["hgmma"] > 0 for r in attn.values()),
           f"attention_wgmma_kernel: HGMMA instructions {attn}")
     check(len(sell) == 16, f"sell_kernel: {len(sell)} instantiations")
@@ -4259,7 +4275,7 @@ def main() -> None:
 
 
 CELL_GROUPS = ("redesign1", "gemv", "redesign3", "redesign4", "redesign5",
-               "redesign6", "redesign7", "redesign8")
+               "redesign6", "redesign7", "redesign8", "redesign9")
 # a tuning sweep, run only when named: ``--in-turn DIR redesign3_sweep``
 SWEEP_GROUPS = ("redesign3_sweep",)
 
@@ -4269,8 +4285,9 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
     ``repro_torch`` this process imported (``in_turn``), by group:
     ``redesign1`` (kernel-table rows 7 and 20, ``redesign1_cells``),
     ``gemv`` (rows 4 and 6, ``gemv_cells``), ``redesign3`` (rows 1 and
-    19, ``redesign3_cells``) and so on to ``redesign8`` (row 21 and the
-    prefill, ``redesign8_cells``); the ``redesign3_sweep`` group, on a tree
+    19, ``redesign3_cells``) and so on to ``redesign9`` (rows 12 and 10
+    and the s-step solves, ``redesign9_cells``); the ``redesign3_sweep``
+    group, on a tree
     that has the launch helpers it times, emits ``tuning`` lines of its
     own.  One JSON line."""
     from repro_torch.kernels import _build
@@ -4301,6 +4318,8 @@ def measure_cells(label: str, groups=CELL_GROUPS) -> None:
         out.update(redesign7_cells(label))
     if "redesign8" in groups:
         out.update(redesign8_cells(label))
+    if "redesign9" in groups:
+        out.update(redesign9_cells(label))
     if "redesign3_sweep" in groups:
         from repro_torch.kernels import trisolve
 
@@ -5292,6 +5311,172 @@ def redesign8_cells(label: str) -> dict:
     return out
 
 
+def redesign9_cells(label: str) -> dict:
+    """Kernel-table rows 12 (``block_gs_project_gram``) and 10
+    (``block_gs_project``) and the solves they serve.  Both at n = 2^20,
+    s = 5, k_start 0, 12 and 25 (row 12 over the prefix V[:k_start+1], as
+    the single-reduce pass calls it; row 10 over V with its rows past
+    k_start NaN, which it must never read), f32 and bf16 bases: cold (L2
+    rewritten before each call, by kernel) and warm, beside the bound, the
+    SHA-256 of Q and of every output, a second call's bits, the distance
+    to the plain version, C and M saved for the comparison across the
+    trees; row 12 warm at the dense n = 10^4; the SHA-256 of row 11
+    (``block_gs_update``) and row 9 (``block_gs_pass``) at k_start 25; the
+    banded 1024^2 ``gmres_sstep(s=5, blocks=6, gs="cgs2_pipelined")``
+    solve (wall the median of five, device, idle, kernels' device ms a
+    step, restarts, x saved) and the one-rank NCCL
+    ``gmres_sstep_sharded(gs="cgs2")`` solve, which runs row 10.  On a tree
+    with the projections' launch helper, both kernels also cold at one and
+    two blocks an SM (the plan taken on twice the SMs; uncounted
+    launches)."""
+    import hashlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import gmres_sstep, gmres_sstep_sharded, stencils
+    from repro_torch.kernels import block_gs, tuning
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    n, s = NX * NX, SSTEP_S
+    save = ROOT / "build" / "in_turn"
+    save.mkdir(parents=True, exist_ok=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name_t = str(dtype)[6:]
+        for k in (0, 12, 25):
+            gen = torch.Generator(device="cuda").manual_seed(9000 + k)
+            v = basis(n, M + 1, k, dtype, gen)
+            vp = v[:k + 1]
+            v_nan = v.clone()
+            v_nan[k + 1:] = float("nan")
+            w = torch.randn(s, n, device="cuda", generator=gen)
+            tin = torch.triu(torch.randn(s, s, device="cuda",
+                                         generator=gen)) \
+                + 2 * torch.eye(s, device="cuda")
+            nbytes = (k + 1) * n * v.element_size() + 8 * s * n
+            cells = {
+                "block_gs_project_gram": (
+                    lambda: block_gs.block_gs_project_gram(vp, w, tin),
+                    lambda: block_gs.block_gs_project_gram_plain(vp, w,
+                                                                 tin),
+                    2 * s * s + 2 * (k + 1) * s + s * (s + 1)),
+                "block_gs_project": (
+                    lambda: block_gs.block_gs_project(v_nan, w, tin, k),
+                    lambda: block_gs.block_gs_project_plain(v, w, tin, k),
+                    2 * s * s + 2 * (k + 1) * s)}
+            for name, (fn, plain, flops) in cells.items():
+                got = fn()
+                again = fn()
+                want = plain()
+                torch.cuda.synchronize()
+                key = f"{name} {name_t} n={n} s={s} k_start={k}"
+                path = save / (f"{label}-{key.replace(' ', '_')}-"
+                               f"{os.getpid()}.pt")
+                torch.save([t.cpu() for t in got[1:]], path)
+                row = {"cold": timed(fn, iters=20, cold=True),
+                       "warm": timed(fn, iters=20),
+                       "q_sha256": sha(got[0]), "sha256": sha(*got),
+                       "again_same_bits": all(torch.equal(a, b)
+                                              for a, b in zip(got, again)),
+                       "rel_to_plain": max(relerr(a, b)
+                                           for a, b in zip(got, want)),
+                       "out_path": str(path), "bytes": nbytes,
+                       "flops": flops * n}
+                row["cold_by_kernel"] = row["cold"]["by_kernel"]
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops * n)
+                if hasattr(block_gs, "launch_project"):
+                    row["grid"] = block_gs.block_gs_plan(v, w, k)["grid"]
+                out[key] = row
+                check(row["rel_to_plain"] < TOLS[dtype]
+                      and row["again_same_bits"],
+                      f"redesign9 {key}: {row['rel_to_plain']} from plain, "
+                      f"second call the same bits {row['again_same_bits']}")
+            if k == 25:
+                q = tin @ w
+                c = torch.randn(k + 1, s, device="cuda", generator=gen)
+                out[f"block_gs_update {name_t} sha256"] = sha(
+                    *block_gs.block_gs_update(vp, q, c))
+                out[f"block_gs_pass {name_t} sha256"] = sha(
+                    *block_gs.block_gs_pass(v, w, tin, k))
+                if hasattr(block_gs, "launch_project"):
+                    # the plan's one block an SM against two (the plan
+                    # taken on twice the SMs)
+                    sweep = {}
+                    for name, vv, gram in (
+                            ("block_gs_project_gram", vp, True),
+                            ("block_gs_project", v, False)):
+                        one = block_gs.block_gs_plan(vv, w, k)
+                        two = tuning.block_gs_plan(
+                            vv.shape[0], n, s, k + 1, vv.element_size(),
+                            one["route"] == "vec",
+                            2 * tuning.sm_count("cuda"))
+                        for per_sm, plan in ((1, one), (2, two)):
+                            sweep[f"{name} blocks_per_sm={per_sm}"] = dict(
+                                timed(lambda: block_gs.launch_project(
+                                    vv, w, tin, k + 1, plan, gram),
+                                    iters=20, cold=True), grid=plan["grid"])
+                    out[f"blocks_per_sm sweep {name_t} k_start=25"] = sweep
+            del v, vp, v_nan, w
+        # the dense s-step solver's shape, warm
+        gen = torch.Generator(device="cuda").manual_seed(9100)
+        v = basis(N, M + 1, 25, dtype, gen)
+        vp = v[:26]
+        w = torch.randn(s, N, device="cuda", generator=gen)
+        tin = torch.eye(s, device="cuda")
+        out[f"block_gs_project_gram {name_t} n={N} s={s} k_start=25"] = {
+            "warm": timed(lambda: block_gs.block_gs_project_gram(vp, w,
+                                                                 tin)),
+            "sha256": sha(*block_gs.block_gs_project_gram(vp, w, tin))}
+        del v, vp, w
+
+    op = stencils.convection_diffusion_2d(NX, NX, beta=BETA, fmt="banded")
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).cuda()
+
+    def keep(name, res, row):
+        path = save / f"{label}-{name.replace(' ', '_')}-{os.getpid()}.pt"
+        torch.save(res.x.cpu(), path)
+        out[name] = dict(row, restarts=res.restarts,
+                         converged=res.converged, x_path=str(path))
+
+    def pipelined():
+        return gmres_sstep(op, b, s=s, blocks=SSTEP_BLOCKS, tol=TOL,
+                           max_restarts=SPARSE_RESTARTS,
+                           gs="cgs2_pipelined")
+    res = pipelined()
+    keep("banded gmres_sstep cgs2_pipelined", res, solve_timing(
+        pipelined, res.inner_steps, phase="in_turn", walls=5,
+        solve="banded gmres_sstep cgs2_pipelined", tree=label,
+        restarts=res.restarts))
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/pg",
+                            rank=0, world_size=1)
+    try:
+        def sharded():
+            return gmres_sstep_sharded(dist.group.WORLD, op, b, s=s,
+                                       blocks=SSTEP_BLOCKS, tol=TOL,
+                                       max_restarts=SPARSE_RESTARTS,
+                                       gs="cgs2")
+        calls = block_gs.block_gs_project.launches
+        res = sharded()
+        launches = block_gs.block_gs_project.launches - calls
+        keep("sharded banded gmres_sstep cgs2", res, dict(solve_timing(
+            sharded, res.inner_steps, phase="in_turn", walls=3,
+            solve="sharded banded gmres_sstep cgs2 (one rank)", tree=label,
+            restarts=res.restarts), block_gs_project_launches=launches))
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return out
+
+
 def redesign3_sweep(label: str) -> None:
     """The launch shapes ``tuning.gemv_rows_shape`` and
     ``tuning.trisweep_plan`` choose among, each launched through the
@@ -5611,6 +5796,54 @@ def in_turn(parent: pathlib.Path, groups=CELL_GROUPS) -> None:
               and all(r["prefill"]["logits_finite"] for r in rows),
               f"in turn: the cut prefill's scan calls "
               f"{out['prefill_ssd_calls']} or its logits")
+
+    if "redesign9" in groups:
+        # Q the parent's bits in all four runs; each tree's outputs the same
+        # bits in both its runs; C, C_hat and M within the bars of the
+        # parent's output; rows 9 and 11 the parent's bits; the solves
+        # converge with restarts within +-1 and x within 1e-3
+        keys = [k for k in rows[0] if k.startswith(
+            ("block_gs_project_gram ", "block_gs_project "))
+            and "out_path" in rows[0][k]]
+        out = {"q_parent_bits": all(len({r[k]["q_sha256"] for r in rows})
+                                    == 1 for k in keys),
+               "same_bits_per_tree": {
+                   t: all(len({r[k]["sha256"] for r in rows
+                               if r["tree"] == t}) == 1 for k in keys)
+                   for t in ("parent", "this")},
+               "rows_9_11_parent_bits": all(
+                   len({r[k] for r in rows}) == 1 for k in rows[0]
+                   if k.endswith(" sha256") and k.startswith(
+                       ("block_gs_update ", "block_gs_pass ")))}
+        for k in keys:
+            outs = [torch.load(r[k]["out_path"]) for r in rows]
+            out[f"{k} rel_to_parent"] = [max(relerr(a, b) for a, b in
+                                             zip(o, outs[0])) for o in outs]
+        for name in ("banded gmres_sstep cgs2_pipelined",
+                     "sharded banded gmres_sstep cgs2"):
+            solves = [r[name] for r in rows]
+            xs = [torch.load(s_["x_path"]) for s_ in solves]
+            restarts = [s_["restarts"] for s_ in solves]
+            out[name] = {"restarts": restarts,
+                         "x_rel_to_parent": [float((x - xs[0]).norm()
+                                                   / xs[0].norm())
+                                             for x in xs]}
+            check(all(s_["converged"] for s_ in solves)
+                  and max(restarts) - min(restarts) <= 1
+                  and max(out[name]["x_rel_to_parent"]) <= 1e-3,
+                  f"in turn: {name} differs between the trees: {out[name]}")
+        emit(phase="in_turn", **out)
+        check(out["q_parent_bits"], "in turn: Q differs from the parent's")
+        check(all(out["same_bits_per_tree"].values()),
+              "in turn: a tree's rows 12 / 10 gave other bits in its two "
+              "runs")
+        check(out["rows_9_11_parent_bits"],
+              "in turn: rows 9 / 11 gave other bits than the parent's")
+        for k in keys:
+            bar = TOLS[torch.bfloat16 if "bfloat16" in k else torch.float32]
+            check(max(out[f"{k} rel_to_parent"]) < bar,
+                  f"in turn: {k} differs from the parent's output: "
+                  f"{out[f'{k} rel_to_parent']}")
 
 
 if __name__ == "__main__":

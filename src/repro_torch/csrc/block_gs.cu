@@ -131,6 +131,137 @@ __host__ __device__ inline size_t block_gs_smem_bytes(int m1, int s) {
                           (size_t)kWarps * kBgRows * s);
 }
 
+// The projection sweep of block_gs_pass, block_gs_project_gram and
+// block_gs_project: C's partials over rows 0..rows-1 of V and the block's
+// pieces [p_lo, p_hi) and tail columns [t_lo, t_hi), stored at
+// part[(row * S + a) * nb + blockIdx.x].  A set of up to kBgSetRows rows
+// at a time (one set for rows <= 64): warp w takes
+// rows rs + 8 (w % ng) .. of the set over column share w / ng of the
+// block's pieces, issues its eight rows' 16-byte loads of a piece, forms
+// Q = T W for the piece's columns in registers (q_of_four) and sums
+// V[r, c] Q[a, c]; the block sums a row group's shares in order.  kQ: the
+// warps of row group 0 in the first set also store the Q they form to
+// q_out (S, n), each column once, and (kGram) add its products to gacc,
+// the upper triangle of M = Q Q^T row by row.  Every thread of the block
+// calls it; it ends in a barrier.
+template <typename TV, int S, bool kQ, bool kGram>
+__device__ __forceinline__ void project_sweep(
+    const TV* __restrict__ v, const float* __restrict__ w, const float* ts,
+    float* red, float* part, float* __restrict__ q_out,
+    float (&gacc)[S * (S + 1) / 2], int rows, int n, int p_lo, int p_hi,
+    int t_lo, int t_hi) {
+  constexpr int VEC = Vec16<TV>::N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = gridDim.x;
+  for (int rs = 0; rs < rows; rs += kBgSetRows) {
+    const int nrs = min(kBgSetRows, rows - rs);
+    const int ng = (nrs + kBgRows - 1) / kBgRows;   // row groups
+    const int nsh = kWarps / ng;                     // column shares
+    const bool active = warp < ng * nsh;
+    const int rg = warp % ng, sh = warp / ng;
+    const int r0 = rs + rg * kBgRows;
+    const int nr = active ? min(kBgRows, rows - r0) : 0;
+    const bool keep_q = kQ && rs == 0 && rg == 0;   // warp-uniform
+    float acc[kBgRows][S];
+#pragma unroll
+    for (int r = 0; r < kBgRows; ++r)
+#pragma unroll
+      for (int a = 0; a < S; ++a) acc[r][a] = 0.f;
+    const int step = nsh * 32;
+    for (int p = p_lo + sh * 32 + lane; active && p < p_hi; p += step) {
+      uint4 raw[kBgRows];
+      const TV* q = v + (size_t)r0 * n + (size_t)p * VEC;
+#pragma unroll
+      for (int r = 0; r < kBgRows; ++r) {
+        if (r < nr) raw[r] = __ldg(reinterpret_cast<const uint4*>(q));
+        q = next_row(q, n);
+      }
+#pragma unroll
+      for (int q4 = 0; q4 < VEC / 4; ++q4) {
+        float qv[S][4];
+        q_of_four<S>(ts, w + (size_t)p * VEC + 4 * q4, n, qv);
+        if constexpr (kQ) {
+          if (keep_q) {
+#pragma unroll
+            for (int a = 0; a < S; ++a)
+              *reinterpret_cast<float4*>(q_out + (size_t)a * n +
+                                         (size_t)p * VEC + 4 * q4) =
+                  make_float4(qv[a][0], qv[a][1], qv[a][2], qv[a][3]);
+            if constexpr (kGram) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                int k = 0;
+#pragma unroll
+                for (int a = 0; a < S; ++a)
+#pragma unroll
+                  for (int b = a; b < S; ++b, ++k)
+                    gacc[k] = fmaf(qv[a][c], qv[b][c], gacc[k]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kBgRows; ++r) {
+          if (r < nr) {
+            float f[4];
+            unpack_four<TV>(raw[r], q4, f);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+              for (int a = 0; a < S; ++a)
+                acc[r][a] = fmaf(f[c], qv[a][c], acc[r][a]);
+          }
+        }
+      }
+    }
+    for (int c = t_lo + sh * 32 + lane; active && c < t_hi; c += step) {
+      float qv[S];
+      q_of_one<S>(ts, w, n, c, qv);
+      if constexpr (kQ) {
+        if (keep_q) {
+#pragma unroll
+          for (int a = 0; a < S; ++a) q_out[(size_t)a * n + c] = qv[a];
+          if constexpr (kGram) {
+            int k = 0;
+#pragma unroll
+            for (int a = 0; a < S; ++a)
+#pragma unroll
+              for (int b = a; b < S; ++b, ++k)
+                gacc[k] = fmaf(qv[a], qv[b], gacc[k]);
+          }
+        }
+      }
+      const TV* q = v + (size_t)r0 * n + c;
+#pragma unroll
+      for (int r = 0; r < kBgRows; ++r) {
+        if (r < nr) {
+          const float f = to_f(*q);
+#pragma unroll
+          for (int a = 0; a < S; ++a) acc[r][a] = fmaf(f, qv[a], acc[r][a]);
+        }
+        q = next_row(q, n);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBgRows; ++r)
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const float t = warp_sum(acc[r][a]);
+        if (lane == 0) red[(warp * kBgRows + r) * S + a] = t;
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < nrs * S; e += blockDim.x) {
+      const int i = e / S, a = e - i * S;   // row rs + i, column a of C
+      const int g = i / kBgRows, r = i - g * kBgRows;
+      float t = 0.f;
+      for (int s2 = 0; s2 < nsh; ++s2)
+        t += red[((s2 * ng + g) * kBgRows + r) * S + a];
+      part[((size_t)(rs + i) * S + a) * nb + blockIdx.x] = t;
+    }
+    __syncthreads();
+  }
+}
+
 // rows = k_start + 1 valid rows; pieces 16-byte pieces of a row (0: the
 // scalar route), pb of them a block; the tail columns [pieces VEC, n), tb
 // a block.
@@ -159,81 +290,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = threadIdx.x; i < S * S; i += blockDim.x) ts[i] = tin[i];
   __syncthreads();
 
-  // 1. C partials, a set of up to kBgSetRows rows at a time (one set for
-  // m1 <= 64): warp w takes rows rs + 8 (w % ng) .. of the set over column
-  // share w / ng of the block's pieces
-  for (int rs = 0; rs < rows; rs += kBgSetRows) {
-    const int nrs = min(kBgSetRows, rows - rs);
-    const int ng = (nrs + kBgRows - 1) / kBgRows;   // row groups
-    const int nsh = kWarps / ng;                     // column shares
-    const bool active = warp < ng * nsh;
-    const int rg = warp % ng, sh = warp / ng;
-    const int r0 = rs + rg * kBgRows;
-    const int nr = active ? min(kBgRows, rows - r0) : 0;
-    float acc[kBgRows][S];
-#pragma unroll
-    for (int r = 0; r < kBgRows; ++r)
-#pragma unroll
-      for (int a = 0; a < S; ++a) acc[r][a] = 0.f;
-    const int step = nsh * 32;
-    for (int p = p_lo + sh * 32 + lane; active && p < p_hi; p += step) {
-      uint4 raw[kBgRows];
-      const TV* q = v + (size_t)r0 * n + (size_t)p * VEC;
-#pragma unroll
-      for (int r = 0; r < kBgRows; ++r) {
-        if (r < nr) raw[r] = __ldg(reinterpret_cast<const uint4*>(q));
-        q = next_row(q, n);
-      }
-#pragma unroll
-      for (int q4 = 0; q4 < VEC / 4; ++q4) {
-        float qv[S][4];
-        q_of_four<S>(ts, w + (size_t)p * VEC + 4 * q4, n, qv);
-#pragma unroll
-        for (int r = 0; r < kBgRows; ++r) {
-          if (r < nr) {
-            float f[4];
-            unpack_four<TV>(raw[r], q4, f);
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-#pragma unroll
-              for (int a = 0; a < S; ++a)
-                acc[r][a] = fmaf(f[c], qv[a][c], acc[r][a]);
-          }
-        }
-      }
-    }
-    for (int c = t_lo + sh * 32 + lane; active && c < t_hi; c += step) {
-      float qv[S];
-      q_of_one<S>(ts, w, n, c, qv);
-      const TV* q = v + (size_t)r0 * n + c;
-#pragma unroll
-      for (int r = 0; r < kBgRows; ++r) {
-        if (r < nr) {
-          const float f = to_f(*q);
-#pragma unroll
-          for (int a = 0; a < S; ++a) acc[r][a] = fmaf(f, qv[a], acc[r][a]);
-        }
-        q = next_row(q, n);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kBgRows; ++r)
-#pragma unroll
-      for (int a = 0; a < S; ++a) {
-        const float t = warp_sum(acc[r][a]);
-        if (lane == 0) red[(warp * kBgRows + r) * S + a] = t;
-      }
-    __syncthreads();
-    for (int e = threadIdx.x; e < nrs * S; e += blockDim.x) {
-      const int i = e / S, a = e - i * S;   // row rs + i, column a of C
-      const int g = i / kBgRows, r = i - g * kBgRows;
-      float t = 0.f;
-      for (int s2 = 0; s2 < nsh; ++s2)
-        t += red[((s2 * ng + g) * kBgRows + r) * S + a];
-      part_c[((size_t)(rs + i) * S + a) * nb + blockIdx.x] = t;
-    }
-    __syncthreads();
-  }
+  // 1. C partials
+  float gacc[kG];   // the update's G below; the sweep leaves it alone
+  project_sweep<TV, S, false, false>(v, w, ts, red, part_c, nullptr, gacc,
+                                     rows, n, p_lo, p_hi, t_lo, t_hi);
   grid.sync();
 
   // 2. each entry of C summed by one warp of the grid, in one order
@@ -249,7 +309,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = threadIdx.x; i < rows * S; i += blockDim.x)
     cs[i] = __ldcg(c_out + i);
   __syncthreads();
-  float gacc[kG];
 #pragma unroll
   for (int k = 0; k < kG; ++k) gacc[k] = 0.f;
   for (int p = p_lo + threadIdx.x; p < p_hi; p += blockDim.x) {
@@ -412,142 +471,124 @@ static cudaError_t launch_block_gs(const void* v, const float* w,
 
 
 // ---------------------------------------------------------------------------
-// The single-reduce pass (gs = "cgs2_pipelined"): two kernels, each a plain
-// grid whose partials a second small launch reduces (common.cuh).
+// The single-reduce pass (gs = "cgs2_pipelined") and the row-sharded split
+// pass's projection: plain grids whose partials a second small launch
+// reduces (common.cuh's reduce_partials_kernel).
 //
 //   block_gs_project_gram   Q = T W,  C_hat = V Q^T (unmasked),  M = Q Q^T
+//   block_gs_project        Q = T W,  C = mask * (V Q^T),  mask = rows
+//                           0..k_start
 //   block_gs_update         W' = Q - C^T V,  G = W' W'^T
 //
-// Replace repro/kernels/block_gs.py::block_gs_project_gram and
-// ::block_gs_update, the Pallas kernels that hold V, W (or Q) and the
-// outputs in one VMEM block and compute the products in one grid step.
-// The caller recovers C and the CholQR Gram from [C_hat; M] against the
+// Replace repro/kernels/block_gs.py::block_gs_project_gram,
+// ::block_gs_project and ::block_gs_update, the Pallas kernels that hold
+// V, W (or Q) and the outputs in one VMEM block (block_gs_project: the
+// shard) and compute the products in one grid step.  The single-reduce
+// caller recovers C and the CholQR Gram from [C_hat; M] against the
 // maintained basis Gram matrix (kernels/block_gs.py), so G of the update
-// is not needed by the single-reduce pass; it is the kernel's contract
-// (the row-sharded pass reduces it across shards) and costs s (s + 1) / 2
-// fmas per column.
+// is not needed there; it is the kernel's contract (the row-sharded pass
+// reduces it across shards) and costs s (s + 1) / 2 fmas per column.  The
+// row-sharded caller all-reduces C over the shards and runs the update.
 //
-// Bound: bytes.  Each must read the rows of V it is given once, and W or
-// Q once, and write Q or W' once: (rows s_V + 8 s) n bytes.  With the
-// prefix rows = k_start + 1 = 26, s = 5, n = 2^20, f32: 144 MiB, 0.045 ms
-// at 3.35 TB/s each.  At n = 10^4 both are launch-bound.
+// Bound: bytes.  Each must read the rows of V it is given (block_gs_project:
+// rows 0..k_start) once, W or Q once, and write Q or W' once: (rows s_V +
+// 8 s) n bytes.  With rows = k_start + 1 = 26, s = 5, n = 2^20: 151 MB in
+// f32 (0.0451 ms at 3.35 TB/s), 96.5 MB in bf16 (0.0288 ms).  The products
+// are 2 (rows + s) s + s (s + 1) flops a column, far below the card's
+// rate.  At n = 10^4 the two launches bound them.
 //
-// Design.  No grid sync is needed: C_hat and M (and G) are sums over n of
-// per-column products, so each block writes partials [entry][block] and
-// reduce_partials_kernel sums them in one order (no float atomics: the
-// same bits every run).  Block b owns the column slice [b * cols,
-// b * cols + len); a thread takes its columns in turn.
-//   project_gram: T in shared memory; Q = T W for the slice, kept in shared
-//   memory (s x cols floats) and written out, with the upper triangle of M
-//   per thread; then the rows of V eight at a time against the slice of Q,
-//   eight loads of V in flight per thread.  V is read once.  The reduced
-//   output is the stacked (m1 + s, s) block [C_hat; M]; M's partials are
-//   stored to both triangles, so M comes out symmetric to the bit.
-//   update: C in shared memory; per column u = C^T V[:, c] over the rows in
-//   order (eight loads in flight), W' = Q - u, and the upper triangle of G.
-// Every row of the V passed is read: the s-step cycle passes the valid
-// prefix V[:k_start+1] (the rows past it are zero in its fresh basis).
+// The projections (one template; kGram false for block_gs_project) are
+// block_gs_pass's projection sweep (project_sweep) as a plain launch.
+// Block b owns a contiguous range of 16-byte pieces of the columns (4 f32
+// or 8 bf16) and a share of the scalar tail (kernels/tuning.py::
+// block_gs_plan).  The warps take row groups of eight and column shares; a
+// thread issues its eight rows' 16-byte loads of a piece, forms Q for the
+// piece's columns in registers from W (16-byte loads) and T (shared
+// memory), and sums V Q^T in 8 x s registers.  V is read once, in pieces,
+// and Q never passes through shared memory.  The warps of row group 0 in
+// the first set of rows store Q (float4) and add Q's products for M.  Q is
+// the fmaf chain from 0 over b (q_of_four), the order the design before
+// this one formed it in: the same bits.  Each block writes C's partials
+// (and M's, to both triangles: M is symmetric to the bit) [entry][block];
+// the reduction launch sums each entry over the blocks in one order (no
+// float atomics: the same bits every run) and writes block_gs_project's
+// rows past k_start as zeros (they are never read).
 //
-// The row-sharded split pass (gs = "cgs2" across shards) has its own
-// projection, block_gs_project:  Q = T W,  C = mask * (V Q^T),  mask =
-// rows 0..k_start.  It replaces repro/kernels/block_gs.py::block_gs_project
-// (one Pallas grid step over the VMEM-resident shard) and is the
-// project-gram kernel without M (kGram false): the rows 0..k_start are
-// read, their C partials reduced in the same fixed order, the rows past
-// k_start written as zeros by the reduction launch.  The caller
-// all-reduces C over the shards and runs block_gs_update.  Bound: bytes,
-// ((k_start + 1) s_V + 8 s) n, 0.045 ms at k_start 25, s = 5, n = 2^20,
-// f32, as the pair above.
+// The scalar route (pieces = 0: every column a tail column, 4-byte or
+// 2-byte loads) remains for a V, W or row stride that is not 16-byte
+// aligned (n = 100,003; n = 1,027 in bf16; a view one element into its
+// buffer): there a 16-byte load would fault or straddle two rows.
+//
+// The design this replaces kept a block's (s, cols) slice of Q in shared
+// memory, formed and written (with M reduced) behind a barrier before the
+// first load of V, then swept the slice once per 8-row chunk with 4-byte
+// (bf16: 2-byte) loads and a block reduction a chunk.  At rows 26, s = 5,
+// n = 2^20, cold, it took 0.0868 ms f32 / 0.0904 bf16 (block_gs_project
+// 0.0854 / 0.0969) on an NVIDIA H100 80GB HBM3, 700.00 W: slower in bf16
+// than in f32 though bf16 moves 36% fewer bytes, the 16 KB of loads in
+// flight an SM setting the pace.
+//
+// The update is unchanged: C in shared memory; a thread a column of its
+// block's column slice (tuning.sr_grid), u = C^T V[:, c] over the rows in
+// order (eight loads in flight), W' = Q - u, and the upper triangle of G.
+// block_gs_project_gram and the update read every row of the V passed: the
+// s-step cycle passes the valid prefix V[:k_start+1] (the rows past it are
+// zero in its fresh basis).
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory: ts[S * S], qs[S * cols], red[kWarps * kRowChunk * S]
-// kGram false: no M (block_gs_project).
+// rows rows of V read (block_gs_project: k_start + 1); pieces 16-byte
+// pieces of a row (0: the scalar route), pb of them a block; the tail
+// columns [pieces VEC, n), tb a block.  part: C's rows * S partials, then
+// (kGram) M's S * S, [entry][block].
 template <typename TV, int S, bool kGram>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     block_gs_project_gram_kernel(const TV* __restrict__ v,
                                  const float* __restrict__ w,
                                  const float* __restrict__ tin,
                                  float* __restrict__ q_out,
-                                 float* __restrict__ part, int m1, int n,
-                                 int cols) {
+                                 float* __restrict__ part, int rows, int n,
+                                 int pieces, int pb, int tb) {
+  constexpr int VEC = Vec16<TV>::N;
   constexpr int kG = S * (S + 1) / 2;
-  extern __shared__ float smem[];
-  float* ts = smem;
-  float* qs = ts + S * S;
-  float* red = qs + (size_t)S * cols;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nb = gridDim.x;
-  const int c0 = blockIdx.x * cols;
-  const int len = max(0, min(cols, n - c0));
+  __shared__ float ts[S * S];
+  __shared__ float red[kWarps * kBgRows * S];
+  const int p_lo = min(pieces, (int)blockIdx.x * pb);
+  const int p_hi = min(pieces, p_lo + pb);
+  const int t_lo = min(n, pieces * VEC + (int)blockIdx.x * tb);
+  const int t_hi = min(n, t_lo + tb);
 
   for (int i = threadIdx.x; i < S * S; i += blockDim.x) ts[i] = tin[i];
   __syncthreads();
-
-  // Q = T W and the upper triangle of M = Q Q^T
   float gacc[kG];
 #pragma unroll
   for (int k = 0; k < kG; ++k) gacc[k] = 0.f;
-  for (int c = threadIdx.x; c < len; c += blockDim.x) {
-    float wc[S], q[S];
-#pragma unroll
-    for (int b = 0; b < S; ++b) wc[b] = w[(size_t)b * n + c0 + c];
-#pragma unroll
-    for (int a = 0; a < S; ++a) {
-      float t = 0.f;
-#pragma unroll
-      for (int b = 0; b < S; ++b) t = fmaf(ts[a * S + b], wc[b], t);
-      q[a] = t;
-      qs[(size_t)a * cols + c] = t;
-      q_out[(size_t)a * n + c0 + c] = t;
-    }
-    if constexpr (kGram) {
-      int k = 0;
-#pragma unroll
-      for (int a = 0; a < S; ++a)
-#pragma unroll
-        for (int b = a; b < S; ++b, ++k) gacc[k] = fmaf(q[a], q[b], gacc[k]);
-    }
-  }
+  project_sweep<TV, S, true, kGram>(v, w, ts, red, part, q_out, gacc, rows,
+                                    n, p_lo, p_hi, t_lo, t_hi);
   if constexpr (kGram) {
+    // M's partials: the row-group-0 warps of the first set (one a column
+    // share), their shares summed in order (red is free: the sweep ended
+    // in a barrier)
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nb = gridDim.x;
+    const int ng = (min(rows, kBgSetRows) + kBgRows - 1) / kBgRows;
+    const int nsh = kWarps / ng;
+    if (warp % ng == 0 && warp < ng * nsh) {
 #pragma unroll
-    for (int k = 0; k < kG; ++k) {
-      const float t = warp_sum(gacc[k]);
-      if (lane == 0) red[warp * kG + k] = t;
+      for (int k = 0; k < kG; ++k) {
+        const float t = warp_sum(gacc[k]);
+        if (lane == 0) red[(warp / ng) * kG + k] = t;
+      }
     }
     __syncthreads();
     for (int k = threadIdx.x; k < kG; k += blockDim.x) {
       float t = 0.f;
-      for (int r = 0; r < kWarps; ++r) t += red[r * kG + k];
+      for (int sh = 0; sh < nsh; ++sh) t += red[sh * kG + k];
       int a = 0, kk = k;   // entry k of the upper triangle, row by row
       while (kk >= S - a) kk -= S - a++;
-      const size_t e0 = (size_t)m1 * S;
+      const size_t e0 = (size_t)rows * S;
       part[(e0 + a * S + a + kk) * nb + blockIdx.x] = t;
       part[(e0 + (a + kk) * S + a) * nb + blockIdx.x] = t;
     }
-  }
-  __syncthreads();
-
-  // C_hat = V Q^T, eight rows at a time
-  for (int r0 = 0; r0 < m1; r0 += kRowChunk) {
-    const int nr = m1 - r0 < kRowChunk ? m1 - r0 : kRowChunk;
-    float acc[kRowChunk * S];
-#pragma unroll
-    for (int i = 0; i < kRowChunk * S; ++i) acc[i] = 0.f;
-    const TV* vr = v + (size_t)r0 * n + c0;
-    for (int c = threadIdx.x; c < len; c += blockDim.x) {
-      float vv[kRowChunk], q[S];
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-        vv[r] = r < nr ? to_f(vr[(size_t)r * n + c]) : 0.f;
-#pragma unroll
-      for (int a = 0; a < S; ++a) q[a] = qs[(size_t)a * cols + c];
-#pragma unroll
-      for (int r = 0; r < kRowChunk; ++r)
-#pragma unroll
-        for (int a = 0; a < S; ++a)
-          acc[r * S + a] = fmaf(vv[r], q[a], acc[r * S + a]);
-    }
-    block_partials<kRowChunk * S>(acc, red, part, r0 * S, nr * S, nb);
   }
 }
 
@@ -659,50 +700,34 @@ static cudaError_t launch_plain(const void* kernel, int grid, size_t smem,
   return cudaGetLastError();
 }
 
+// The projection over rows 0..rows-1 of V (pieces 16-byte pieces a row, 0:
+// the scalar route) and its reduction into out: n_out entries, C's rows *
+// s, then (gram) M's s * s, or (not gram) zeros from rows * s on.
 template <typename TV>
-static cudaError_t launch_project_gram(const void* v, const float* w,
-                                       const float* tin, float* q, float* out,
-                                       float* part, int grid, int m1, int n,
-                                       int s, cudaStream_t stream) {
-  if (m1 <= 0 || n <= 0 || grid < 1 || grid > n) return cudaErrorInvalidValue;
-  const void* kernel = nullptr;
-  cudaError_t e = project_gram_kernel_for<TV, true>(s, &kernel);
-  if (e != cudaSuccess) return e;
-  const TV* vt = static_cast<const TV*>(v);
-  int cols = (n + grid - 1) / grid;
-  const size_t smem = sizeof(float) * ((size_t)s * s + (size_t)s * cols +
-                                       (size_t)kWarps * kRowChunk * s);
-  void* args[] = {(void*)&vt, (void*)&w, (void*)&tin, (void*)&q,
-                  (void*)&part, (void*)&m1, (void*)&n, (void*)&cols};
-  e = launch_plain(kernel, grid, smem, args, stream);
-  if (e != cudaSuccess) return e;
-  // out = [C_hat (m1, s); M (s, s)]
-  return launch_reduce_partials(part, grid, (m1 + s) * s, 0, 0, out, stream);
-}
-
-// block_gs_project: the kernel reads rows 0..rows-1 of V; c (m1, s) comes
-// back with the rows past them zero.
-template <typename TV>
-static cudaError_t launch_block_project(const void* v, const float* w,
-                                        const float* tin, float* q, float* c,
-                                        float* part, int grid, int m1,
-                                        int rows, int n, int s,
-                                        cudaStream_t stream) {
-  if (m1 <= 0 || rows <= 0 || rows > m1 || n <= 0 || grid < 1 || grid > n)
+static cudaError_t launch_project(const void* v, const float* w,
+                                  const float* tin, float* q, float* out,
+                                  float* part, int grid, int rows, int n,
+                                  int s, int pieces, bool gram, int n_out,
+                                  cudaStream_t stream) {
+  constexpr int VEC = Vec16<TV>::N;
+  if (rows < 1 || n <= 0 || grid < 1 || pieces < 0 ||
+      (size_t)pieces * VEC > (size_t)n)
     return cudaErrorInvalidValue;
   const void* kernel = nullptr;
-  cudaError_t e = project_gram_kernel_for<TV, false>(s, &kernel);
+  cudaError_t e = gram ? project_gram_kernel_for<TV, true>(s, &kernel)
+                       : project_gram_kernel_for<TV, false>(s, &kernel);
   if (e != cudaSuccess) return e;
   const TV* vt = static_cast<const TV*>(v);
-  int cols = (n + grid - 1) / grid;
-  const size_t smem = sizeof(float) * ((size_t)s * s + (size_t)s * cols +
-                                       (size_t)kWarps * kRowChunk * s);
-  void* args[] = {(void*)&vt, (void*)&w, (void*)&tin, (void*)&q,
-                  (void*)&part, (void*)&rows, (void*)&n, (void*)&cols};
-  e = launch_plain(kernel, grid, smem, args, stream);
+  int pb = (pieces + grid - 1) / grid;
+  int tb = (n - pieces * VEC + grid - 1) / grid;
+  void* args[] = {(void*)&vt,   (void*)&w,    (void*)&tin,
+                  (void*)&q,    (void*)&part, (void*)&rows,
+                  (void*)&n,    (void*)&pieces, (void*)&pb,
+                  (void*)&tb};
+  e = launch_plain(kernel, grid, 0, args, stream);
   if (e != cudaSuccess) return e;
-  return launch_reduce_partials(part, grid, m1 * s, rows * s, m1 * s, c,
-                                stream);
+  return launch_reduce_partials(part, grid, n_out, gram ? 0 : rows * s,
+                                gram ? 0 : n_out, out, stream);
 }
 
 template <typename TV>
@@ -754,17 +779,21 @@ extern "C" int repro_block_gs_pass_smem(int m1, int s, int* out) {
 
 // v (m1, n) f32 or bf16, row-major (every row is read); w (s, n), tin
 // (s, s) f32; q (s, n) f32 out; out (m1 + s, s) f32 = [C_hat; M]; part
-// holds (m1 + s) s grid floats.
+// holds (m1 + s) s grid floats; grid blocks and pieces 16-byte pieces of
+// V a row (0: the scalar route) from tuning.block_gs_plan.
 extern "C" int repro_block_gs_project_gram(const void* v, int v_bf16,
                                            const float* w, const float* tin,
                                            float* q, float* out, float* part,
                                            int grid, int m1, int n, int s,
-                                           void* stream) {
+                                           int pieces, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return v_bf16 ? repro::launch_project_gram<repro::bf16>(
-                      v, w, tin, q, out, part, grid, m1, n, s, st)
-                : repro::launch_project_gram<float>(v, w, tin, q, out, part,
-                                                    grid, m1, n, s, st);
+  const int n_out = (m1 + s) * s;
+  return v_bf16 ? repro::launch_project<repro::bf16>(
+                      v, w, tin, q, out, part, grid, m1, n, s, pieces, true,
+                      n_out, st)
+                : repro::launch_project<float>(v, w, tin, q, out, part,
+                                               grid, m1, n, s, pieces, true,
+                                               n_out, st);
 }
 
 // v (m1, n) f32 or bf16, row-major; q (s, n), c (m1, s) f32; w_out (s, n)
@@ -782,15 +811,19 @@ extern "C" int repro_block_gs_update(const void* v, int v_bf16,
 }
 
 // v (m1, n) f32 or bf16, row-major, rows 0..rows-1 read; w (s, n), tin
-// (s, s) f32; q (s, n) and c (m1, s) f32 out; part holds rows s grid floats.
+// (s, s) f32; q (s, n) and c (m1, s) f32 out, c's rows past rows - 1
+// zero; part holds rows s grid floats; grid and pieces as above.
 extern "C" int repro_block_gs_project(const void* v, int v_bf16,
                                       const float* w, const float* tin,
                                       float* q, float* c, float* part,
                                       int grid, int m1, int rows, int n,
-                                      int s, void* stream) {
+                                      int s, int pieces, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return v_bf16 ? repro::launch_block_project<repro::bf16>(
-                      v, w, tin, q, c, part, grid, m1, rows, n, s, st)
-                : repro::launch_block_project<float>(
-                      v, w, tin, q, c, part, grid, m1, rows, n, s, st);
+  if (rows > m1) return cudaErrorInvalidValue;
+  return v_bf16 ? repro::launch_project<repro::bf16>(
+                      v, w, tin, q, c, part, grid, rows, n, s, pieces, false,
+                      m1 * s, st)
+                : repro::launch_project<float>(v, w, tin, q, c, part, grid,
+                                               rows, n, s, pieces, false,
+                                               m1 * s, st);
 }

@@ -300,17 +300,17 @@ cudaError_t coop_shape(Kernel kernel, int m1, int n, int smem_cap,
   return cudaErrorCooperativeLaunchTooLarge;
 }
 
-// Basis rows one projection sweep of the shared-memory-staged kernels
-// handles at once (block_gs.cu's single-reduce pair): eight loads of V in
-// flight a thread.
+// Basis rows a thread of block_gs.cu's update sums at once: eight loads of
+// V in flight a thread.
 constexpr int kRowChunk = 8;
 
 // ---------------------------------------------------------------------------
 // Partials of a plain (non-cooperative) launch, reduced by a second launch
-// (sr_payload.cu's projections, block_gs.cu's single-reduce pair).  Entry e of block b
-// is stored at part[e * nb + b], [entry][block] as in gs_pass, so a warp's
-// reads of one entry are contiguous; no float atomics anywhere, so the sums
-// come out in one fixed order and the same bits every run.
+// (sr_payload.cu's projections, block_gs.cu's single-reduce pair and
+// block_gs_project).  Entry e of block b is stored at part[e * nb + b],
+// [entry][block] as in gs_pass, so a warp's reads of one entry are
+// contiguous; no float atomics anywhere, so the sums come out in one fixed
+// order and the same bits every run.
 // ---------------------------------------------------------------------------
 
 // Sum each of the K per-thread accumulators over the block (warp shuffles,

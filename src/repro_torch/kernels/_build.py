@@ -125,16 +125,17 @@ SIGNATURES = {
     # pieces, stream
     "repro_gs_project_partial": (P, I, P, P, P, I, I, I, I, I, I, I, I, P),
     # The single-reduce block pair (two launches each: partials, then their
-    # reduction; grid = tuning.sr_grid):
-    # v, v_bf16, w, tin, q, out (m1 + s, s) = [c_hat; m], partials, grid,
-    # m1, n, s, stream
-    "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, P),
-    # v, v_bf16, q, c, w_out, g, partials, grid, m1, n, s, stream
+    # reduction): v, v_bf16, w, tin, q, out (m1 + s, s) = [c_hat; m],
+    # partials, grid, m1, n, s, pieces, stream (the plan:
+    # tuning.block_gs_plan)
+    "repro_block_gs_project_gram": (P, I, P, P, P, P, P, I, I, I, I, I, P),
+    # v, v_bf16, q, c, w_out, g, partials, grid, m1, n, s, stream (grid =
+    # tuning.sr_grid)
     "repro_block_gs_update": (P, I, P, P, P, P, P, I, I, I, I, P),
     # The row-sharded split pass's projection:
     # v, v_bf16, w, tin, q, c (m1, s), partials, grid, m1, rows, n, s,
-    # stream
-    "repro_block_gs_project": (P, I, P, P, P, P, P, I, I, I, I, I, P),
+    # pieces, stream (tuning.block_gs_plan)
+    "repro_block_gs_project": (P, I, P, P, P, P, P, I, I, I, I, I, I, P),
     # The preconditioning kernels:
     # bands, b_bf16, offsets (host int[nbands]), nbands, v, zbuf (2 n),
     # out, n, theta, 2 / delta, rho, rho_old (host float[steps]), steps,

@@ -238,8 +238,10 @@ def _card_inputs(name: str, v, *fs):
 
 
 def block_gs_plan(v: torch.Tensor, w: torch.Tensor, k_start: int) -> dict:
-    """``tuning.block_gs_plan`` for these operands on their card: 16-byte
-    pieces where V and W and their row strides are 16-byte aligned (W' is
+    """``tuning.block_gs_plan`` for these operands on their card, rows
+    0..k_start read (``block_gs_pass``, ``block_gs_project``;
+    ``block_gs_project_gram``: k_start = m1 - 1): 16-byte pieces where V
+    and W and their row strides are 16-byte aligned (W' and Q are
     allocated aligned), else the scalar route.  Cached by shape, storage,
     card and alignment: callers read the plan and never change it."""
     m1, n = v.shape
@@ -316,6 +318,41 @@ def block_gs_project_gram_plain(v: torch.Tensor, w: torch.Tensor,
     return q, v.to(acc) @ q.T, q @ q.T
 
 
+def launch_project(v: torch.Tensor, wf: torch.Tensor, tf: torch.Tensor,
+                   rows: int, plan: dict, gram: bool):
+    """One launch of the projection kernel (and its reduction) with
+    ``plan`` (``block_gs_plan``), uncounted.  ``gram``
+    (``block_gs_project_gram``, rows = m1): ``(q, out)`` with out =
+    [C_hat; M] (m1 + s, s); else (``block_gs_project``): ``(q, c)`` with
+    c's rows past rows - 1 zero.  wf and tf float32 and contiguous on v's
+    card."""
+    m1, n = v.shape
+    s = wf.shape[0]
+    dev = v.device
+    grid = plan["grid"]
+    q = torch.empty((s, n), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    args = (v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
+            tf.data_ptr(), q.data_ptr())
+    if gram:
+        out = torch.empty((m1 + s, s), dtype=torch.float32, device=dev)
+        part = torch.empty(((m1 + s) * s * grid,), dtype=torch.float32,
+                           device=dev)
+        rc = lib.repro_block_gs_project_gram(
+            *args, out.data_ptr(), part.data_ptr(), grid, m1, n, s,
+            plan["pieces"], _build.stream_ptr(v))
+    else:
+        out = torch.empty((m1, s), dtype=torch.float32, device=dev)
+        part = torch.empty((rows * s * grid,), dtype=torch.float32,
+                           device=dev)
+        rc = lib.repro_block_gs_project(
+            *args, out.data_ptr(), part.data_ptr(), grid, m1, rows, n, s,
+            plan["pieces"], _build.stream_ptr(v))
+    _build.check("block_gs_project_gram" if gram else "block_gs_project",
+                 rc)
+    return q, out
+
+
 def block_gs_project_gram(v: torch.Tensor, w: torch.Tensor,
                           tin: torch.Tensor):
     """Single-reduce projection over every row of v.  v: (m1, n); w: (s, n);
@@ -324,24 +361,16 @@ def block_gs_project_gram(v: torch.Tensor, w: torch.Tensor,
     if v.device.type == "cpu":
         return block_gs_project_gram_plain(v, w, tin)
     wf, tf = _card_inputs("block_gs_project_gram", v, w, tin)
-    m1, n = v.shape
-    s = w.shape[0]
-    dev = v.device
-    grid = tuning.sr_grid(dev, n)
-    q = torch.empty((s, n), dtype=torch.float32, device=dev)
-    out = torch.empty((m1 + s, s), dtype=torch.float32, device=dev)
-    part = torch.empty(((m1 + s) * s * grid,), dtype=torch.float32,
-                       device=dev)
-    rc = _build.library().repro_block_gs_project_gram(
-        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
-        tf.data_ptr(), q.data_ptr(), out.data_ptr(), part.data_ptr(), grid,
-        m1, n, s, _build.stream_ptr(v))
-    _build.check("block_gs_project_gram", rc)
+    m1 = v.shape[0]
+    plan = block_gs_plan(v, wf, m1 - 1)
+    q, out = launch_project(v, wf, tf, m1, plan, gram=True)
     block_gs_project_gram.launches += 1
+    block_gs_project_gram.routes[plan["route"]] += 1
     return q, out[:m1], out[m1:]
 
 
 block_gs_project_gram.launches = 0
+block_gs_project_gram.routes = {"vec": 0, "scalar": 0}
 
 
 def block_gs_update_plain(v: torch.Tensor, q: torch.Tensor, c: torch.Tensor):
@@ -405,24 +434,15 @@ def block_gs_project(v: torch.Tensor, w: torch.Tensor, tin: torch.Tensor,
     if v.device.type == "cpu":
         return block_gs_project_plain(v, w, tin, k_start)
     wf, tf = _card_inputs("block_gs_project", v, w, tin)
-    m1, n = v.shape
-    s = w.shape[0]
-    dev = v.device
-    grid = tuning.sr_grid(dev, n)
-    q = torch.empty((s, n), dtype=torch.float32, device=dev)
-    c = torch.empty((m1, s), dtype=torch.float32, device=dev)
-    part = torch.empty(((k_start + 1) * s * grid,), dtype=torch.float32,
-                       device=dev)
-    rc = _build.library().repro_block_gs_project(
-        v.data_ptr(), int(v.dtype == torch.bfloat16), wf.data_ptr(),
-        tf.data_ptr(), q.data_ptr(), c.data_ptr(), part.data_ptr(), grid,
-        m1, k_start + 1, n, s, _build.stream_ptr(v))
-    _build.check("block_gs_project", rc)
+    plan = block_gs_plan(v, wf, k_start)
+    q, c = launch_project(v, wf, tf, k_start + 1, plan, gram=False)
     block_gs_project.launches += 1
+    block_gs_project.routes[plan["route"]] += 1
     return q, c
 
 
 block_gs_project.launches = 0
+block_gs_project.routes = {"vec": 0, "scalar": 0}
 
 
 def block_gs_pass_sharded(v: torch.Tensor, w: torch.Tensor,

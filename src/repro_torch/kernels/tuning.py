@@ -11,8 +11,7 @@ no meaning here.  What the kernels need is
   (csrc/cgs2.cu, csrc/arnoldi_fused.cu, csrc/batched_cgs2.cu,
   csrc/matrix_powers.cu, csrc/block_gs.cu); the C side picks the grid from
   these with the occupancy calculator;
-- the grid of the single-reduce pair in csrc/block_gs.cu, plain launches:
-  ``sr_grid``;
+- the grid of csrc/block_gs.cu's update, a plain launch: ``sr_grid``;
 - the launch of the streaming GEMV kernels (csrc/sr_payload.cu's
   gs_update, gs_project_partial and the payload, its two right-hand
   columns: 16-byte pieces, a scalar route for misaligned operands and the
@@ -32,6 +31,7 @@ no meaning here.  What the kernels need is
   split over the active lanes by their rows, ``batched_cgs2_split``; the
   scalar solver's CGS2 (csrc/cgs2.cu): the shared-memory pass or the
   streamed one-launch cgs2, ``gs_stream_plan``; the s-step block pass
+  and the projections of the single-reduce and row-sharded passes
   (csrc/block_gs.cu): ``block_gs_plan``;
 - ``fused_step_fits``: can the fused Arnoldi step keep each block's basis
   slice in shared memory?  ``core/gmres.py`` asks this before any launch,
@@ -99,10 +99,10 @@ POWERS_BLOCKS_PER_SM = 4
 BLOCK_GS_MAX_S = 8        # accumulators per thread: s columns of Q x 8 rows
 BLOCK_GS_ROW_GROUP = 8
 BLOCK_GS_MIN_ITEMS = 64
-# The single-reduce block pair (csrc/block_gs.cu) streams V through a plain
-# grid; four blocks per SM keep enough loads in flight, and a slice of at
-# most 2048 columns keeps the (8, 2048) f32 slice of Q within 64 KB of
-# shared memory.
+# block_gs_update (csrc/block_gs.cu) takes a thread a column of its block's
+# slice of the columns over a plain grid: four blocks per SM keep enough
+# loads in flight, and at most SR_MAX_COLS columns a block (eight a thread)
+# let the grid grow with n past 4 x 132 blocks.
 SR_BLOCKS_PER_SM = 4
 SR_MAX_COLS = 2048
 # The streaming GEMV pair (csrc/sr_payload.cu: gs_update and
@@ -244,12 +244,10 @@ def persistent_grid(device, blocks_per_sm: int, max_grid: int) -> int:
 
 
 def sr_grid(device, n: int) -> int:
-    """Grid of the single-reduce block pair (csrc/block_gs.cu's
-    project-gram / update kernels): plain launches whose partials a second
-    launch reduces, so any grid is valid.  SR_BLOCKS_PER_SM blocks per SM,
-    at least a thread's worth of columns each, and at most SR_MAX_COLS
-    columns per block (the project-gram kernel keeps an (s, cols) slice of
-    Q in shared memory)."""
+    """Grid of ``block_gs_update`` (csrc/block_gs.cu): a plain launch whose
+    partials a second launch reduces, so any grid is valid.
+    SR_BLOCKS_PER_SM blocks per SM, at least a thread's worth of columns
+    each, and at most SR_MAX_COLS columns per block."""
     g = min(SR_BLOCKS_PER_SM * sm_count(device), -(-n // (32 * GS_WARPS)))
     return max(g, -(-n // SR_MAX_COLS), 1)
 
@@ -621,11 +619,22 @@ def block_gs_plan(m1: int, n: int, s: int, rows: int, elem_size: int,
                   aligned: bool, sms: int) -> dict:
     """The launch of ``block_gs_pass`` over V (m1, n) stored in
     ``elem_size`` bytes with ``rows`` = k_start + 1 valid rows and s
-    columns of W: ``grid`` blocks (at most one an SM, at least
+    columns of W, and of the projections ``block_gs_project_gram`` (rows =
+    every row given) and ``block_gs_project``, which run its projection
+    sweep as a plain launch: ``grid`` blocks (at most one an SM, at least
     BLOCK_GS_MIN_ITEMS work items a block), block b owning pieces
     [b pb, (b + 1) pb) and tail columns [pieces vec + b tb, ... + tb);
-    ``groups``: the warps' row groups of the first (only, for m1 <= 64)
-    set of rows and ``shares`` the column shares of each."""
+    ``groups``: the warps' row groups of the first (only, for rows <= 64)
+    set of rows and ``shares`` the column shares of each.
+
+    One block an SM for the projections too: at n = 2^20, 26 rows, s = 5,
+    cold, the plan on twice the SMs (264 blocks) was slower in all eight
+    pairs timed in turn (``block_gs_project_gram`` 0.0726-0.0727 ms f32
+    against 0.0679-0.0701, bf16 0.0550 against 0.0511-0.0514;
+    ``block_gs_project`` 0.0676-0.0682 against 0.0657, bf16 0.0497
+    against 0.0485-0.0486; PERF.md section 6): at s = 5 the kernels hold
+    158-250 registers a thread, so a second block of 256 threads is not
+    co-resident on an SM and runs as a second wave."""
     vec, pieces, tail = _pieces(n, elem_size, aligned)
     items = max(pieces, tail)
     grid = max(1, min(sms, -(-items // BLOCK_GS_MIN_ITEMS)))

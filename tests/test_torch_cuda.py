@@ -1794,3 +1794,88 @@ def test_banded_cheb_apply_on_the_1024_squared_stencil(dev, order, dtype):
     torch.cuda.synchronize()
     assert torch.equal(z, mp.banded_cheb_apply(bands, v, op.offsets, **kw))
     assert _relerr(z, zp) < TOL[dtype]
+
+
+# --------------------------------------------------------------------------
+# the ninth redesign: block_gs_project_gram (row 12) and block_gs_project
+# (row 10) on block_gs_pass's projection sweep
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m1,k_start,s,off", [
+    (1 << 20, 31, 25, 5, 0), (1 << 20, 31, 0, 1, 0),
+    (1 << 20, 70, 69, 8, 0),                       # two sets of rows
+    (10_000, 31, 25, 2, 0), (100_003, 31, 12, 3, 0),
+    (1027, 70, 66, 4, 0), (300, 9, 8, 6, 0),
+    (1 << 20, 31, 25, 7, 1)])                      # W 4 bytes off 16
+def test_projections_match_plain_on_both_routes(dev, n, m1, k_start, s, off,
+                                                dtype):
+    """Rows 12 and 10 against plain; row 10 never reads the rows past
+    k_start (NaN there) and writes C's rows past it as zeros; M symmetric
+    to the bit; the same bits twice; Q the same bits in both kernels."""
+    from repro_torch.kernels import block_gs
+
+    v = _basis(n, m1, k_start, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(n + s)
+    w = torch.randn(s * n + off, device=dev, generator=g)[off:].view(s, n)
+    tin = torch.triu(torch.randn(s, s, device=dev, generator=g)) \
+        + 2 * torch.eye(s, device=dev)
+    rows = k_start + 1
+    route = "vec" if off == 0 and (n * v.element_size()) % 16 == 0 \
+        and n % 4 == 0 else "scalar"
+    vp = v[:rows]
+    v_nan = v.clone()
+    v_nan[rows:] = float("nan")
+    before = (block_gs.block_gs_project_gram.launches,
+              block_gs.block_gs_project.launches,
+              dict(block_gs.block_gs_project_gram.routes),
+              dict(block_gs.block_gs_project.routes))
+    gram = block_gs.block_gs_project_gram(vp, w, tin)
+    proj = block_gs.block_gs_project(v_nan, w, tin, k_start)
+    torch.cuda.synchronize()
+    assert (block_gs.block_gs_project_gram.launches,
+            block_gs.block_gs_project.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert block_gs.block_gs_project_gram.routes[route] == before[2][route] + 1
+    assert block_gs.block_gs_project.routes[route] == before[3][route] + 1
+    for got, want in ((gram, block_gs.block_gs_project_gram_plain(vp, w,
+                                                                  tin)),
+                      (proj, block_gs.block_gs_project_plain(v, w, tin,
+                                                             k_start))):
+        for a, b in zip(got, want):
+            assert _relerr(a, b) < TOL[dtype]
+    assert not proj[1][rows:].any()
+    assert torch.equal(gram[2], gram[2].T)
+    assert torch.equal(gram[0], proj[0])
+    again = (*block_gs.block_gs_project_gram(vp, w, tin),
+             *block_gs.block_gs_project(v_nan, w, tin, k_start))
+    assert all(torch.equal(a, b) for a, b in zip((*gram, *proj), again))
+
+
+@pytest.mark.parametrize("gram", [True, False])
+def test_projections_run_only_their_own_kernels(dev, gram):
+    """One call's profile: the projection kernel and its reduction, once
+    each; no library kernel (no GEMM, no copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import block_gs
+
+    n, m1, k_start, s = 1 << 20, 31, 25, 5
+    v = _basis(n, m1, k_start, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn(s, n, device=dev, generator=g)
+    tin = torch.eye(s, device=dev)
+
+    def call():
+        if gram:
+            return block_gs.block_gs_project_gram(v[:k_start + 1], w, tin)
+        return block_gs.block_gs_project(v, w, tin, k_start)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(names) == 2 and set(names.values()) == {1}, names
+    assert any("block_gs_project_gram_kernel" in k for k in names)
+    assert any("reduce_partials_kernel" in k for k in names)
